@@ -6,18 +6,27 @@
 from the root of a checkout, on a machine with a CUDA card, PyTorch built for
 CUDA and ``nvcc``.  Phases, one JSON line each:
 
-1. card      the GPU's name and power limit (nvidia-smi);
-2. build     compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels   hold each kernel against its plain PyTorch version at the
-             slice's shapes and at ragged and small ones, and time the
-             kernel, the plain version and, where one exists, the PyTorch
-             library call that computes the same function;
-4. slice     MEERKAT-VP on full-size Llama-3.2-1B (random weights from a
-             seed): sensitivity mask, pre-training gradient, VP calibration,
-             three federated rounds of eight Dirichlet clients, evaluation
-             before and after, and one client's trajectory against the
-             server's replay; every kernel's launch count over that run must
-             be the count the run implies.
+1. card         the GPU's name and power limit (nvidia-smi);
+2. build        compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. kernels      hold each kernel against its plain PyTorch version at the
+                main path's shapes and at ragged and small ones, and time
+                the kernel, the plain version and, where one exists, the
+                PyTorch library call that computes the same function;
+4. slice        MEERKAT-VP on full-size Llama-3.2-1B (random weights from a
+                seed): sensitivity mask and pre-training gradient through
+                the flash kernels' backward, held against the dense
+                attention route (the whole-model gradient and the mask), VP
+                calibration, three federated rounds of eight Dirichlet
+                clients, evaluation before and after, and one client's
+                trajectory against the server's replay; then one more ZO
+                step under torch.profiler;
+5. first_order  the backprop baseline on the same model: two Adam steps
+                (``make_train_step``) and one FedAvg round of eight
+                Dirichlet clients (``fedavg_round``); then one more Adam
+                step under torch.profiler.
+
+Phases 4 and 5 each count every kernel's launches from zero, and each count
+must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
 last.  Any failed check raises and the script exits non-zero; without a
@@ -26,6 +35,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -45,6 +55,19 @@ T_CALI = 4
 ROUNDS = 3
 EVAL_EXAMPLES = 32
 PRETRAIN_BATCHES, PRETRAIN_BATCH = 2, 4
+# the first-order baseline: Adam steps and one FedAvg round, batch 4 x 512
+FO_BATCH = 4
+FO_ADAM_STEPS = 2
+FO_LOCAL_STEPS = 1
+FO_LR = 1e-4
+# kernel-route vs dense-route gradient of the whole model: per leaf, max |d|
+# over max |g|, within the JAX package's own whole-model rtol
+# (tests/test_attn_vjp.py); and the share of mask coordinates both pick
+GRAD_REL_BOUND = 2e-3
+MASK_OVERLAP_MIN = 0.999
+# backward kernels against their plain versions: both compute in f32 from
+# the same (widened) operands, summing up to S*G terms in another order
+BWD_REL_TOL = 1e-4
 
 # H100 SXM data sheet: HBM3 rate, and the f32 rate outside the tensor cores
 # (the kernels compute in f32 on CUDA cores)
@@ -60,7 +83,17 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/gradip_reduce.py:33"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                         "src/repro/kernels/flash_attention.py:159"),
+    "flash_attention_bwd_dq": ("src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+                               "src/repro/kernels/flash_attention.py:285"),
+    "flash_attention_bwd_dkv": (
+        "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+        "src/repro/kernels/flash_attention.py:310"),
 }
+# the variant grid of the flash kernels: (S, window, softcap, lengths)
+FLASH_VARIANTS = ((128, 0, 0.0, None),       # causal
+                  (200, 0, 0.0, (200, 77)),  # ragged S, lengths
+                  (256, 48, 0.0, None),      # window
+                  (130, 32, 30.0, (130, 1)))  # window, softcap, length 1
 
 
 def emit(phase: str, **kw) -> None:
@@ -189,10 +222,7 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
     n_var = 0
     for dtype in (torch.float32, torch.bfloat16):
         for G, dh in ((1, 64), (4, 64), (1, 128), (4, 128)):
-            for S, window, softcap, lens in ((128, 0, 0.0, None),
-                                             (200, 0, 0.0, (200, 77)),
-                                             (256, 48, 0.0, None),
-                                             (130, 32, 30.0, (130, 1))):
+            for S, window, softcap, lens in FLASH_VARIANTS:
                 q, k, v = _attn(torch, dev, gen, 2, S, 2, G, dh, dtype)
                 L = torch.tensor(lens or (S, S), device=dev)
                 o, lse = ops.flash_attention(q, k, v, L, window=window,
@@ -244,26 +274,111 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
     return out
 
 
+def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int):
+    """The dQ and dK/dV kernels against their plain versions on the same
+    (q, k, v, lengths, lse, delta, dO), bit-equal over two calls, over the
+    variant grid and at the first-order shape."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(B, S, KV, G, dh, dtype, lens, window, softcap):
+        q, k, v = _attn(torch, dev, gen, B, S, KV, G, dh, dtype)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        L = torch.tensor(lens or (S,) * B, device=dev, dtype=torch.int32)
+        o, lse = ref.flash_attention_ref(q, k, v, L, window=window,
+                                         softcap=softcap, causal=True)
+        return (q, k, v, L, lse, ref.flash_attention_delta(o, do, KV), do)
+
+    def both(args, kw):
+        return ((ops.flash_attention_bwd_dq(*args, **kw),
+                 *ops.flash_attention_bwd_dkv(*args, **kw)),
+                (ref.flash_attn_bwd_dq_ref(*args, **kw),
+                 *ref.flash_attn_bwd_dkv_ref(*args, **kw)))
+
+    def rel_err(got, want):
+        return [float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                for g, w in zip(got, want)]
+
+    n_var, worst = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for G, dh in ((1, 64), (4, 64), (1, 128), (4, 128), (6, 64)):
+            for S, window, softcap, lens in FLASH_VARIANTS:
+                kw = dict(window=window, softcap=softcap, causal=True)
+                args = inputs(2, S, 2, G, dh, dtype, lens, window, softcap)
+                got, want = both(args, kw)
+                errs = rel_err(got, want)
+                worst = max(worst, *errs)
+                if max(errs) > BWD_REL_TOL:
+                    fail(f"flash backward differs from plain: {dtype} G={G} "
+                         f"dh={dh} S={S} window={window} softcap={softcap} "
+                         f"lengths={lens}: dQ, dK, dV {errs}")
+                again = (ops.flash_attention_bwd_dq(*args, **kw),
+                         *ops.flash_attention_bwd_dkv(*args, **kw))
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"flash backward is not bit-equal over two calls: "
+                         f"{dtype} G={G} dh={dh} S={S}")
+                n_var += 1
+    emit("kernels.flash_bwd_variants", ok=True, checked=n_var,
+         max_rel_err=worst, tol=BWD_REL_TOL, repeat_bit_equal=True,
+         grid="{f32,bf16} x (G,dh) in {(1,64),(4,64),(1,128),(4,128),(6,64)}"
+              " x {causal; ragged S with lengths; window; window+softcap+"
+              "lengths with a length-1 row}")
+
+    # the first-order shape: one attention layer of a B x 512 backward
+    B, S = batch, SEQ_LEN
+    KV, G, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    kw = dict(window=0, softcap=0.0, causal=True)
+    args = inputs(B, S, KV, G, dh, torch.float32, None, 0, 0.0)
+    q, k, v, L, lse, delta, do = args
+    got, want = both(args, kw)
+    errs = rel_err(got, want)
+    if max(errs) > BWD_REL_TOL:
+        fail(f"flash backward differs from plain at the first-order shape: "
+             f"dQ, dK, dV {errs}")
+    abs_errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    del got, want
+    live = int(ref.attention_valid(S, L, window=0, causal=True).sum()) \
+        * KV * G                                   # live (query, key) pairs
+    read = 4.0 * (q.numel() + k.numel() + v.numel() + do.numel()
+                  + lse.numel() + delta.numel() + L.numel())
+    # the library yardstick: SDPA's f32 backward (dQ, dK and dV in one call)
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                  enable_gqa=True)
+    lib_ms = timed(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh),
+                   20) - timed(sdpa, 20)
+    shape = f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}"
+    out = {}
+    for name, n_ops, n_out, sl, fn, plain in (
+            ("flash_attention_bwd_dq", 6.0, q.numel(), slice(0, 1),
+             ops.flash_attention_bwd_dq, ref.flash_attn_bwd_dq_ref),
+            ("flash_attention_bwd_dkv", 8.0, k.numel() + v.numel(),
+             slice(1, 3), ops.flash_attention_bwd_dkv,
+             ref.flash_attn_bwd_dkv_ref)):
+        n_bytes = read + 4.0 * n_out
+        # per live pair: QK^T and dO V^T (2 FMA x dh each), then dS K for
+        # dQ, or P^T dO and dS^T Q for dK/dV
+        b_ms, b_by = bound(n_bytes, n_ops * dh * live)
+        out[name] = dict(
+            max_abs_err=max(abs_errs[sl]), max_rel_err=max(errs[sl]),
+            bound_ms=b_ms, bound_by=b_by,
+            ms=timed(lambda: fn(*args, **kw), 10),
+            plain_ms=timed(lambda: plain(*args, **kw), 5),
+            library_ms=lib_ms, shape=shape,
+            gflop=n_ops * dh * live / 1e9, mbytes=n_bytes / 1e6)
+    return out
+
+
 # ------------------------------------------------------------------- slice --
-def run_slice(torch, dev, cfg):
-    """The slice on ``cfg`` through the port's public API; returns
-    (launch counts over the run, the counts the run implies)."""
-    import numpy as np
-
-    import repro_torch.core as C
-    from repro_torch.configs import FLConfig
-    from repro_torch.data import (TaskSpec, dirichlet_partition,
-                                  make_task_fns, pretrain_batches,
-                                  sample_dataset, subset)
-    from repro_torch.kernels import ops
-    from repro_torch.models import Model, ModelCtx
-
-    on_card = dev.type == "cuda"
+def phase_clock(torch, on_card):
+    """(done, times, peaks, resident): ``done(name, t0)`` records the phase's
+    wall time, its peak device memory and what stays allocated after it."""
     times, peaks, resident = {}, {}, {}
 
-    def phase_done(name, t0):
-        """Record the phase's wall time, its peak device memory and what
-        stays allocated after it."""
+    def done(name, t0):
         if on_card:
             torch.cuda.synchronize()
             peaks[name] = torch.cuda.max_memory_allocated() / 1e9
@@ -273,11 +388,52 @@ def run_slice(torch, dev, cfg):
 
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+    return done, times, peaks, resident
+
+
+def named_leaves(tree, prefix=""):
+    """(path, leaf) pairs of a parameter tree, in the port's leaf order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def mask_overlap(torch, a, b, params) -> float:
+    """Share of space a's coordinates that space b selects too."""
+    def flat(space):
+        off, out = 0, []
+        for idx, leaf in zip(named_leaves(space.idx_tree),
+                             named_leaves(params)):
+            out.append(idx[1] + off)
+            off += leaf[1].numel()
+        return torch.cat(out)
+    fa = flat(a)
+    return float(torch.isin(fa, flat(b)).sum()) / max(1, fa.numel())
+
+
+def run_slice(torch, dev, cfg):
+    """The slice on ``cfg`` through the port's public API; returns
+    (launch counts over the run, the counts the run implies)."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.gradip import grad_tree
+    from repro_torch.data import (TaskSpec, dirichlet_partition,
+                                  make_task_fns, pretrain_batches,
+                                  sample_dataset, subset)
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ModelCtx
+
+    on_card = dev.type == "cuda"
+    phase_done, times, peaks, resident = phase_clock(torch, on_card)
     t0 = time.perf_counter()
+    # one model for every pass: forwards and, under autograd, the backward
+    # go through the flash kernels
     model = Model(cfg, ModelCtx(attn_backend="kernel"), device=dev)
-    # first-order passes (mask, pre-training gradient) differentiate through
-    # the dense attention route: the kernel has no backward yet
-    grad_model = Model(cfg, ModelCtx(attn_backend="dense"), device=dev)
+    # the dense attention route, only to hold the kernel route against
+    dense = Model(cfg, ModelCtx(attn_backend="dense"), device=dev)
     params = model.init(seed=SEED)
     spec = TaskSpec(vocab=512, seq_len=SEQ_LEN)
     loss, _, evaluate = make_task_fns(model, spec)
@@ -297,16 +453,36 @@ def run_slice(torch, dev, cfg):
     phase_done("eval_before", t0)
 
     t0 = time.perf_counter()
-    space = C.sensitivity_mask(lambda p, b: grad_model.loss(p, b), params,
-                               pre, density=DENSITY, device=dev)
+    space = C.sensitivity_mask(lambda p, b: model.loss(p, b), params, pre,
+                               density=DENSITY, device=dev)
     phase_done("mask", t0)
+
+    # the kernel route against the dense one: the mask, and the whole-model
+    # LM-loss gradient of one pre-training batch, leaf by leaf
+    t0 = time.perf_counter()
+    dense_space = C.sensitivity_mask(lambda p, b: dense.loss(p, b), params,
+                                     pre, density=DENSITY, device=dev)
+    overlap = mask_overlap(torch, space, dense_space, params)
+    del dense_space
+    phase_done("mask_dense", t0)
+    t0 = time.perf_counter()
+    gk = grad_tree(lambda p, b: model.loss(p, b), params, pre[0])
+    phase_done("grad_kernel", t0)
+    t0 = time.perf_counter()
+    gd = grad_tree(lambda p, b: dense.loss(p, b), params, pre[0])
+    grad_rel = {
+        name: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        for (name, a), (_, b) in zip(named_leaves(gk), named_leaves(gd))}
+    del gk, gd
+    phase_done("grad_dense", t0)
+
     fl = FLConfig(n_clients=N_CLIENTS, local_steps=1, eps=1e-3,
                   density=DENSITY, zo_backend="kernel", vp_init_steps=2,
                   vp_later_steps=2, vp_sigma_relative=True, seed=SEED)
     server = C.FederatedZO(loss, params, space, fl, clients,
                            eval_fn=evaluate, device=dev)
     t0 = time.perf_counter()
-    gp = C.pretrain_gradient_vec(lambda p, b: grad_model.loss(p, b), params,
+    gp = C.pretrain_gradient_vec(lambda p, b: model.loss(p, b), params,
                                  space, pre)
     phase_done("pretrain_gradient", t0)
     t0 = time.perf_counter()
@@ -336,24 +512,34 @@ def run_slice(torch, dev, cfg):
 
     n_steps = N_CLIENTS * T_CALI + ROUNDS * N_CLIENTS + 1
     n_forwards = 2 * n_steps + 2  # two per ZO step, plus the two evals
+    # differentiated passes on the kernel route: mask and pre-training
+    # gradient batches, and the gradient check's one
+    n_grads = 2 * PRETRAIN_BATCHES + 1
     expected = {"zo_dual_perturb_flat": n_steps,
                 "zo_fused_update_flat": n_steps,
                 "gradip_flat": N_CLIENTS * T_CALI + ROUNDS * N_CLIENTS,
-                "flash_attention": cfg.n_layers * n_forwards}
+                "flash_attention": cfg.n_layers * (n_forwards + n_grads),
+                "flash_attention_bwd_dq": cfg.n_layers * n_grads,
+                "flash_attention_bwd_dkv": cfg.n_layers * n_grads}
     scalars = [g for h in server.gradip_log.values() for g in h]
     finite = (all(np.isfinite(v) for v in (*m0.values(), *m1.values()))
               and all(np.all(np.isfinite(t)) for t in trajs)
               and all(np.all(np.isfinite(g)) for g in scalars)
               and bool(torch.isfinite(gp).all())
               and bool(torch.isfinite(gs).all()))
+    grad_ok = max(grad_rel.values()) <= GRAD_REL_BOUND
     emit("slice", model=cfg.name, n_params=model.n_params,
          mask_coords=space.n, clients=N_CLIENTS, client_batch=CLIENT_BATCH,
          seq_len=SEQ_LEN, T_cali=T_CALI, rounds=ROUNDS, flagged=flagged,
          eval_before=m0, eval_after=m1, up_bytes=server.comm.up_bytes,
          down_bytes=server.comm.down_bytes, launches=counts,
          expected_launches=expected, replay_max_rel_err=rel,
-         replay_ok=replay_ok, finite=finite, times_s=times,
-         round_s=times["rounds"] / ROUNDS,
+         replay_ok=replay_ok, finite=finite,
+         mask_overlap_kernel_vs_dense=overlap,
+         mask_overlap_min=MASK_OVERLAP_MIN,
+         grad_rel_kernel_vs_dense=grad_rel,
+         grad_rel_max=max(grad_rel.values()), grad_rel_bound=GRAD_REL_BOUND,
+         times_s=times, round_s=times["rounds"] / ROUNDS,
          zo_step_s=times["rounds"] / (ROUNDS * N_CLIENTS),
          peak_gb=peaks, resident_gb=resident,
          max_memory_allocated_gb=max(peaks.values(), default=None))
@@ -361,23 +547,113 @@ def run_slice(torch, dev, cfg):
         fail("non-finite loss, scalar or GradIP in the slice")
     if not replay_ok:
         fail(f"client delta and server replay differ (max rel {rel})")
+    if not grad_ok:
+        fail(f"kernel-route gradient differs from the dense route's: "
+             f"{grad_rel} > {GRAD_REL_BOUND}")
+    if overlap < MASK_OVERLAP_MIN:
+        fail(f"kernel-route mask overlaps the dense-route mask by {overlap}")
     if on_card:
-        profile_step(torch, run, server.params, keys, batches,
-                     torch.zeros(space.n, device=dev))
+        profile_step(torch, "zo_step", lambda: run(
+            server.params, keys, batches, torch.zeros(space.n, device=dev)))
     return counts, expected
 
 
-def profile_step(torch, run, params, keys, batches, delta0):
-    """One more ZO client step under torch.profiler: device time by kernel,
-    by kind, and the device's idle share of the step's wall time."""
+# ------------------------------------------------------------- first order --
+def run_first_order(torch, dev, cfg):
+    """The backprop baseline on ``cfg``: Adam steps through
+    ``make_train_step`` and one FedAvg round through ``fedavg_round``, on
+    the task loss, every pass through the flash kernels; returns (launch
+    counts over the run, the counts the run implies)."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.data import (TaskSpec, dirichlet_partition,
+                                  make_task_fns, sample_dataset, subset)
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ModelCtx
+    from repro_torch.train import fedavg_round, make_train_step
+    from repro_torch.utils import tree_leaves
+
+    on_card = dev.type == "cuda"
+    phase_done, times, peaks, resident = phase_clock(torch, on_card)
+    t0 = time.perf_counter()
+    model = Model(cfg, ModelCtx(attn_backend="kernel"), device=dev)
+    params = model.init(seed=SEED)
+    spec = TaskSpec(vocab=512, seq_len=SEQ_LEN)
+    loss, _, evaluate = make_task_fns(model, spec)
+    train = sample_dataset(spec, 1024, seed=1)
+    parts = dirichlet_partition(train["label"], n_clients=N_CLIENTS,
+                                alpha=0.5)
+    per_client = [C.Client(k, subset(train, p), batch_size=FO_BATCH)
+                  .next_batches(FO_LOCAL_STEPS) for k, p in enumerate(parts)]
+    client_batches = {k: np.stack([b[k] for b in per_client])
+                      for k in per_client[0]}      # [K, T, b, ...]
+    adam_batches = [{k: v[i * FO_BATCH:(i + 1) * FO_BATCH]
+                     for k, v in train.items()} for i in range(FO_ADAM_STEPS)]
+    ev = sample_dataset(spec, EVAL_EXAMPLES, seed=2)
+
+    def moved(new):
+        return max(float((a - b).abs().max())
+                   for a, b in zip(tree_leaves(new), tree_leaves(params)))
+    phase_done("setup", t0)
+
+    ops.reset_launches()  # the path starts here
+    t0 = time.perf_counter()
+    init, step = make_train_step(loss, "adam", lr=FO_LR, device=dev)
+    state, p, adam_losses = init(params), params, []
+    for b in adam_batches:
+        p, state, lval = step(p, state, b)
+        adam_losses.append(float(lval))
+    adam_moved = moved(p)
+    del state, p
+    phase_done("adam", t0)
+    t0 = time.perf_counter()
+    avg = fedavg_round(loss, params, client_batches, FO_LR,
+                       local_steps=FO_LOCAL_STEPS, device=dev)
+    fedavg_moved = moved(avg)
+    m = {k: float(v) for k, v in evaluate(avg, ev).items()}
+    del avg
+    phase_done("fedavg", t0)
+    counts = ops.launches()  # the path ends here
+
+    n_grads = FO_ADAM_STEPS + N_CLIENTS * FO_LOCAL_STEPS
+    expected = {name: 0 for name in counts}
+    expected.update({"flash_attention": cfg.n_layers * (n_grads + 1),
+                     "flash_attention_bwd_dq": cfg.n_layers * n_grads,
+                     "flash_attention_bwd_dkv": cfg.n_layers * n_grads})
+    finite = bool(np.all(np.isfinite(adam_losses))
+                  and all(np.isfinite(v) for v in m.values()))
+    emit("first_order", model=cfg.name, batch=FO_BATCH, seq_len=SEQ_LEN,
+         adam_steps=FO_ADAM_STEPS, adam_losses=adam_losses,
+         adam_max_param_change=adam_moved, fedavg_clients=N_CLIENTS,
+         fedavg_local_steps=FO_LOCAL_STEPS, fedavg_eval=m,
+         fedavg_max_param_change=fedavg_moved, lr=FO_LR, finite=finite,
+         launches=counts, expected_launches=expected, times_s=times,
+         adam_step_s=times["adam"] / FO_ADAM_STEPS,
+         fedavg_round_s=times["fedavg"], peak_gb=peaks, resident_gb=resident)
+    if not finite:
+        fail("non-finite loss in the first-order baseline")
+    if not (adam_moved > 0 and fedavg_moved > 0):
+        fail("the first-order steps left the parameters where they were")
+    if on_card:
+        state = init(params)
+        profile_step(torch, "adam_step",
+                     lambda: step(params, state, adam_batches[0]))
+    return counts, expected
+
+
+def profile_step(torch, name, step):
+    """One more step (``step()``) under torch.profiler, after a warm one:
+    device time by kernel, by kind, and the device's idle share of the
+    step's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    run(params, keys, batches, delta0)  # warm: allocator and caches
+    step()  # warm: allocator and caches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(params, keys, batches, delta0)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -388,17 +664,17 @@ def profile_step(torch, run, params, keys, batches, delta0):
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and dev_ms(e) > 0]
     kinds = {"gemm": 0.0, "ported_kernels": 0.0, "other": 0.0}
-    ported = ("flash_fwd", "dual_perturb_kernel", "fused_update_kernel",
-              "gradip_")
+    ported = ("flash_fwd", "flash_bwd", "dual_perturb_kernel",
+              "fused_update_kernel", "gradip_")
     for e in kern:
-        name = e.key.lower()
+        key = e.key.lower()
         kind = ("ported_kernels" if any(t in e.key for t in ported) else
-                "gemm" if ("gemm" in name or "cutlass" in name
-                           or "xmma" in name) else "other")
+                "gemm" if ("gemm" in key or "cutlass" in key
+                           or "xmma" in key) else "other")
         kinds[kind] += dev_ms(e)
     busy = sum(kinds.values())
     top = sorted(kern, key=dev_ms, reverse=True)[:12]
-    emit("profile.zo_step", traced=bool(kern), wall_ms=wall_ms,
+    emit(f"profile.{name}", traced=bool(kern), wall_ms=wall_ms,
          device_busy_ms=busy, idle_share=1 - busy / wall_ms if kern else None,
          by_kind_ms=kinds,
          top=[{"kernel": e.key[:90], "ms": dev_ms(e), "calls": e.count}
@@ -448,20 +724,29 @@ def main() -> int:
     rows.update(check_elementwise(torch, ops, ref, dev, n_pad))
     rows.update(check_gradip(torch, ops, ref, dev, n_mask))
     rows.update(check_flash(torch, ops, ref, dev, LLAMA32_1B, CLIENT_BATCH))
+    rows.update(check_flash_bwd(torch, ops, ref, dev, LLAMA32_1B, FO_BATCH))
     torch.cuda.empty_cache()
     emit("kernels", seconds=time.perf_counter() - t0, rows=rows)
 
-    t0 = time.perf_counter()
-    counts, expected = run_slice(torch, dev, LLAMA32_1B)
-    if counts != expected:
-        fail(f"launch counts {counts} != expected {expected}")
-    emit("slice.done", seconds=time.perf_counter() - t0)
+    launches = {name: 0 for name in KERNEL_SOURCES}
+    for phase, run in (("slice", run_slice),
+                       ("first_order", run_first_order)):
+        t0 = time.perf_counter()
+        counts, expected = run(torch, dev, LLAMA32_1B)
+        if counts != expected:
+            fail(f"{phase}: launch counts {counts} != expected {expected}")
+        for name in launches:
+            launches[name] += counts[name]
+        gc.collect()  # the phase's model and trees go before the next
+        torch.cuda.empty_cache()
+        emit(f"{phase}.done", seconds=time.perf_counter() - t0,
+             resident_gb=torch.cuda.memory_allocated() / 1e9)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": counts[name],
+                        "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -49,15 +49,21 @@ def gradip_trajectory(space, keys, gs, gp_vec):
     return torch.stack(ips), torch.stack(norms), torch.stack(coss)
 
 
-def grad_tree(loss_fn, params, batch):
-    """Gradient tree of the scalar ``loss_fn(params, batch)`` (autograd
-    through the model's dense attention route)."""
+def value_and_grad_tree(loss_fn, params, batch):
+    """(loss, gradient tree) of the scalar ``loss_fn(params, batch)``, by
+    autograd through whatever attention route the model resolves (the flash
+    kernels' recompute backward at S >= 256).  The loss is detached."""
     leaves, treedef = tree_flatten(params)
     leaves = [t.detach().requires_grad_(True) for t in leaves]
     with torch.enable_grad():
         loss = loss_fn(tree_unflatten(treedef, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
-    return tree_unflatten(treedef, list(grads))
+    return loss.detach(), tree_unflatten(treedef, list(grads))
+
+
+def grad_tree(loss_fn, params, batch):
+    """Gradient tree of the scalar ``loss_fn(params, batch)``."""
+    return value_and_grad_tree(loss_fn, params, batch)[1]
 
 
 def pretrain_gradient_vec(loss_fn, params, space, batches):

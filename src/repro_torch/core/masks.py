@@ -1,19 +1,22 @@
 """Transferable sparse-mask selection (paper §2.1; ``repro.core.masks``).
 
 MEERKAT's mask marks the top-``u`` fraction of parameters by *average squared
-gradient on pre-training data* (the C4 proxy corpus here).  The gradients
-come from torch autograd through the model's dense attention route; the
-global top-k runs on the parameters' device.
+gradient on pre-training data* (the C4 proxy corpus here).  Baselines:
+weight-magnitude, random.  The gradients come from torch autograd through
+whatever attention route the model resolves (at S >= 256 the flash kernels
+and their recompute backward); the global top-k runs on the parameters'
+device.
 """
 from __future__ import annotations
 
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
 from repro_torch.core.gradip import grad_tree
 from repro_torch.core.spaces import MaskedSpace
-from repro_torch.utils.device import resolve_device
+from repro_torch.utils.device import check_params_on, resolve_device
 from repro_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 
@@ -60,9 +63,39 @@ def sensitivity_mask(loss_fn, params, pretrain_batches, density: float,
 
     Runs on the CUDA card unless ``device`` says otherwise; ``params`` must
     already live there."""
-    device = resolve_device(device)
-    for p in tree_flatten(params)[0]:
-        if p.device.type != device.type:
-            raise ValueError(f"params live on {p.device}, not {device}")
+    check_params_on(params, resolve_device(device))
     scores = sensitivity_scores(loss_fn, params, pretrain_batches)
     return MaskedSpace(_global_topk_indices(scores, density))
+
+
+def magnitude_mask(params, density: float) -> MaskedSpace:
+    """Weight-magnitude baseline: top-u by |w|, on the parameters' device."""
+    scores = tree_map(lambda p: p.detach().float().abs(), params)
+    return MaskedSpace(_global_topk_indices(scores, density))
+
+
+def random_mask(params, density: float, seed: int = 0,
+                balanced: bool = True) -> MaskedSpace:
+    """Uniform random mask.  ``balanced`` selects round(n_i * u) coords per
+    leaf (the shard-friendly layout used for the large-arch dry-runs).  The
+    indices come from numpy's ``default_rng(seed)`` exactly as the JAX
+    package draws them, so both packages pick the same coordinates."""
+    rng = np.random.default_rng(seed)
+    leaves, treedef = tree_flatten(params)
+    sizes = [int(l.numel()) for l in leaves]
+    if balanced:
+        picks = []
+        for s in sizes:
+            k = max(1, int(round(s * density)))
+            picks.append(np.sort(rng.choice(s, size=min(k, s),
+                                            replace=False)))
+    else:
+        top = np.sort(rng.choice(sum(sizes), size=_n_select(sum(sizes),
+                                                            density),
+                                 replace=False))
+        offsets = np.concatenate([[0], np.cumsum(sizes)])
+        picks = [top[(top >= offsets[i]) & (top < offsets[i + 1])]
+                 - offsets[i] for i in range(len(leaves))]
+    return MaskedSpace(tree_unflatten(treedef, [
+        torch.as_tensor(np.asarray(i, np.int64), device=l.device)
+        for i, l in zip(picks, leaves)]))

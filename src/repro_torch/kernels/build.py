@@ -36,6 +36,10 @@ SIGNATURES = {
     "gradip_reduce": ([_P, _P, _F, _P, _P, _LL, _P], _I),
     "flash_attn_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                         _I, _F, _I, _P], _I),
+    "flash_attn_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _F, _I, _F, _I, _P], _I),
+    "flash_attn_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _F, _I, _F, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -6,7 +6,9 @@ package.  For tensors on the CPU it runs the kernel's plain version
 contiguity, allocates its outputs with ``torch.empty``, launches the kernel
 on the current stream, raises if the launch was refused, and adds one to its
 ``launches`` count.  Nothing else touches the counts, and nothing falls
-back.
+back.  The two backward wrappers have no public counterpart there (the JAX
+package calls its ``_bwd_*_call`` inside its ``custom_vjp``); they take the
+model layout, and :class:`FlashAttentionFn` chains them as that VJP does.
 
 The TPU wrappers padded flat vectors to (R, 128) tiles and transposed
 attention operands into the grouped layout; the CUDA kernels mask their own
@@ -129,34 +131,41 @@ def _lengths(lengths, B: int, S: int, device) -> torch.Tensor:
     return torch.clamp(L.expand(B), max=S).contiguous()
 
 
-def flash_attention(q, k, v, lengths=None, *, window: int = 0,
-                    softcap: float = 0.0, causal: bool = True,
-                    return_lse: bool = False):
-    """GQA flash-attention forward in the model layout: q [B, S, H, hd];
-    k, v [B, S, KV, hd] -> O [B, S, H, hd] (head h in group h // G), and
-    with ``return_lse`` also the per-row logsumexp [B, KV, S, G] f32.
-
-    ``lengths`` ([B] or a scalar; None = S) masks right-padded keys.  The
-    softmax semantics are those of ``repro.kernels.flash_attention``:
-    causal, optional sliding ``window``, tanh ``softcap`` before the mask,
-    f32 accumulation, O in q's dtype."""
+def _attn_dims(q, k, v):
+    """(B, S, KV, G, hd) of model-layout GQA operands."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     if H % KV or k.shape != (B, S, KV, hd) or v.shape != k.shape:
         raise ValueError(f"bad GQA shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    G = H // KV
-    L = _lengths(lengths, B, S, q.device)
-    if _on_cpu(q, k, v):
-        out, lse = ref.flash_attention_ref(q, k, v, L, window=window,
-                                           softcap=softcap, causal=causal)
-        return (out, lse) if return_lse else out
+    return B, S, KV, H // KV, hd
+
+
+def _check_attn_kernel(q, k, v, G, hd, *, do=None, rows=(), row_shape=()):
+    """What the flash kernels take: q, k, v (and dO) in one of f32/bf16,
+    head_dim 64 or 128, G <= 64, and f32 per-row statistics."""
     if q.dtype not in _FLOATS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share f32 or bf16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if do is not None and (do.dtype != q.dtype or do.shape != q.shape):
+        raise ValueError(f"dO must match q, got {tuple(do.shape)} {do.dtype}")
+    for t in rows:
+        if t.dtype != torch.float32 or tuple(t.shape) != row_shape:
+            raise ValueError(f"lse/delta must be f32 {row_shape}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
     if hd not in KERNEL_HEAD_DIMS or G > 64:
-        raise ValueError(f"the flash kernel takes head_dim in "
+        raise ValueError(f"the flash kernels take head_dim in "
                          f"{KERNEL_HEAD_DIMS} and G <= 64, got {hd}, {G}")
+
+
+def _flash_fwd(q, k, v, L, window, softcap, causal):
+    """(O, lse) of the forward: the kernel on CUDA, its plain version on the
+    CPU.  ``L`` is the [B] int32 lengths tensor."""
+    B, S, KV, G, hd = _attn_dims(q, k, v)
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, L, window=window,
+                                       softcap=softcap, causal=causal)
+    _check_attn_kernel(q, k, v, G, hd)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lib = build.load()
     out = torch.empty_like(q)
@@ -168,11 +177,122 @@ def flash_attention(q, k, v, lengths=None, *, window: int = 0,
         int(q.dtype == torch.bfloat16), _stream(q.device))
     build.check(lib, rc, "flash_attn_fwd")
     flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, lengths, lse, delta, do, *,
+                           window: int = 0, softcap: float = 0.0,
+                           causal: bool = True):
+    """dQ [B, S, H, hd] f32 of the flash attention, recomputed from the
+    forward's ``lse`` and ``delta = rowsum(dO * O)`` (both [B, KV, S, G]
+    f32); q, dO [B, S, H, hd] and k, v [B, S, KV, hd] in one of f32/bf16."""
+    B, S, KV, G, hd = _attn_dims(q, k, v)
+    L = _lengths(lengths, B, S, q.device)
+    if _on_cpu(q, k, v, lse, delta, do):
+        return ref.flash_attn_bwd_dq_ref(q, k, v, L, lse, delta, do,
+                                         window=window, softcap=softcap,
+                                         causal=causal)
+    _check_attn_kernel(q, k, v, G, hd, do=do, rows=(lse, delta),
+                       row_shape=(B, KV, S, G))
+    q, k, v, do, lse, delta = (t.contiguous()
+                               for t in (q, k, v, do, lse, delta))
+    lib = build.load()
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    rc = lib.flash_attn_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        L.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S,
+        KV, G, hd, int(window), float(softcap), int(bool(causal)),
+        float(hd ** -0.5), int(q.dtype == torch.bfloat16), _stream(q.device))
+    build.check(lib, rc, "flash_attn_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
+                            window: int = 0, softcap: float = 0.0,
+                            causal: bool = True):
+    """(dK, dV), each [B, S, KV, hd] f32; arguments as
+    :func:`flash_attention_bwd_dq`."""
+    B, S, KV, G, hd = _attn_dims(q, k, v)
+    L = _lengths(lengths, B, S, q.device)
+    if _on_cpu(q, k, v, lse, delta, do):
+        return ref.flash_attn_bwd_dkv_ref(q, k, v, L, lse, delta, do,
+                                          window=window, softcap=softcap,
+                                          causal=causal)
+    _check_attn_kernel(q, k, v, G, hd, do=do, rows=(lse, delta),
+                       row_shape=(B, KV, S, G))
+    q, k, v, do, lse, delta = (t.contiguous()
+                               for t in (q, k, v, do, lse, delta))
+    lib = build.load()
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    rc = lib.flash_attn_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        L.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, S, KV, G, hd, int(window), float(softcap),
+        int(bool(causal)), float(hd ** -0.5), int(q.dtype == torch.bfloat16),
+        _stream(q.device))
+    build.check(lib, rc, "flash_attn_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention (the JAX package's ``custom_vjp``):
+    the forward kernel saves only O and the per-row logsumexp, and the
+    backward runs the dQ and dK/dV recompute kernels, so no [S, S] tensor
+    outlives a tile.  Returns (O, lse); lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, L, window, softcap, causal):
+        out, lse = _flash_fwd(q, k, v, L, window, softcap, causal)
+        ctx.save_for_backward(q, k, v, L, out, lse)
+        ctx.attn = dict(window=window, softcap=softcap, causal=causal)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _):
+        q, k, v, L, out, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        # rowsum(dO * O): O(S*dh) work outside the kernels, as in the JAX
+        # package, so both passes read it as a [B, KV, S, G] stream
+        delta = ref.flash_attention_delta(out, do, k.shape[2])
+        dq = flash_attention_bwd_dq(q, k, v, L, lse, delta, do, **ctx.attn)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, L, lse, delta, do,
+                                         **ctx.attn)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
+def flash_attention(q, k, v, lengths=None, *, window: int = 0,
+                    softcap: float = 0.0, causal: bool = True,
+                    return_lse: bool = False):
+    """GQA flash attention in the model layout: q [B, S, H, hd]; k, v
+    [B, S, KV, hd] -> O [B, S, H, hd] (head h in group h // G), and with
+    ``return_lse`` also the per-row logsumexp [B, KV, S, G] f32.
+
+    ``lengths`` ([B] or a scalar; None = S) masks right-padded keys.  The
+    softmax semantics are those of ``repro.kernels.flash_attention``:
+    causal, optional sliding ``window``, tanh ``softcap`` before the mask,
+    f32 accumulation, O in q's dtype.
+
+    While autograd records through q, k or v the call goes through
+    :class:`FlashAttentionFn`, whose backward runs the recompute kernels;
+    otherwise it is one forward launch."""
+    B, S, _, _, _ = _attn_dims(q, k, v)
+    L = _lengths(lengths, B, S, q.device)
+    args = (q, k, v, L, int(window), float(softcap), bool(causal))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out, lse = FlashAttentionFn.apply(*args)
+    else:
+        out, lse = _flash_fwd(*args)
     return (out, lse) if return_lse else out
 
 
 KERNEL_WRAPPERS = (zo_dual_perturb_flat, zo_fused_update_flat, gradip_flat,
-                   flash_attention)
+                   flash_attention, flash_attention_bwd_dq,
+                   flash_attention_bwd_dkv)
 
 
 def reset_launches() -> None:

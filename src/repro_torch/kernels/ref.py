@@ -4,7 +4,9 @@ The wrappers in ``ops.py`` run these only for tensors on the CPU; on the card
 they launch the CUDA kernels, and ``chip_smoke.py`` holds each kernel
 against its plain version on the same inputs.  The arithmetic order follows
 the TPU kernels: the perturbation is taken in f32 (``eps * z``, then ``* m``),
-cast to w's dtype, and then added.
+cast to w's dtype, and then added; the flash backward recomputes the
+probabilities from the forward's logsumexp, as the TPU's recompute kernels
+do.
 """
 from __future__ import annotations
 
@@ -70,3 +72,66 @@ def flash_attention_ref(q, k, v, lengths, *, window: int = 0,
         l.permute(0, 3, 1, 2, 4)
     lse = (m + torch.log(l))[..., 0].permute(0, 1, 3, 2)  # [B, KV, S, G]
     return out.reshape(B, S, H, dh).to(q.dtype), lse.contiguous()
+
+
+def flash_attention_delta(out, do, n_kv_heads: int):
+    """delta = rowsum(dO * O) in f32, [B, KVH, S, G]: the backward's
+    per-row term, taken outside the kernels as the JAX package does
+    (``_flash_attention_bwd``).  out, do: [B, S, H, dh]."""
+    B, S, H, _ = out.shape
+    delta = (do.float() * out.float()).sum(-1)     # [B, S, H]
+    return delta.reshape(B, S, n_kv_heads, H // n_kv_heads).permute(
+        0, 2, 1, 3).contiguous()
+
+
+def _recompute_p_ds(q, k, v, lengths, lse, delta, do, *, window, softcap,
+                    causal):
+    """Dense counterpart of the TPU kernels' ``_recompute_p_ds``: p and ds
+    [B, KVH, G, Sq, Sk] f32, and q, dO grouped [B, S, KVH, G, dh] f32."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.float().reshape(B, S, KV, G, dh)
+    dog = do.float().reshape(B, S, KV, G, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (dh ** -0.5)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    valid = attention_valid(S, lengths, window=window, causal=causal)
+    valid = valid[:, None, None]                  # [B, 1, 1, Sq, Sk]
+    row = lambda t: t.permute(0, 1, 3, 2)[..., None]  # [B, KV, G, Sq, 1]
+    # explicit zero where invalid: on a row with no live key lse is ~-1e30
+    # and exp(s - lse) would overflow, not vanish
+    p = torch.where(valid, torch.exp(s - row(lse)), 0.0)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    ds = p * (dp - row(delta))
+    if softcap:
+        # s is the capped logit: d(tanh cap)/d(raw) = 1 - (s/cap)^2
+        ds = ds * (1.0 - torch.square(s / softcap))
+    return p, ds, qg, dog
+
+
+def flash_attn_bwd_dq_ref(q, k, v, lengths, lse, delta, do, *, window: int,
+                          softcap: float, causal: bool = True):
+    """dQ of the flash attention, [B, S, H, dh] f32 (``_bwd_dq_call``).
+
+    q, do [B, S, H, dh]; k, v [B, S, KVH, dh]; lengths [B] int (<= S); lse,
+    delta [B, KVH, S, G] f32 (the forward's lse, rowsum(dO * O))."""
+    B, S, H, dh = q.shape
+    _, ds, _, _ = _recompute_p_ds(q, k, v, lengths, lse, delta, do,
+                                  window=window, softcap=softcap,
+                                  causal=causal)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * (dh ** -0.5)
+    return dq.reshape(B, S, H, dh)
+
+
+def flash_attn_bwd_dkv_ref(q, k, v, lengths, lse, delta, do, *, window: int,
+                           softcap: float, causal: bool = True):
+    """(dK, dV) of the flash attention, each [B, S, KVH, dh] f32
+    (``_bwd_dkv_call``); arguments as :func:`flash_attn_bwd_dq_ref`."""
+    dh = q.shape[-1]
+    p, ds, qg, dog = _recompute_p_ds(q, k, v, lengths, lse, delta, do,
+                                     window=window, softcap=softcap,
+                                     causal=causal)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg) * (dh ** -0.5)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return dk, dv

@@ -7,10 +7,11 @@ attention runs through one dispatch point, :func:`forward_attention`, which
 selects between two routes of the same function per ``ctx.attn_backend``
 (see :func:`resolve_attn_backend`):
 
-* ``"kernel"`` — the flash-attention forward kernel
-  (``kernels/csrc/flash_attn.cu`` via ``kernels.ops.flash_attention``):
-  GQA-grouped, no [S, S] scores, forward only;
-* ``"dense"``  — materialized scores; the route autograd differentiates.
+* ``"kernel"`` — the flash-attention kernels (``kernels.ops.flash_attention``:
+  the forward of ``kernels/csrc/flash_attn.cu`` and, under autograd, the
+  recompute backward of ``kernels/csrc/flash_attn_bwd.cu``): GQA-grouped,
+  no [S, S] scores in either direction;
+* ``"dense"``  — materialized scores, differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -116,17 +117,23 @@ def resolve_attn_backend(backend, cfg, *, S: int = 0,
                          differentiable: bool = False) -> str:
     """Map a requested forward-attention backend to 'kernel' | 'dense'.
 
-    Explicit backends are honoured.  "auto" resolves to "dense" while
-    autograd records (the kernel has no backward yet), below
-    ``ATTN_AUTO_MIN_S``, or for a head layout the kernel does not take;
-    to "kernel" otherwise."""
+    Explicit backends are honoured.  "auto" resolves to "dense" below
+    ``ATTN_AUTO_MIN_S`` or for a head layout the kernel does not take, and
+    to "kernel" otherwise, whether or not autograd records
+    (``differentiable``): the kernel route differentiates through the
+    recompute backward kernels, whose saved state is O(S*dh).
+
+    This is the port's own rule.  Under grad, the JAX package on a compiled
+    TPU sends head dims off its 128-lane tile (Llama-3.2-1B's 64) to its
+    ``online`` jnp route, which the port does not have; the port's kernels
+    take head_dim 64 and 128 alike, so it takes the kernel there too."""
     backend = backend or "auto"
     if backend not in ATTN_BACKENDS:
         raise ValueError(
             f"attn backend must be one of {ATTN_BACKENDS}, got {backend!r}")
     if backend != "auto":
         return backend
-    if differentiable or S < ATTN_AUTO_MIN_S or not kernel_supports(cfg):
+    if S < ATTN_AUTO_MIN_S or not kernel_supports(cfg):
         return "dense"
     return "kernel"
 
@@ -136,15 +143,8 @@ def forward_attention(q, k, v, cfg, ctx=None, *, window: int = 0):
     [B,S,H,hd], causal (optionally banded to ``window``), on the route
     ``ctx.attn_backend`` resolves to."""
     S = q.shape[1]
-    differentiable = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
-    be = resolve_attn_backend(getattr(ctx, "attn_backend", None), cfg, S=S,
-                              differentiable=differentiable)
+    be = resolve_attn_backend(getattr(ctx, "attn_backend", None), cfg, S=S)
     if be == "kernel":
-        if differentiable:
-            raise NotImplementedError(
-                "the flash-attention kernel has no backward yet; use "
-                "attn_backend='dense' (or 'auto') under autograd")
         from repro_torch.kernels.ops import flash_attention
         out = flash_attention(q, k, v, window=window,
                               softcap=cfg.attn_softcap)

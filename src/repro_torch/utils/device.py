@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils.tree import tree_leaves
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the CUDA card, which must then be present; the CPU
@@ -15,3 +17,11 @@ def resolve_device(device=None) -> torch.device:
                 "the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def check_params_on(params, device: torch.device) -> None:
+    """Raise unless every leaf of the parameter tree lives on ``device``'s
+    kind of device (an entry point never moves parameters itself)."""
+    for p in tree_leaves(params):
+        if p.device.type != device.type:
+            raise ValueError(f"params live on {p.device}, not {device}")

@@ -86,3 +86,81 @@ def test_flash_kernel_matches_plain(dev, dtype, G, dh, S, window, softcap,
     atol = 1e-4 if dtype == torch.float32 else 1.6e-2
     torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+
+
+def _bwd_inputs(dev, dtype, B, S, KV, G, dh, lengths, window, softcap, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, KV * G, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, KV, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, KV, dh, generator=g, device=dev).to(dtype)
+    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    L = torch.tensor(lengths or (S,) * B, device=dev, dtype=torch.int32)
+    o, lse = ref.flash_attention_ref(q, k, v, L, window=window,
+                                     softcap=softcap, causal=True)
+    return q, k, v, L, lse, ref.flash_attention_delta(o, do, KV), do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,dh", [(1, 64), (4, 64), (4, 128), (1, 128),
+                                  (6, 64)])
+@pytest.mark.parametrize("S,window,softcap,lengths", [
+    (128, 0, 0.0, None), (200, 0, 0.0, (200, 77)), (256, 48, 0.0, None),
+    (130, 32, 30.0, (130, 1)), (64, 0, 0.0, (0, 64))])
+def test_flash_bwd_kernels_match_plain(dev, dtype, G, dh, S, window, softcap,
+                                       lengths):
+    args = _bwd_inputs(dev, dtype, 2, S, 2, G, dh, lengths, window, softcap,
+                       S * G + dh)
+    kw = dict(window=window, softcap=softcap, causal=True)
+    before = ops.launches()
+    got = (ops.flash_attention_bwd_dq(*args, **kw),
+           *ops.flash_attention_bwd_dkv(*args, **kw))
+    want = (ref.flash_attn_bwd_dq_ref(*args, **kw),
+            *ref.flash_attn_bwd_dkv_ref(*args, **kw))
+    # both compute in f32 from the same widened operands, summing up to
+    # S*G terms in another order: 1e-4 of the largest entry (or of 1)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32
+        tol = 1e-4 * max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+    again = (ops.flash_attention_bwd_dq(*args, **kw),
+             *ops.flash_attention_bwd_dkv(*args, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+    after = ops.launches()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_card_matches_dense(dev, dtype):
+    """torch.autograd through ops.flash_attention on the card runs the
+    forward and both backward kernels and gives the dense route's
+    gradients."""
+    from repro_torch.configs import TINY
+    from repro_torch.models import layers as L
+    B, S, KV, G, dh = 2, 300, 2, 4, 64
+    cfg = TINY.replace(n_heads=KV * G, n_kv_heads=KV, d_model=KV * G * dh)
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn(B, S, n, dh, generator=g, device=dev)
+               .to(dtype).requires_grad_(True) for n in (KV * G, KV, KV))
+    w = torch.randn(B, S, KV * G, dh, generator=g, device=dev)
+    before = ops.launches()
+    gk = torch.autograd.grad((ops.flash_attention(q, k, v).float() * w)
+                             .sum(), (q, k, v))
+    after = ops.launches()
+    for name in ("flash_attention", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1
+    mask = L.causal_mask(S, device=dev)
+    gd = torch.autograd.grad((L.gqa_attention(q, k, v, mask, cfg).float()
+                              * w).sum(), (q, k, v))
+    # f32: two summation orders, 1e-4 of the largest entry.  bf16: the
+    # kernel route takes delta = rowsum(dO * O) from the bf16-rounded O, as
+    # the JAX package's VJP does, where the dense route's autograd uses its
+    # f32 probabilities; that rounding (2^-9 relative in O) moves ds, and
+    # the gradients agree to ~0.2% of the largest entry (0.22% seen): 1%
+    frac = 1e-4 if dtype == torch.float32 else 1e-2
+    for a, b in zip(gk, gd):
+        assert a.dtype == dtype
+        torch.testing.assert_close(
+            a.float(), b.float(), rtol=0,
+            atol=frac * max(1.0, float(b.float().abs().max())))
