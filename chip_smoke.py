@@ -23,9 +23,19 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
 5. first_order  the backprop baseline on the same model: two Adam steps
                 (``make_train_step``) and one FedAvg round of eight
                 Dirichlet clients (``fedavg_round``); then one more Adam
-                step under torch.profiler.
+                step under torch.profiler;
+6. serve        serving on the same model: the continuous-batching engine
+                (8 slots, 2048 positions) over 24 requests of 32-1536
+                prompt tokens, greedy; every token held against the request
+                replayed alone, the kernel and ref decode routes against
+                each other, and the naive engine on 8 of the requests; then
+                one decode burst under torch.profiler;
+7. serve_gemma  Gemma-2-2b at full width, 2 periods (4 layers): one prompt
+                past the 4096-position window (rolling local cache) and one
+                short one, prefilled together through the flash forward at
+                head_dim 256, with the same checks but the naive engine's.
 
-Phases 4 and 5 each count every kernel's launches from zero, and each count
+Phases 4 to 7 each count every kernel's launches from zero, and each count
 must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
@@ -60,6 +70,16 @@ FO_BATCH = 4
 FO_ADAM_STEPS = 2
 FO_LOCAL_STEPS = 1
 FO_LR = 1e-4
+# serving: Llama-3.2-1B behind the continuous-batching engine, greedy
+SERVE_SLOTS, SERVE_S_MAX, SERVE_BUCKET = 8, 2048, 16
+SERVE_REQUESTS, SERVE_PROMPT_LENS, SERVE_NEW = 24, (32, 1536), (16, 96)
+# Gemma-2-2b, 2 periods at full width: one prompt past the 4096 window
+GEMMA_PROMPTS, GEMMA_NEW, GEMMA_S_MAX = (4200, 100), 32, 4352
+# an engine token must be within this share of max |logit| of the largest
+# logit of the request replayed alone; the kernel and ref decode routes'
+# logits within this share of the largest
+SERVE_TIE_REL = 1e-5
+SERVE_ROUTE_REL = 1e-4
 # kernel-route vs dense-route gradient of the whole model: per leaf, max |d|
 # over max |g|, within the JAX package's own whole-model rtol
 # (tests/test_attn_vjp.py); and the share of mask coordinates both pick
@@ -68,6 +88,10 @@ MASK_OVERLAP_MIN = 0.999
 # backward kernels against their plain versions: both compute in f32 from
 # the same (widened) operands, summing up to S*G terms in another order
 BWD_REL_TOL = 1e-4
+# decode kernel against its plain version, of the largest entry: f32 splits
+# merged in another order than one softmax; bf16 one rounding of the result
+DECODE_REL_TOL = {"f32": 1e-5, "bf16": 8e-3}
+DECODE_LAYOUTS = ((4, 64), (6, 128), (2, 256), (1, 64))
 
 # H100 SXM data sheet: HBM3 rate, and the f32 rate outside the tensor cores
 # (the kernels compute in f32 on CUDA cores)
@@ -88,6 +112,8 @@ KERNEL_SOURCES = {
     "flash_attention_bwd_dkv": (
         "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
         "src/repro/kernels/flash_attention.py:310"),
+    "flash_decode": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                     "src/repro/kernels/decode_attention.py:64"),
 }
 # the variant grid of the flash kernels: (S, window, softcap, lengths)
 FLASH_VARIANTS = ((128, 0, 0.0, None),       # causal
@@ -221,7 +247,7 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
     gen = torch.Generator(device=dev).manual_seed(3)
     n_var = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for G, dh in ((1, 64), (4, 64), (1, 128), (4, 128)):
+        for G, dh in ((1, 64), (4, 64), (1, 128), (4, 128), (2, 256)):
             for S, window, softcap, lens in FLASH_VARIANTS:
                 q, k, v = _attn(torch, dev, gen, 2, S, 2, G, dh, dtype)
                 L = torch.tensor(lens or (S, S), device=dev)
@@ -241,8 +267,9 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
                          f"lengths={lens}: O {e_o}, lse {e_l}")
                 n_var += 1
     emit("kernels.flash_variants", ok=True, checked=n_var,
-         grid="{f32,bf16} x G{1,4} x dh{64,128} x {causal; ragged S with "
-              "lengths; window; window+softcap+lengths}")
+         grid="{f32,bf16} x (G,dh) in {(1,64),(4,64),(1,128),(4,128),"
+              "(2,256)} x {causal; ragged S with lengths; window; "
+              "window+softcap+lengths}")
 
     # the slice's shape: one attention layer of the ZO loss forward
     B, S = batch, SEQ_LEN
@@ -272,6 +299,45 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
         shape=f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}",
         gflop=4.0 * dh * live / 1e9, mbytes=n_bytes / 1e6)}
     return out
+
+
+def check_flash_prefill(torch, ops, ref, dev, cfg, lengths):
+    """The forward kernel at the serve_gemma prefill wave's shape: right
+    padded rows of ``lengths`` tokens (padded to the engine's bucket),
+    head_dim 256, G 2, softcap, on the local (windowed) and the global
+    layers' masks; O and lse against the plain version, and timed."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B = len(lengths)
+    S = -(-max(lengths) // SERVE_BUCKET) * SERVE_BUCKET
+    KV, G, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    q, k, v = _attn(torch, dev, gen, B, S, KV, G, dh, torch.float32)
+    L = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    out = {}
+    for name, window in (("local", cfg.sliding_window), ("global", 0)):
+        kw = dict(window=window, softcap=cfg.attn_softcap)
+        o, lse = ops.flash_attention(q, k, v, L, return_lse=True, **kw)
+        ro, rlse = ref.flash_attention_ref(q, k, v, L, causal=True, **kw)
+        err = max(float((o - ro).abs().max()),
+                  float((lse - rlse).abs().max()))
+        del o, lse, ro, rlse
+        if err > 1e-4:
+            fail(f"flash differs from plain at the gemma prefill shape "
+                 f"({name}): {err}")
+        live = int(ref.attention_valid(S, L, window=window,
+                                       causal=True).sum()) * KV * G
+        n_bytes = 4.0 * (2 * q.numel() + k.numel() + v.numel()
+                         + B * KV * S * G + B)
+        b_ms, b_by = bound(n_bytes, 4.0 * dh * live)
+        out[name] = dict(
+            window=window, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+            ms=timed(lambda: ops.flash_attention(q, k, v, L, **kw), 5),
+            plain_ms=timed(lambda: ref.flash_attention_ref(
+                q, k, v, L, causal=True, **kw), 2),
+            gflop=4.0 * dh * live / 1e9)
+    emit("kernels.flash_gemma_prefill", ok=True, tol=1e-4,
+         shape=f"q [{B},{S},{KV * G},{dh}] f32, lengths {list(lengths)}, "
+               f"softcap {cfg.attn_softcap}", **out)
 
 
 def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int):
@@ -370,6 +436,107 @@ def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int):
             library_ms=lib_ms, shape=shape,
             gflop=n_ops * dh * live / 1e9, mbytes=n_bytes / 1e6)
     return out
+
+
+def check_flash_decode(torch, ops, ref, dev, cfg, slots: int, S: int,
+                       gemma):
+    """The decode kernel against its plain version over the variant grid
+    (two calls bit-equal, a length-0 row zeros) and at ``gemma``'s decode
+    shapes in serve_gemma (a full rolling cache and the global one), then
+    timed at the serving shape: ``slots`` rows of a full ``S``-position f32
+    cache."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def inputs(B, S, KV, G, dh, dtype):
+        q = torch.randn(B, KV, G, dh, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, S, KV, dh, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        return q, k, v
+
+    n_var, worst = 0, {"f32": 0.0, "bf16": 0.0}
+    Sg = 700
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for G, dh in DECODE_LAYOUTS:
+            for softcap in (0.0, 50.0):
+                q, k, v = inputs(5, Sg, 2, G, dh, dtype)
+                L = torch.tensor((Sg, 1, 300, 513, 0), device=dev,
+                                 dtype=torch.int32)
+                out = ops.flash_decode(q, k, v, L, softcap=softcap)
+                want = ref.decode_attention_ref(q, k, v, L, softcap)
+                rel = float((out.float() - want.float()).abs().max()) / \
+                    float(want.float().abs().max())
+                worst[name] = max(worst[name], rel)
+                if rel > DECODE_REL_TOL[name]:
+                    fail(f"flash_decode differs from plain: {dtype} G={G} "
+                         f"dh={dh} softcap={softcap}: {rel}")
+                if not torch.equal(ops.flash_decode(q, k, v, L,
+                                                    softcap=softcap), out):
+                    fail(f"flash_decode is not bit-equal over two calls: "
+                         f"{dtype} G={G} dh={dh}")
+                if not torch.equal(out[4], torch.zeros_like(out[4])):
+                    fail("flash_decode: a length-0 row is not zeros")
+                n_var += 1
+    # serve_gemma's decode: rows at the lengths its two requests reach, on
+    # the 4096-slot rolling cache and on the global one
+    KV, G, dh = gemma.n_kv_heads, gemma.n_heads // gemma.n_kv_heads, \
+        gemma.resolved_head_dim
+    W, S_g = gemma.sliding_window, GEMMA_S_MAX
+    top = [n + GEMMA_NEW for n in GEMMA_PROMPTS]
+    gemma_rows = ((W, [min(n, W) for n in top]), (S_g, top))
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for Sc, lens in gemma_rows:
+            q, k, v = inputs(len(lens), Sc, KV, G, dh, dtype)
+            L = torch.tensor(lens, device=dev, dtype=torch.int32)
+            out = ops.flash_decode(q, k, v, L, softcap=gemma.attn_softcap)
+            want = ref.decode_attention_ref(q, k, v, L, gemma.attn_softcap)
+            rel = float((out.float() - want.float()).abs().max()) / \
+                float(want.float().abs().max())
+            worst[name] = max(worst[name], rel)
+            if rel > DECODE_REL_TOL[name]:
+                fail(f"flash_decode differs from plain at gemma's shape: "
+                     f"{dtype} S={Sc} lengths={lens}: {rel}")
+            if not torch.equal(ops.flash_decode(
+                    q, k, v, L, softcap=gemma.attn_softcap), out):
+                fail(f"flash_decode is not bit-equal over two calls at "
+                     f"gemma's shape: {dtype} S={Sc}")
+            n_var += 1
+    del q, k, v, out, want
+    emit("kernels.flash_decode_variants", ok=True, checked=n_var,
+         max_rel_err=worst, tol=DECODE_REL_TOL,
+         repeat_bit_equal=True, length0_zero=True,
+         grid="{f32,bf16} x (G,dh) in {(4,64),(6,128),(2,256),(1,64)} x "
+              "softcap {0,50}; S=700, lengths (700, 1, 300, 513, 0)",
+         gemma=f"{{f32,bf16}} x q [2,{KV},{G},{dh}], softcap "
+               f"{gemma.attn_softcap}, cache {gemma_rows[0][0]} slots at "
+               f"lengths {gemma_rows[0][1]} and {gemma_rows[1][0]} at "
+               f"{gemma_rows[1][1]}")
+
+    # the serving shape: every slot at the full cache length
+    KV, G, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    q, k, v = inputs(slots, S, KV, G, dh, torch.float32)
+    L = torch.full((slots,), S, device=dev, dtype=torch.int32)
+    out = ops.flash_decode(q, k, v, L)
+    want = ref.decode_attention_ref(q, k, v, L)
+    err = float((out - want).abs().max())
+    if err > DECODE_REL_TOL["f32"] * float(want.abs().max()):
+        fail(f"flash_decode differs from plain at the serving shape: {err}")
+    n_bytes = 2.0 * int(L.sum()) * KV * dh * 4 + 4.0 * (q.numel()
+                                                         + out.numel())
+    b_ms, b_by = bound(n_bytes, 4.0 * dh * G * KV * int(L.sum()))
+    # the library yardstick: SDPA with GQA and a boolean length mask
+    qh = q.reshape(slots, KV * G, 1, dh)
+    kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+    mask = (torch.arange(S, device=dev)[None, :] < L[:, None])[:, None, None]
+    return {"flash_decode": dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        ms=timed(lambda: ops.flash_decode(q, k, v, L), 50),
+        plain_ms=timed(lambda: ref.decode_attention_ref(q, k, v, L), 20),
+        library_ms=timed(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True), 50),
+        shape=f"q [{slots},{KV},{G},{dh}], cache [{slots},{S},{KV},{dh}] "
+              f"f32, lengths {S}", mbytes=n_bytes / 1e6)}
 
 
 # ------------------------------------------------------------------- slice --
@@ -515,12 +682,13 @@ def run_slice(torch, dev, cfg):
     # differentiated passes on the kernel route: mask and pre-training
     # gradient batches, and the gradient check's one
     n_grads = 2 * PRETRAIN_BATCHES + 1
-    expected = {"zo_dual_perturb_flat": n_steps,
-                "zo_fused_update_flat": n_steps,
-                "gradip_flat": N_CLIENTS * T_CALI + ROUNDS * N_CLIENTS,
-                "flash_attention": cfg.n_layers * (n_forwards + n_grads),
-                "flash_attention_bwd_dq": cfg.n_layers * n_grads,
-                "flash_attention_bwd_dkv": cfg.n_layers * n_grads}
+    expected = {name: 0 for name in counts}
+    expected.update({"zo_dual_perturb_flat": n_steps,
+                     "zo_fused_update_flat": n_steps,
+                     "gradip_flat": N_CLIENTS * T_CALI + ROUNDS * N_CLIENTS,
+                     "flash_attention": cfg.n_layers * (n_forwards + n_grads),
+                     "flash_attention_bwd_dq": cfg.n_layers * n_grads,
+                     "flash_attention_bwd_dkv": cfg.n_layers * n_grads})
     scalars = [g for h in server.gradip_log.values() for g in h]
     finite = (all(np.isfinite(v) for v in (*m0.values(), *m1.values()))
               and all(np.all(np.isfinite(t)) for t in trajs)
@@ -642,6 +810,206 @@ def run_first_order(torch, dev, cfg):
     return counts, expected
 
 
+# ------------------------------------------------------------------- serve --
+def timed_engine(torch, base):
+    """The engine class with a synchronized host clock around each
+    admission wave (prefill) and each decode burst: one sync per wave and
+    per burst, none per token."""
+    class Timed(base):
+        prefill_s = decode_s = 0.0
+
+        def _admit(self):
+            t0 = time.perf_counter()
+            super()._admit()
+            torch.cuda.synchronize()
+            Timed.prefill_s += time.perf_counter() - t0
+
+        def _decode(self, n_steps, remaining, key):
+            t0 = time.perf_counter()
+            out = super()._decode(n_steps, remaining, key)
+            torch.cuda.synchronize()
+            Timed.decode_s += time.perf_counter() - t0
+            return out
+    return Timed
+
+
+def teacher_forced(torch, model, params, prompt, toks, S_max):
+    """Replay one request alone: prefill, then ``decode_step`` fed the
+    engine's own tokens.  Returns (worst shortfall of each token's logit
+    below the step's largest, over max |logit|; near-ties: steps where the
+    token is within the bound but not the argmax)."""
+    logits, cache = model.prefill(params, {"tokens": prompt[None]},
+                                  S_max=S_max)
+    t = torch.as_tensor(toks, device=model.device).long()
+    rows = []
+    for i in range(len(toks)):
+        lg = logits[0]
+        rows.append(torch.stack([(lg.max() - lg[t[i]]) / lg.abs().max(),
+                                 (lg.argmax() != t[i]).float()]))
+        if i + 1 < len(toks):
+            logits, cache = model.decode_step(params, t[i:i + 1].int(),
+                                              cache)
+    r = torch.stack(rows).cpu()
+    return float(r[:, 0].max()), int(r[:, 1].sum())
+
+
+def route_gap(torch, models, params, prompt, toks, S_max):
+    """Largest |logit| difference between the decode routes of ``models``
+    (kernel, ref), teacher-forced on the same tokens from one prefill, over
+    the step's largest |logit|."""
+    from repro_torch.utils import tree_map
+    logits, cache = models[0].prefill(params, {"tokens": prompt[None]},
+                                      S_max=S_max)
+    caches = [cache] + [tree_map(torch.clone, cache) for _ in models[1:]]
+    t = torch.as_tensor(toks, device=models[0].device).int()
+    gaps = []
+    for i in range(len(toks)):
+        out = [m.decode_step(params, t[i:i + 1], c)[0]
+               for m, c in zip(models, caches)]
+        gaps.append((out[0] - out[1]).abs().max() / out[1].abs().max())
+    return float(torch.stack(gaps).max())
+
+
+def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
+              naive_reqs, label):
+    """Serving on ``cfg`` through the port's public API: the
+    continuous-batching engine over ``prompts`` (greedy), then its checks:
+    every token against the request replayed alone, the kernel and ref
+    decode routes, and the naive engine.  Returns (launch counts over the
+    engine's run, the counts the run implies)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ModelCtx
+    from repro_torch.models import layers as L
+    from repro_torch.serving import ContinuousBatchingEngine, ServeEngine
+
+    on_card = dev.type == "cuda"
+    phase_done, times, peaks, resident = phase_clock(torch, on_card)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(seed=SEED)
+    Engine = timed_engine(torch, ContinuousBatchingEngine) if on_card \
+        else ContinuousBatchingEngine
+    engine = Engine(model, params, max_slots=slots, S_max=S_max,
+                    bucket=SERVE_BUCKET)
+    for p, m in zip(prompts, news):
+        engine.submit(p, max_new_tokens=m)
+    phase_done("setup", t0)
+
+    ops.reset_launches()  # the path starts here
+    t0 = time.perf_counter()
+    outs = engine.run()
+    phase_done("engine", t0)
+    counts = ops.launches()  # the path ends here
+    stats = engine.stats
+    n_tok = sum(len(o) for o in outs)
+    kernel_decode = L.resolve_decode_backend("auto", cfg) == "kernel"
+    long_waves = sum(1 for _, S_pad in engine.prefill_waves
+                     if L.resolve_attn_backend("auto", cfg, S=S_pad)
+                     == "kernel")
+    expected = {name: 0 for name in counts}
+    expected["flash_attention"] = cfg.n_layers * long_waves
+    expected["flash_decode"] = (cfg.n_layers * stats["decode_steps"]
+                                if kernel_decode else 0)
+
+    t0 = time.perf_counter()
+    worst, ties = 0.0, 0
+    for p, o in zip(prompts, outs):
+        w, n = teacher_forced(torch, model, params, p, o, len(p) + len(o))
+        worst, ties = max(worst, w), ties + n
+    phase_done("check_single", t0)
+    t0 = time.perf_counter()
+    routes = (model, Model(cfg, ModelCtx(decode_backend="ref"), device=dev))
+    gap = max(route_gap(torch, routes, params, prompts[i], outs[i],
+                        len(prompts[i]) + len(outs[i])) for i in route_reqs)
+    phase_done("check_routes", t0)
+    naive_worst, naive_ties, naive_same = 0.0, 0, None
+    if naive_reqs:
+        t0 = time.perf_counter()
+        naive = ServeEngine(model, params, max_batch=slots,
+                            bucket=SERVE_BUCKET)
+        for i in naive_reqs:
+            naive.submit(prompts[i], max_new_tokens=news[i])
+        nouts = naive.flush()
+        same = [bool(np.array_equal(a, outs[i]))
+                for a, i in zip(nouts, naive_reqs)]
+        naive_same = sum(same)
+        # tokens equal to the engine's passed the check above already
+        for a, i, eq in zip(nouts, naive_reqs, same):
+            if not eq:
+                w, n = teacher_forced(torch, model, params, prompts[i], a,
+                                      len(prompts[i]) + len(a))
+                naive_worst, naive_ties = max(naive_worst, w), naive_ties + n
+        phase_done("check_naive", t0)
+
+    engine_s = times["engine"]
+    emit(label, model=cfg.name, n_layers=cfg.n_layers, n_params=model.n_params,
+         requests=len(prompts), slots=slots, S_max=S_max,
+         prompt_tokens=int(sum(len(p) for p in prompts)),
+         generated_tokens=n_tok, decode_steps=stats["decode_steps"],
+         prefill_waves=engine.prefill_waves,
+         prefill_s=getattr(engine, "prefill_s", None),
+         decode_s=getattr(engine, "decode_s", None), engine_s=engine_s,
+         tokens_per_s=n_tok / engine_s, ttft_mean_s=stats["ttft_mean_s"],
+         single_worst_gap=worst, single_near_ties=ties,
+         tie_bound=SERVE_TIE_REL, route_gap=gap, route_bound=SERVE_ROUTE_REL,
+         route_requests=list(route_reqs), naive_requests=list(naive_reqs),
+         naive_same_tokens=naive_same, naive_worst_gap=naive_worst,
+         naive_near_ties=naive_ties, launches=counts,
+         expected_launches=expected, times_s=times, peak_gb=peaks,
+         resident_gb=resident)
+    if len(outs) != len(prompts) or any(len(o) != m
+                                        for o, m in zip(outs, news)):
+        fail(f"{label}: the engine returned the wrong number of tokens")
+    if worst > SERVE_TIE_REL or naive_worst > SERVE_TIE_REL:
+        fail(f"{label}: a token is not the argmax of the request replayed "
+             f"alone (engine {worst}, naive {naive_worst} > {SERVE_TIE_REL})")
+    if gap > SERVE_ROUTE_REL:
+        fail(f"{label}: kernel and ref decode routes differ by {gap}")
+    if on_card and kernel_decode:
+        # one burst under the profiler: fill every slot, then a warm step
+        # (admission and a 32-token burst) and a profiled 8-token burst
+        for p in prompts[:slots]:
+            engine.submit(p[:64], max_new_tokens=40)
+        profile_step(torch, f"{label}_decode_burst", engine.step)
+    return counts, expected
+
+
+def serve_traffic(vocab):
+    """SERVE_REQUESTS prompts of uniform length in SERVE_PROMPT_LENS and
+    budgets in SERVE_NEW, from numpy's default_rng(0)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1] + 1,
+                        SERVE_REQUESTS)
+    news = [int(n) for n in rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1,
+                                         SERVE_REQUESTS)]
+    prompts = [rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens]
+    return prompts, news
+
+
+def run_serve_llama(torch, dev, cfg):
+    prompts, news = serve_traffic(cfg.vocab)
+    return run_serve(torch, dev, cfg, prompts=prompts, news=news,
+                     S_max=SERVE_S_MAX, slots=SERVE_SLOTS,
+                     route_reqs=range(4), naive_reqs=range(8), label="serve")
+
+
+def run_serve_gemma(torch, dev, cfg):
+    """Gemma-2-2b at full width, 2 periods (4 layers): a prompt longer than
+    the 4096-position window fills the rolling local cache; the prefill wave
+    and the decode kernel run with softcap at head_dim 256, G 2."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in GEMMA_PROMPTS]
+    return run_serve(torch, dev, cfg, prompts=prompts,
+                     news=[GEMMA_NEW] * len(prompts), S_max=GEMMA_S_MAX,
+                     slots=len(prompts), route_reqs=range(len(prompts)),
+                     naive_reqs=(), label="serve_gemma")
+
+
 def profile_step(torch, name, step):
     """One more step (``step()``) under torch.profiler, after a warm one:
     device time by kernel, by kind, and the device's idle share of the
@@ -665,7 +1033,8 @@ def profile_step(torch, name, step):
             if e.device_type == DeviceType.CUDA and dev_ms(e) > 0]
     kinds = {"gemm": 0.0, "ported_kernels": 0.0, "other": 0.0}
     ported = ("flash_fwd", "flash_bwd", "dual_perturb_kernel",
-              "fused_update_kernel", "gradip_")
+              "fused_update_kernel", "gradip_", "decode_split",
+              "decode_combine")
     for e in kern:
         key = e.key.lower()
         kind = ("ported_kernels" if any(t in e.key for t in ported) else
@@ -703,7 +1072,7 @@ def main() -> int:
     emit("card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
 
-    from repro_torch.configs import LLAMA32_1B
+    from repro_torch.configs import GEMMA2_2B, LLAMA32_1B
     from repro_torch.kernels import build, ops, ref
     t0 = time.perf_counter()
     build.load()
@@ -723,16 +1092,22 @@ def main() -> int:
     rows = {}
     rows.update(check_elementwise(torch, ops, ref, dev, n_pad))
     rows.update(check_gradip(torch, ops, ref, dev, n_mask))
+    gemma = GEMMA2_2B.replace(n_layers=GEMMA2_2B.period * 2)
     rows.update(check_flash(torch, ops, ref, dev, LLAMA32_1B, CLIENT_BATCH))
+    check_flash_prefill(torch, ops, ref, dev, gemma, GEMMA_PROMPTS)
     rows.update(check_flash_bwd(torch, ops, ref, dev, LLAMA32_1B, FO_BATCH))
+    rows.update(check_flash_decode(torch, ops, ref, dev, LLAMA32_1B,
+                                   SERVE_SLOTS, SERVE_S_MAX, gemma))
     torch.cuda.empty_cache()
     emit("kernels", seconds=time.perf_counter() - t0, rows=rows)
 
     launches = {name: 0 for name in KERNEL_SOURCES}
-    for phase, run in (("slice", run_slice),
-                       ("first_order", run_first_order)):
+    for phase, run, cfg in (("slice", run_slice, LLAMA32_1B),
+                            ("first_order", run_first_order, LLAMA32_1B),
+                            ("serve", run_serve_llama, LLAMA32_1B),
+                            ("serve_gemma", run_serve_gemma, gemma)):
         t0 = time.perf_counter()
-        counts, expected = run(torch, dev, LLAMA32_1B)
+        counts, expected = run(torch, dev, cfg)
         if counts != expected:
             fail(f"{phase}: launch counts {counts} != expected {expected}")
         for name in launches:

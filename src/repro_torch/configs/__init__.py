@@ -1,3 +1,17 @@
 from repro_torch.configs.base import FLConfig, ModelConfig
 from repro_torch.configs.paper_models import GEMMA2_2B, LLAMA32_1B, QWEN2_1_5B
 from repro_torch.configs.tiny import TINY
+
+# the port's architectures by name (the JAX package's ``REGISTRY`` holds
+# more; the port has the paper's models and the tiny test config)
+REGISTRY = {"tiny": TINY,
+            **{c.name: c for c in (LLAMA32_1B, QWEN2_1_5B, GEMMA2_2B)}}
+
+
+def get_config(name: str) -> ModelConfig:
+    """The config of ``name``; ``<name>-reduced`` gives its ``reduced()``."""
+    if name.endswith("-reduced"):
+        return get_config(name[: -len("-reduced")]).reduced()
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
+    return REGISTRY[name]

@@ -1,11 +1,12 @@
 """Bridges from the JAX package's numpy-converted trees to the port's
-tensors, so that both packages can be fed the same parameters and masks.
+tensors, so that both packages can be fed the same parameters, caches and
+masks.
 
 ``params_from_numpy`` takes the pytree ``jax.tree.map(np.asarray, params)``
-(nested dicts of numpy arrays); ``space_from_numpy`` takes a mask's
-``idx_tree`` converted the same way.  Dict keys keep their names, and the
-port's ``tree_leaves`` walks them sorted as ``jax.tree_util`` does, so the
-flat layouts agree.
+(nested dicts of numpy arrays); ``cache_from_numpy`` a serving cache and
+``space_from_numpy`` a mask's ``idx_tree``, converted the same way.  Dict
+keys keep their names, and the port's ``tree_leaves`` walks them sorted as
+``jax.tree_util`` does, so the flat layouts agree.
 """
 from __future__ import annotations
 
@@ -20,6 +21,14 @@ def params_from_numpy(tree, device="cpu"):
     """Nested dict of numpy arrays -> the port's dict of tensors."""
     return tree_map(lambda a: torch.as_tensor(np.array(a), device=device),
                     tree)
+
+
+def cache_from_numpy(cache, device="cpu"):
+    """A JAX serving cache converted by ``jax.tree.map(np.asarray, cache)``
+    (``{"stack": {"p{i}": {"k", "v"}}, "pos"}``) -> the port's cache of
+    tensors on ``device``, so both packages can decode from one cache."""
+    return tree_map(lambda a: torch.as_tensor(np.array(a), device=device),
+                    cache)
 
 
 def space_from_numpy(idx_tree, device="cpu") -> MaskedSpace:

@@ -20,6 +20,10 @@ by at most 3 ulp, on about 1% of the values (tests/test_torch_prng.py): the
 rest of the gap is ``log1p``.  Replay inside the port is bit-exact either way,
 because the client and the server draw z through this one function on one
 device.
+
+``gumbel`` and ``categorical`` (temperature sampling in serving) follow
+``jax.random.gumbel`` and ``categorical``: their uniforms are bit-exact, and
+each of their two logs may land one ulp from XLA's.
 """
 from __future__ import annotations
 
@@ -135,3 +139,21 @@ def normal(k: torch.Tensor, n: int, device=None) -> torch.Tensor:
     u = uniform(k, n, lo, 1.0, device)
     return torch.tensor(math.sqrt(2), dtype=torch.float32,
                         device=device) * erfinv(u)
+
+
+def gumbel(k: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(k, shape, float32)`` (mode "low", jax 0.9's
+    default): -log(-log(u)) with u uniform on [tiny, 1), tiny the smallest
+    normal float32.  Multi-dimensional shapes draw the flat stream in
+    row-major order, as the partitionable threefry does."""
+    shape = tuple(shape)
+    u = uniform(k, math.prod(shape), torch.finfo(torch.float32).tiny, 1.0,
+                device)
+    return -torch.log(-torch.log(u)).reshape(shape)
+
+
+def categorical(k: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(k, logits, axis=-1)``: the Gumbel-max trick,
+    argmax(gumbel + logits) over the last axis (first index on ties)."""
+    g = gumbel(k, logits.shape, logits.device).to(logits.dtype)
+    return torch.argmax(g + logits, dim=-1)

@@ -30,6 +30,10 @@
 //   with no live (query, key) pair, and masked lanes get an explicit p = 0,
 //   as there (a fully masked row keeps m = -1e30, where exp(s - m) is 1).
 // Scores use CUDA-core FMAs over a 4x4 register tile per thread.
+// head_dim 64, 128 and 256 (Gemma-2).  The tiles stay 64 x 64 at every
+// head_dim, so shared memory grows with it: 65.5, 113.5 and 209.5 KiB a
+// block, the last within the 227 KiB a Hopper block may opt into (one
+// block per SM at head_dim 256).
 #include "common.cuh"
 
 using namespace repro;
@@ -235,6 +239,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
   }
 }
 
+static_assert(sizeof(float) * smem_floats<256>() <= 227 * 1024,
+              "head_dim 256 exceeds a Hopper block's shared memory");
+
 template <typename T, int DH>
 cudaError_t launch(const Params& p, int B, cudaStream_t st) {
   const size_t smem = sizeof(float) * smem_floats<DH>();
@@ -268,6 +275,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if (dh == 128) {
     return is_bf16 ? launch<__nv_bfloat16, 128>(p, B, st)
                    : launch<float, 128>(p, B, st);
+  }
+  if (dh == 256) {
+    return is_bf16 ? launch<__nv_bfloat16, 256>(p, B, st)
+                   : launch<float, 256>(p, B, st);
   }
   return cudaErrorInvalidValue;
 }

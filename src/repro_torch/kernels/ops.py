@@ -10,9 +10,10 @@ back.  The two backward wrappers have no public counterpart there (the JAX
 package calls its ``_bwd_*_call`` inside its ``custom_vjp``); they take the
 model layout, and :class:`FlashAttentionFn` chains them as that VJP does.
 
-The TPU wrappers padded flat vectors to (R, 128) tiles and transposed
-attention operands into the grouped layout; the CUDA kernels mask their own
-ragged edges and read the model layout, so neither step is needed here.
+The TPU wrappers padded flat vectors to (R, 128) tiles, transposed
+attention operands into the grouped layout and padded decode caches to a
+block multiple; the CUDA kernels mask their own ragged edges and read the
+model layout, so none of these steps is needed here.
 """
 from __future__ import annotations
 
@@ -20,7 +21,11 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)  # the flash forward
+BWD_HEAD_DIMS = (64, 128)          # the flash backward
+DECODE_HEAD_DIMS = (64, 128, 256)
+DECODE_MAX_G = 16
+DECODE_CHUNK = 256  # cache positions per split of the decode kernel
 _FLOATS = (torch.float32, torch.bfloat16)
 _GRADIP_SCRATCH = 1024  # partial sums of the first pass (gradip.cu)
 
@@ -141,9 +146,11 @@ def _attn_dims(q, k, v):
     return B, S, KV, H // KV, hd
 
 
-def _check_attn_kernel(q, k, v, G, hd, *, do=None, rows=(), row_shape=()):
+def _check_attn_kernel(q, k, v, G, hd, *, dims=KERNEL_HEAD_DIMS, do=None,
+                       rows=(), row_shape=()):
     """What the flash kernels take: q, k, v (and dO) in one of f32/bf16,
-    head_dim 64 or 128, G <= 64, and f32 per-row statistics."""
+    a head_dim in ``dims`` (the forward's, or the backward's
+    ``BWD_HEAD_DIMS``), G <= 64, and f32 per-row statistics."""
     if q.dtype not in _FLOATS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share f32 or bf16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -153,9 +160,9 @@ def _check_attn_kernel(q, k, v, G, hd, *, do=None, rows=(), row_shape=()):
         if t.dtype != torch.float32 or tuple(t.shape) != row_shape:
             raise ValueError(f"lse/delta must be f32 {row_shape}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    if hd not in KERNEL_HEAD_DIMS or G > 64:
-        raise ValueError(f"the flash kernels take head_dim in "
-                         f"{KERNEL_HEAD_DIMS} and G <= 64, got {hd}, {G}")
+    if hd not in dims or G > 64:
+        raise ValueError(f"the flash kernel takes head_dim in {dims} and "
+                         f"G <= 64, got {hd}, {G}")
 
 
 def _flash_fwd(q, k, v, L, window, softcap, causal):
@@ -192,8 +199,8 @@ def flash_attention_bwd_dq(q, k, v, lengths, lse, delta, do, *,
         return ref.flash_attn_bwd_dq_ref(q, k, v, L, lse, delta, do,
                                          window=window, softcap=softcap,
                                          causal=causal)
-    _check_attn_kernel(q, k, v, G, hd, do=do, rows=(lse, delta),
-                       row_shape=(B, KV, S, G))
+    _check_attn_kernel(q, k, v, G, hd, dims=BWD_HEAD_DIMS, do=do,
+                       rows=(lse, delta), row_shape=(B, KV, S, G))
     q, k, v, do, lse, delta = (t.contiguous()
                                for t in (q, k, v, do, lse, delta))
     lib = build.load()
@@ -219,8 +226,8 @@ def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
         return ref.flash_attn_bwd_dkv_ref(q, k, v, L, lse, delta, do,
                                           window=window, softcap=softcap,
                                           causal=causal)
-    _check_attn_kernel(q, k, v, G, hd, do=do, rows=(lse, delta),
-                       row_shape=(B, KV, S, G))
+    _check_attn_kernel(q, k, v, G, hd, dims=BWD_HEAD_DIMS, do=do,
+                       rows=(lse, delta), row_shape=(B, KV, S, G))
     q, k, v, do, lse, delta = (t.contiguous()
                                for t in (q, k, v, do, lse, delta))
     lib = build.load()
@@ -290,9 +297,61 @@ def flash_attention(q, k, v, lengths=None, *, window: int = 0,
     return (out, lse) if return_lse else out
 
 
+def flash_decode(q, k, v, length, softcap: float = 0.0):
+    """One-token GQA decode attention (``repro.kernels.ops.flash_decode``):
+    q [B, KVH, G, dh] (the query grouped per KV head); k, v [B, S, KVH, dh]
+    (the cache in the model layout); ``length`` a scalar or per-row [B]
+    (each row's live cache prefix, clamped to S).  Returns [B, KVH, G, dh]
+    in q's dtype; a row of length 0 gets zeros.
+
+    On CUDA it launches ``csrc/decode_attn.cu`` (split-S pass, then a
+    fixed-order combine) on contiguous operands as they come from the model;
+    it copies nothing and pads nothing."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_decode takes q [B, KVH, G, dh] and k, v "
+                         f"[B, S, KVH, dh], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    B, KV, G, dh = q.shape
+    S = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, KV, dh) \
+            or v.shape != k.shape:
+        raise ValueError(f"bad decode shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if _on_cpu(q, k, v):
+        return ref.decode_attention_ref(q, k, v, length, softcap)
+    if q.dtype not in _FLOATS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must share f32 or bf16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if dh not in DECODE_HEAD_DIMS or not 1 <= G <= DECODE_MAX_G:
+        raise ValueError(f"the decode kernel takes head_dim in "
+                         f"{DECODE_HEAD_DIMS} and G <= {DECODE_MAX_G}, got "
+                         f"{dh}, {G}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_decode operands must be contiguous")
+    if any(t.data_ptr() % (4 * t.element_size()) for t in (k, v)):
+        raise ValueError("flash_decode reads the cache in 4-element vectors: "
+                         "k and v must be aligned to 4 elements")
+    L = _lengths(length, B, S, q.device)
+    n_split = -(-S // DECODE_CHUNK)
+    lib = build.load()
+    part_o = torch.empty((B, KV, n_split, G, dh), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((B, KV, n_split, G, 2), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty_like(q)
+    rc = lib.flash_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), L.data_ptr(),
+        part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, S, KV, G,
+        dh, DECODE_CHUNK, float(softcap), float(dh ** -0.5),
+        int(q.dtype == torch.bfloat16), _stream(q.device))
+    build.check(lib, rc, "flash_decode")
+    flash_decode.launches += 1
+    return out
+
+
 KERNEL_WRAPPERS = (zo_dual_perturb_flat, zo_fused_update_flat, gradip_flat,
                    flash_attention, flash_attention_bwd_dq,
-                   flash_attention_bwd_dkv)
+                   flash_attention_bwd_dkv, flash_decode)
 
 
 def reset_launches() -> None:

@@ -6,7 +6,8 @@ against its plain version on the same inputs.  The arithmetic order follows
 the TPU kernels: the perturbation is taken in f32 (``eps * z``, then ``* m``),
 cast to w's dtype, and then added; the flash backward recomputes the
 probabilities from the forward's logsumexp, as the TPU's recompute kernels
-do.
+do; the decode attention masks with an explicit zero, so a row without a
+live key is zeros.
 """
 from __future__ import annotations
 
@@ -72,6 +73,32 @@ def flash_attention_ref(q, k, v, lengths, *, window: int = 0,
         l.permute(0, 3, 1, 2, 4)
     lse = (m + torch.log(l))[..., 0].permute(0, 1, 3, 2)  # [B, KV, S, G]
     return out.reshape(B, S, H, dh).to(q.dtype), lse.contiguous()
+
+
+def decode_attention_ref(q, k, v, length, softcap: float = 0.0):
+    """One-token GQA decode (``repro.kernels.ref.decode_attention_ref``):
+    q [B, KVH, G, dh]; k, v [B, S, KVH, dh]; ``length`` a scalar or per-row
+    [B] int (the live cache prefix).  Scores (q.k) * dh^-0.5, then the tanh
+    ``softcap``, then the mask ``pos < length``; softmax in f32; out
+    [B, KVH, G, dh] in q's dtype.
+
+    A row of length <= 0 has no live key and gets zeros, as the kernel
+    leaves it (the port's rule: the JAX package's kernel and plain version
+    average V over the whole capacity there)."""
+    B, KV, G, dh = q.shape
+    S = k.shape[1]
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * (dh ** -0.5)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    L = torch.as_tensor(length, device=q.device).reshape(-1).expand(B)
+    valid = (torch.arange(S, device=q.device)[None, :] < L[:, None])
+    valid = valid[:, None, None, :]               # [B, 1, 1, S]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float()) / l
+    return out.to(q.dtype)
 
 
 def flash_attention_delta(out, do, n_kv_heads: int):

@@ -12,13 +12,20 @@ selects between two routes of the same function per ``ctx.attn_backend``
   recompute backward of ``kernels/csrc/flash_attn_bwd.cu``): GQA-grouped,
   no [S, S] scores in either direction;
 * ``"dense"``  — materialized scores, differentiated by autograd.
+
+One-token decode runs through :func:`decode_self_attention`, on the route
+``ctx.decode_backend`` resolves to (:func:`resolve_decode_backend`): the
+flash-decode kernel (``kernels.ops.flash_decode``) or its plain version
+(``kernels.ref.decode_attention_ref``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ops import KERNEL_HEAD_DIMS
+from repro_torch.kernels import ref
+from repro_torch.kernels.ops import (BWD_HEAD_DIMS, DECODE_HEAD_DIMS,
+                                     DECODE_MAX_G, KERNEL_HEAD_DIMS)
 
 NEG_INF = -1e9  # large-negative for masking (bf16-safe)
 
@@ -107,10 +114,12 @@ ATTN_BACKENDS = ("auto", "kernel", "dense")
 ATTN_AUTO_MIN_S = 256
 
 
-def kernel_supports(cfg) -> bool:
-    """Whether the flash kernel takes this head layout."""
+def kernel_supports(cfg, differentiable: bool = False) -> bool:
+    """Whether the flash kernels take this head layout: the forward's
+    head dims, and under autograd the backward's too."""
     G = cfg.n_heads // cfg.n_kv_heads
-    return cfg.resolved_head_dim in KERNEL_HEAD_DIMS and G <= 64
+    dims = BWD_HEAD_DIMS if differentiable else KERNEL_HEAD_DIMS
+    return cfg.resolved_head_dim in dims and G <= 64
 
 
 def resolve_attn_backend(backend, cfg, *, S: int = 0,
@@ -118,10 +127,13 @@ def resolve_attn_backend(backend, cfg, *, S: int = 0,
     """Map a requested forward-attention backend to 'kernel' | 'dense'.
 
     Explicit backends are honoured.  "auto" resolves to "dense" below
-    ``ATTN_AUTO_MIN_S`` or for a head layout the kernel does not take, and
+    ``ATTN_AUTO_MIN_S`` or for a head layout the kernels do not take, and
     to "kernel" otherwise, whether or not autograd records
     (``differentiable``): the kernel route differentiates through the
-    recompute backward kernels, whose saved state is O(S*dh).
+    recompute backward kernels, whose saved state is O(S*dh).  The forward
+    kernel takes head_dim 64, 128 and 256, the backward 64 and 128, so a
+    head_dim of 256 (Gemma-2) takes the kernel for forwards and the dense
+    route under autograd.
 
     This is the port's own rule.  Under grad, the JAX package on a compiled
     TPU sends head dims off its 128-lane tile (Llama-3.2-1B's 64) to its
@@ -133,24 +145,41 @@ def resolve_attn_backend(backend, cfg, *, S: int = 0,
             f"attn backend must be one of {ATTN_BACKENDS}, got {backend!r}")
     if backend != "auto":
         return backend
-    if S < ATTN_AUTO_MIN_S or not kernel_supports(cfg):
+    if S < ATTN_AUTO_MIN_S or not kernel_supports(cfg, differentiable):
         return "dense"
     return "kernel"
 
 
-def forward_attention(q, k, v, cfg, ctx=None, *, window: int = 0):
+def forward_attention(q, k, v, cfg, ctx=None, *, window: int = 0,
+                      kv_mask=None, lengths=None):
     """Unified forward-attention entry: q [B,S,H,hd]; k,v [B,S,KV,hd] ->
     [B,S,H,hd], causal (optionally banded to ``window``), on the route
-    ``ctx.attn_backend`` resolves to."""
-    S = q.shape[1]
-    be = resolve_attn_backend(getattr(ctx, "attn_backend", None), cfg, S=S)
+    ``ctx.attn_backend`` resolves to.
+
+    Right-padded batches (prefill) give key validity as per-row ``lengths``
+    [B] and/or ``kv_mask`` [B, 1, S], a valid prefix per row: the kernel
+    route passes the lengths (or the mask's row sums) to the kernel, the
+    dense route ANDs the key mask into the causal one."""
+    B, S = q.shape[:2]
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    be = resolve_attn_backend(getattr(ctx, "attn_backend", None), cfg, S=S,
+                              differentiable=grad)
     if be == "kernel":
         from repro_torch.kernels.ops import flash_attention
-        out = flash_attention(q, k, v, window=window,
+        L = lengths
+        if L is None and kv_mask is not None:
+            L = kv_mask.reshape(B, S).sum(-1).to(torch.int32)
+        out = flash_attention(q, k, v, L, window=window,
                               softcap=cfg.attn_softcap)
         return out.to(v.dtype)
-    return gqa_attention(q, k, v, causal_mask(S, window, device=q.device),
-                         cfg)
+    mask = causal_mask(S, window, device=q.device)
+    if kv_mask is None and lengths is not None:
+        L = torch.as_tensor(lengths, device=q.device).reshape(-1).expand(B)
+        kv_mask = (torch.arange(S, device=q.device)[None, :]
+                   < L[:, None])[:, None, :]
+    if kv_mask is not None:
+        mask = mask & kv_mask.reshape(B, 1, S)
+    return gqa_attention(q, k, v, mask, cfg)
 
 
 def self_attention(x, p, cfg, positions, *, local: bool, ctx=None):
@@ -162,6 +191,83 @@ def self_attention(x, p, cfg, positions, *, local: bool, ctx=None):
     window = cfg.sliding_window if local else 0
     out = forward_attention(q, k, v, cfg, ctx, window=window)
     return out.reshape(B, S, -1) @ p["wo"]
+
+
+# -------------------------------------------------- decode-mode attention ----
+DECODE_BACKENDS = ("auto", "kernel", "ref")
+
+
+def decode_kernel_supports(cfg) -> bool:
+    """Whether the flash-decode kernel takes this head layout."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    return cfg.resolved_head_dim in DECODE_HEAD_DIMS and G <= DECODE_MAX_G
+
+
+def resolve_decode_backend(backend, cfg) -> str:
+    """Map a requested decode-attention backend to 'kernel' | 'ref'.
+
+    Explicit backends are honoured; "auto" takes the flash-decode kernel
+    whenever it takes the head layout, else its plain version.  This
+    is the port's own rule and naming: the JAX package says "pallas" for
+    the kernel and also sends a sharded mesh, or on a compiled TPU a
+    head_dim off the 128-lane tile, to "ref"; the port runs on one device
+    and its kernel takes head_dim 64, 128 and 256."""
+    backend = backend or "auto"
+    if backend not in DECODE_BACKENDS:
+        raise ValueError(
+            f"decode backend must be one of {DECODE_BACKENDS}, got "
+            f"{backend!r}")
+    if backend != "auto":
+        return backend
+    return "kernel" if decode_kernel_supports(cfg) else "ref"
+
+
+def decode_self_attention(x1, p, cfg, cache_k, cache_v, cur_pos, *,
+                          local: bool, ctx=None, active=None):
+    """One-token decode. x1: [B,1,D]; cache_k/v: [B,W,KV,hd] (rolling when
+    local); cur_pos: per-row [B] positions.  Returns (out [B,1,D], cache_k,
+    cache_v).
+
+    The new key and value go into the cache **in place**, in the cache's
+    dtype and before the read: slot ``pos % W`` on a rolling (local) cache,
+    ``min(pos, W-1)`` on a global one.  Rows where ``active`` ([B] bool) is
+    False keep their cache bit for bit (their slot is rewritten with its
+    old value); their output is not meaningful.  The JAX package computes
+    every row and restores inactive ones in ``decode_step``; the caches
+    agree."""
+    B = x1.shape[0]
+    hd = cfg.resolved_head_dim
+    W = cache_k.shape[1]
+    q, k, v = _project_qkv(x1, p, cfg)  # [B,1,H,hd], [B,1,KV,hd]
+    pos = torch.as_tensor(cur_pos, device=x1.device).reshape(-1).expand(B)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    rolling = bool(local and cfg.sliding_window)
+    slot = torch.remainder(pos, W) if rolling else torch.clamp(pos, max=W - 1)
+    rows = torch.arange(B, device=x1.device)
+    k_new, v_new = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
+    if active is not None:
+        keep = active.reshape(B, 1, 1)
+        k_new = torch.where(keep, k_new, cache_k[rows, slot])
+        v_new = torch.where(keep, v_new, cache_v[rows, slot])
+    cache_k[rows, slot] = k_new
+    cache_v[rows, slot] = v_new
+    # both cache layouts hold a per-row live *prefix*: a global cache
+    # positions [0, pos], a rolling one min(pos + 1, W) slots
+    lengths = torch.clamp(pos + 1, max=W)
+    KV = cfg.n_kv_heads
+    qg = q[:, 0].reshape(B, KV, cfg.n_heads // KV, hd)  # a view, no copy
+    backend = resolve_decode_backend(getattr(ctx, "decode_backend", None),
+                                     cfg)
+    if backend == "kernel":
+        from repro_torch.kernels.ops import flash_decode
+        out = flash_decode(qg, cache_k, cache_v, lengths,
+                           softcap=cfg.attn_softcap)
+    else:
+        out = ref.decode_attention_ref(qg, cache_k, cache_v, lengths,
+                                       cfg.attn_softcap)
+    out = out.to(cache_v.dtype)
+    return out.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
 
 
 # ------------------------------------------------------------------ MLP ----

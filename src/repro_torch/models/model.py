@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import decode as D
 from repro_torch.models import transformer as T
 from repro_torch.models.init import init_params, param_count
 from repro_torch.utils.device import resolve_device
@@ -13,8 +14,9 @@ class Model:
     """Thin stateless facade bundling config, device and apply functions.
 
     Runs on the CUDA card unless ``device`` says otherwise (``"cpu"`` for
-    the tests); without a card and without ``device`` it raises.  Batches
-    may hold numpy arrays; they are moved to the model's device."""
+    the tests); without a card and without ``device`` it raises.  Batches,
+    tokens and lengths may be numpy arrays; they are moved to the model's
+    device.  Parameters are never moved."""
 
     def __init__(self, cfg: ModelConfig, ctx: T.ModelCtx = T.DEFAULT_CTX,
                  device=None):
@@ -25,15 +27,30 @@ class Model:
     def init(self, seed: int = 0, dtype=torch.float32):
         return init_params(seed, self.cfg, dtype=dtype, device=self.device)
 
+    def _on(self, x):
+        return None if x is None else torch.as_tensor(x, device=self.device)
+
     def _batch(self, batch):
-        return {k: torch.as_tensor(v, device=self.device)
-                for k, v in batch.items()}
+        return {k: self._on(v) for k, v in batch.items()}
 
     def forward(self, params, batch):
         return T.forward(params, self._batch(batch), self.cfg, self.ctx)
 
     def loss(self, params, batch):
         return T.lm_loss(params, self._batch(batch), self.cfg, self.ctx)
+
+    def prefill(self, params, batch, S_max: int = 0, lengths=None):
+        return D.prefill(params, self._batch(batch), self.cfg, self.ctx,
+                         S_max=S_max, lengths=self._on(lengths))
+
+    def decode_step(self, params, token, cache, active=None):
+        """One token per row; updates ``cache`` in place (see
+        ``models/decode.decode_step``)."""
+        return D.decode_step(params, self._on(token), cache, self.cfg,
+                             self.ctx, active=self._on(active))
+
+    def init_cache(self, B: int, S_max: int, dtype=torch.bfloat16):
+        return D.init_cache(self.cfg, B, S_max, dtype, device=self.device)
 
     @property
     def n_params(self):

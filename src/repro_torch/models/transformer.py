@@ -18,9 +18,12 @@ class ModelCtx:
     """How model code routes its attention: the counterpart of repro's
     ``ShardCtx`` without the mesh fields (the port runs on one device).
 
-    ``attn_backend``: auto | kernel | dense (``layers.resolve_attn_backend``).
+    ``attn_backend``: auto | kernel | dense (``layers.resolve_attn_backend``);
+    ``decode_backend``: auto | kernel | ref, the one-token decode route
+    (``layers.resolve_decode_backend``; ``ShardCtx.decode_backend``).
     """
     attn_backend: str = "auto"
+    decode_backend: str = "auto"
 
 
 DEFAULT_CTX = ModelCtx()

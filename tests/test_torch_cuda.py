@@ -64,7 +64,7 @@ def test_gradip_kernel_matches_plain(dev, n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,dh", [(1, 64), (4, 64), (4, 128), (1, 128),
-                                  (6, 64)])
+                                  (6, 64), (2, 256), (1, 256)])
 @pytest.mark.parametrize("S,window,softcap,lengths", [
     (128, 0, 0.0, None), (200, 0, 0.0, (200, 77)), (256, 48, 0.0, None),
     (130, 32, 30.0, (130, 1)), (64, 0, 0.0, (0, 64))])
@@ -164,3 +164,116 @@ def test_flash_autograd_on_card_matches_dense(dev, dtype):
         torch.testing.assert_close(
             a.float(), b.float(), rtol=0,
             atol=frac * max(1.0, float(b.float().abs().max())))
+
+
+# (G, dh) of the paper's models' decode layouts and a G=1 layout
+DECODE_LAYOUTS = [(4, 64), (6, 128), (2, 256), (1, 64)]
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("G,dh", DECODE_LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_matches_plain(dev, dtype, G, dh, softcap):
+    """Ragged lengths with 1, S and a length past one split, and a row of
+    length 0 (zeros, the port's rule); two calls bit-equal; one launch per
+    call."""
+    B, S, KV = 5, 700, 2
+    g = torch.Generator(device=dev).manual_seed(G * dh)
+    q = torch.randn(B, KV, G, dh, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, S, KV, dh, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    L = torch.tensor([S, 1, 300, 0, 513], device=dev, dtype=torch.int32)
+    before = ops.launches()["flash_decode"]
+    out = ops.flash_decode(q, k, v, L, softcap=softcap)
+    want = ref.decode_attention_ref(q, k, v, L, softcap)
+    assert out.dtype == dtype and out.shape == q.shape
+    # f32: splits merged in another order than one softmax, 1e-5 of the
+    # largest entry; bf16: one bf16 rounding of the same f32 result
+    frac = 1e-5 if dtype == torch.float32 else 8e-3
+    scale = float(want.float().abs().max())
+    assert float((out.float() - want.float()).abs().max()) <= frac * scale
+    assert torch.equal(out[3], torch.zeros_like(out[3]))
+    assert torch.equal(ops.flash_decode(q, k, v, L, softcap=softcap), out)
+    assert ops.launches()["flash_decode"] == before + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,lengths", [(4096, (4096, 132)),
+                                       (4352, (4232, 132))])
+def test_flash_decode_matches_plain_at_gemma_shapes(dev, dtype, S, lengths):
+    """Gemma-2-2b's decode: q [2, 4, 2, 256], softcap 50, a full rolling
+    cache of 4096 slots and a 4352-position global cache; two calls
+    bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(S)
+    q = torch.randn(2, 4, 2, 256, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(2, S, 4, 256, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    L = torch.tensor(lengths, device=dev, dtype=torch.int32)
+    out = ops.flash_decode(q, k, v, L, softcap=50.0)
+    want = ref.decode_attention_ref(q, k, v, L, 50.0)
+    frac = 1e-5 if dtype == torch.float32 else 8e-3
+    scale = float(want.float().abs().max())
+    assert float((out.float() - want.float()).abs().max()) <= frac * scale
+    assert torch.equal(ops.flash_decode(q, k, v, L, softcap=50.0), out)
+
+
+def test_flash_backward_rejects_head_dim_256(dev):
+    """The backward kernels take head_dim 64 and 128 only; the wrapper
+    raises before a launch (auto takes the dense route under autograd)."""
+    q = torch.zeros(1, 64, 2, 256, device=dev)
+    k = torch.zeros(1, 64, 1, 256, device=dev)
+    lse = torch.zeros(1, 1, 64, 2, device=dev)
+    before = ops.launches()
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd_dq(q, k, k, None, lse, lse, q)
+    with pytest.raises(ValueError):
+        ops.flash_attention_bwd_dkv(q, k, k, None, lse, lse, q)
+    assert ops.launches() == before
+
+
+def test_flash_decode_reads_only_the_live_prefix(dev):
+    """Cache positions at or past a row's length never reach the result:
+    NaNs there leave it finite and equal."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(2, 8, 4, 64, generator=g, device=dev)
+    k, v = (torch.randn(2, 2048, 8, 64, generator=g, device=dev)
+            for _ in range(2))
+    L = torch.tensor([300, 1], device=dev, dtype=torch.int32)
+    out = ops.flash_decode(q, k, v, L)
+    k[0, 300:], v[0, 300:], k[1, 1:], v[1, 1:] = (float("nan"),) * 4
+    assert torch.equal(ops.flash_decode(q, k, v, L), out)
+
+
+def test_serve_engine_kernel_route_matches_ref_on_card(dev):
+    """One engine run on a reduced model on the card: the decode kernel
+    route gives the plain route's tokens, and flash_decode runs once per
+    layer and decode step."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatchingEngine
+    cfg = get_config("gemma2-2b-reduced")
+    model = Model(cfg, device=dev)
+    params = model.init(seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (4, 39, 6, 300)]
+    outs = {}
+    for route in ("kernel", "ref"):
+        eng = ContinuousBatchingEngine(model, params, max_slots=2, S_max=320,
+                                       bucket=8, decode_backend=route)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=6)
+        before = ops.launches()["flash_decode"]
+        outs[route] = eng.run()
+        n = ops.launches()["flash_decode"] - before
+        assert n == (cfg.n_layers * eng.stats["decode_steps"]
+                     if route == "kernel" else 0)
+    for a, b in zip(outs["kernel"], outs["ref"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_flash_decode_rejects_a_misaligned_cache(dev):
+    q = torch.zeros(1, 2, 4, 64, device=dev)
+    k = torch.zeros(1 + 16 * 2 * 64, device=dev)[1:].view(1, 16, 2, 64)
+    with pytest.raises(ValueError):
+        ops.flash_decode(q, k, k, 16)

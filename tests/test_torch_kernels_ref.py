@@ -114,7 +114,7 @@ def _jax_fwd_lse(q, k, v, L, *, block, window, softcap):
 
 
 @pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 @pytest.mark.parametrize("S,window,softcap,ragged_len", [
     (64, 0, 0.0, False),     # block multiple, plain causal
     (72, 0, 0.0, True),      # S not a block multiple, per-row lengths

@@ -101,6 +101,41 @@ def test_attn_backend_resolution():
         L.resolve_attn_backend("pallas", cfg)
 
 
+def test_attn_backend_resolution_head_dim_256():
+    """The forward kernel takes Gemma-2's head_dim 256, the backward does
+    not: auto takes the kernel for forwards only."""
+    from repro_torch.configs import GEMMA2_2B
+    assert GEMMA2_2B.resolved_head_dim == 256
+    assert L.resolve_attn_backend("auto", GEMMA2_2B, S=4208) == "kernel"
+    assert L.resolve_attn_backend("auto", GEMMA2_2B, S=4208,
+                                  differentiable=True) == "dense"
+    assert L.resolve_attn_backend("auto", GEMMA2_2B, S=128) == "dense"
+
+
+@pytest.mark.parametrize("grad,route", [(False, "kernel"), (True, "dense")])
+def test_forward_attention_head_dim_256_routes(monkeypatch, grad, route):
+    """forward_attention sees whether autograd records: at head_dim 256 a
+    forward goes to the flash kernel, a differentiated pass to the dense
+    route; both give the dense route's values."""
+    from repro_torch.configs import GEMMA2_2B
+    from repro_torch.kernels import ops
+    cfg = GEMMA2_2B.replace(n_heads=2, n_kv_heads=1)
+    calls = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    g = torch.Generator().manual_seed(0)
+    S = L.ATTN_AUTO_MIN_S
+    q = torch.randn(1, S, 2, 256, generator=g, requires_grad=grad)
+    k, v = (torch.randn(1, S, 1, 256, generator=g) for _ in range(2))
+    out = L.forward_attention(q, k, v, cfg, ModelCtx(), window=64,
+                              lengths=torch.tensor([S - 9]))
+    assert (len(calls) == 1) == (route == "kernel")
+    want = L.forward_attention(q, k, v, cfg, ModelCtx(attn_backend="dense"),
+                               window=64, lengths=torch.tensor([S - 9]))
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+
+
 def test_explicit_kernel_attention_under_autograd_matches_dense():
     """The kernel route differentiates (through FlashAttentionFn, whose
     plain versions run on the CPU) and gives the dense route's gradients:
