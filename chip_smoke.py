@@ -9,7 +9,7 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
 1. card         the GPU's name and power limit (nvidia-smi);
 2. build        compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels      hold each kernel against its plain PyTorch version at the
-                main path's shapes and at ragged and small ones, and time
+                main paths' shapes and at ragged and small ones, and time
                 the kernel, the plain version and, where one exists, the
                 PyTorch library call that computes the same function;
 4. slice        MEERKAT-VP on full-size Llama-3.2-1B (random weights from a
@@ -33,9 +33,24 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
 7. serve_gemma  Gemma-2-2b at full width, 2 periods (4 layers): one prompt
                 past the 4096-position window (rolling local cache) and one
                 short one, prefilled together through the flash forward at
-                head_dim 256, with the same checks but the naive engine's.
+                head_dim 256, with the same checks but the naive engine's;
+8. slice_jamba  MEERKAT-VP on Jamba-1.5-Large at full width, cut to 4
+                layers (attention + 3 Mamba, no experts: 4.9 B parameters):
+                mask and pre-training gradient (the Mamba layers on the
+                differentiable scan route, attention through the flash
+                kernels), VP calibration, two rounds of eight Dirichlet
+                clients on the ZO tree route, every forward's Mamba layers
+                through the selective-scan kernel; one client's delta
+                against the server's replay, and the kernel route's logits
+                against the scan route's; then one ZO step under
+                torch.profiler;
+9. jamba_moe    one (Mamba, MoE) layer of Jamba-1.5-Large at full width (16
+                experts of 24576, top 2, 11.2 B parameters): a forward and
+                the LM loss, finite; then the layer's MoE FFN on its real
+                input against a plain per-token loop (moe_loop_ref), at the
+                configured capacity and at one that drops pairs.
 
-Phases 4 to 7 each count every kernel's launches from zero, and each count
+Phases 4 to 9 each count every kernel's launches from zero, and each count
 must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
@@ -47,6 +62,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -93,10 +109,39 @@ BWD_REL_TOL = 1e-4
 DECODE_REL_TOL = {"f32": 1e-5, "bf16": 8e-3}
 DECODE_LAYOUTS = ((4, 64), (6, 128), (2, 256), (1, 64))
 
+# the hybrid slice: Jamba-1.5-Large at full width, 4 layers, no experts
+JAMBA_CLIENT_BATCH = 4
+JAMBA_T_CALI = 2
+JAMBA_ROUNDS = 2
+JAMBA_EVAL = 16
+JAMBA_PRETRAIN_BATCHES, JAMBA_PRETRAIN_BATCH = 2, 4
+JAMBA_MOE_BATCH = 4
+# the MoE FFN against moe_loop_ref, of the largest entry: the same f32
+# products, summed by GEMMs of other shapes (the experts' [C, D] buffers
+# against each expert's gathered rows); capacity 0.5 makes C = 128 against
+# ~256 pairs offered to each expert, so the loop must drop pairs
+MOE_LOOP_REL = 1e-5
+MOE_TIGHT_CAPACITY = 0.5
+# the selective-scan kernel against its plain version, y and h_last each
+# of its largest entry: f32 sums of the same terms over up to S steps in
+# which the state decays little (dt ~ 0.01), fused there and not here
+MAMBA_SCAN_REL = 1e-5
+MAMBA_VARIANTS = ((3, 37, 200, 16), (2, 300, 256, 8), (1, 1, 128, 16),
+                  (4, 512, 16384, 16))  # (B, S, E, N); the last: the slice's
+# the kernel route's logits against the scan route's, of max |logit|: the
+# serial scan against the parallel prefix, through 3 Mamba layers
+MAMBA_ROUTE_REL = 1e-4
+
 # H100 SXM data sheet: HBM3 rate, and the f32 rate outside the tensor cores
-# (the kernels compute in f32 on CUDA cores)
+# (the kernels compute in f32 on CUDA cores): 132 SMs x 128 lanes x 2 (FMA)
+# at the 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
+SM_CLOCK_HZ = 1.98e9
 F32_FLOP_PER_S = 67e12
+# exponentials: 16 a clock per SM on the special-function units (NVIDIA's
+# arithmetic-instruction throughput table, compute capability 9.0), at the
+# clock of the f32 rate above
+EXP_PER_S = 16 * 132 * SM_CLOCK_HZ
 
 KERNEL_SOURCES = {
     "zo_dual_perturb_flat": ("src/repro_torch/kernels/csrc/zo_update.cu",
@@ -114,6 +159,8 @@ KERNEL_SOURCES = {
         "src/repro/kernels/flash_attention.py:310"),
     "flash_decode": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                      "src/repro/kernels/decode_attention.py:64"),
+    "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:63"),
 }
 # the variant grid of the flash kernels: (S, window, softcap, lengths)
 FLASH_VARIANTS = ((128, 0, 0.0, None),       # causal
@@ -537,6 +584,64 @@ def check_flash_decode(torch, ops, ref, dev, cfg, slots: int, S: int,
             qh, kh, vh, attn_mask=mask, enable_gqa=True), 50),
         shape=f"q [{slots},{KV},{G},{dh}], cache [{slots},{S},{KV},{dh}] "
               f"f32, lengths {S}", mbytes=n_bytes / 1e6)}
+
+
+def mamba_inputs(torch, dev, gen, B, S, E, N):
+    """Selective-scan operands with the Jamba layer's statistics at init:
+    dt = softplus(dt_bias + noise) ~ 0.01 (the state decays little over S),
+    A = -(1..N) scaled by a little noise, B, C and x standard normal."""
+    import torch.nn.functional as F
+    dt = F.softplus(0.5 * torch.randn(B, S, E, generator=gen, device=dev)
+                    + float(torch.log(torch.expm1(torch.tensor(0.01)))))
+    Bi, Ci = (torch.randn(B, S, N, generator=gen, device=dev)
+              for _ in range(2))
+    x = torch.randn(B, S, E, generator=gen, device=dev)
+    A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32) * torch.exp(
+        0.1 * torch.randn(E, N, generator=gen, device=dev))
+    return dt, Bi, Ci, x, A
+
+
+def check_mamba_scan(torch, ops, ref, dev):
+    """The selective-scan kernel against its plain version over the variant
+    grid (ragged S and E, one step, both state sizes, and the slice's
+    shape), y and h_last each within MAMBA_SCAN_REL of its largest entry,
+    two calls bit-equal; timed at the slice's shape."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst = 0.0
+    for B, S, E, N in MAMBA_VARIANTS:
+        args = mamba_inputs(torch, dev, gen, B, S, E, N)
+        y, h = ops.mamba_scan(*args)
+        ry, rh = ref.mamba_scan_ref(*args)
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in ((y, ry), (h, rh))]
+        worst = max(worst, *errs)
+        if max(errs) > MAMBA_SCAN_REL:
+            fail(f"mamba_scan differs from plain at (B, S, E, N) = "
+                 f"{(B, S, E, N)}: y, h_last {errs}")
+        y2, h2 = ops.mamba_scan(*args)
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            fail(f"mamba_scan is not bit-equal over two calls at "
+                 f"{(B, S, E, N)}")
+    emit("kernels.mamba_scan_variants", ok=True, max_rel_err=worst,
+         tol=MAMBA_SCAN_REL, repeat_bit_equal=True,
+         grid="(B, S, E, N) in " + str(list(MAMBA_VARIANTS)))
+
+    # the slice's shape (the last variant): a client batch through one layer
+    B, S, E, N = MAMBA_VARIANTS[-1]
+    err = max(float((y - ry).abs().max()), float((h - rh).abs().max()))
+    del y, h, ry, rh, y2, h2
+    n_bytes = 4.0 * (3 * B * S * E + 2 * B * S * N + E * N + B * E * N)
+    n_exp = float(B * S * E * N)
+    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    exp_ms = n_exp / EXP_PER_S * 1e3
+    return {"mamba_scan": dict(
+        max_abs_err=err, bound_ms=max(mem_ms, exp_ms),
+        bound_by="bytes" if mem_ms >= exp_ms else "operations",
+        bytes_bound_ms=mem_ms, exp_bound_ms=exp_ms, library_ms=None,
+        ms=timed(lambda: ops.mamba_scan(*args), 20),
+        plain_ms=timed(lambda: ref.mamba_scan_ref(*args), 3),
+        shape=f"dt, x [{B},{S},{E}] f32, N {N}", mbytes=n_bytes / 1e6,
+        g_exp=n_exp / 1e9)}
 
 
 # ------------------------------------------------------------------- slice --
@@ -1010,6 +1115,248 @@ def run_serve_gemma(torch, dev, cfg):
                      naive_reqs=(), label="serve_gemma")
 
 
+# ------------------------------------------------------------------ hybrid --
+def run_slice_jamba(torch, dev, cfg):
+    """MEERKAT-VP on the hybrid ``cfg`` through the port's public API: one
+    model whose forwards take the selective-scan kernel and whose
+    differentiated passes take the scan route (``mamba_mode`` auto), the ZO
+    rounds on the route ``zo_backend="auto"`` picks (the tree route at this
+    size).  Returns (launch counts over the run, the counts the run
+    implies)."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import FLConfig
+    from repro_torch.data import (TaskSpec, dirichlet_partition,
+                                  make_task_fns, pretrain_batches,
+                                  sample_dataset, subset)
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ModelCtx
+
+    on_card = dev.type == "cuda"
+    phase_done, times, peaks, resident = phase_clock(torch, on_card)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(seed=SEED)
+    spec = TaskSpec(vocab=512, seq_len=SEQ_LEN)
+    loss, _, evaluate = make_task_fns(model, spec)
+    train = sample_dataset(spec, 1024, seed=1)
+    parts = dirichlet_partition(train["label"], n_clients=N_CLIENTS,
+                                alpha=0.5)
+    clients = [C.Client(k, subset(train, p), batch_size=JAMBA_CLIENT_BATCH)
+               for k, p in enumerate(parts)]
+    ev = sample_dataset(spec, JAMBA_EVAL, seed=2)
+    pre = pretrain_batches(spec, n_batches=JAMBA_PRETRAIN_BATCHES,
+                           batch_size=JAMBA_PRETRAIN_BATCH)
+    phase_done("setup", t0)
+
+    ops.reset_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    m0 = {k: float(v) for k, v in evaluate(params, ev).items()}
+    phase_done("eval_before", t0)
+    t0 = time.perf_counter()
+    space = C.sensitivity_mask(lambda p, b: model.loss(p, b), params, pre,
+                               density=DENSITY, device=dev)
+    phase_done("mask", t0)
+    fl = FLConfig(n_clients=N_CLIENTS, local_steps=1, eps=1e-3,
+                  density=DENSITY, zo_backend="auto", vp_init_steps=1,
+                  vp_later_steps=1, vp_sigma_relative=True, seed=SEED)
+    server = C.FederatedZO(loss, params, space, fl, clients,
+                           eval_fn=evaluate, device=dev)
+    t0 = time.perf_counter()
+    gp = C.pretrain_gradient_vec(lambda p, b: model.loss(p, b), params,
+                                 space, pre)
+    phase_done("pretrain_gradient", t0)
+    t0 = time.perf_counter()
+    results, flagged, trajs = server.calibrate_vp(gp, T_cali=JAMBA_T_CALI)
+    phase_done("calibrate_vp", t0)
+    t0 = time.perf_counter()
+    server.run(JAMBA_ROUNDS, gp_vec=gp)
+    phase_done("rounds", t0)
+    t0 = time.perf_counter()
+    m1 = {k: float(v) for k, v in evaluate(server.params, ev).items()}
+    phase_done("eval_after", t0)
+
+    # one client's own trajectory against the server's replay of its scalar
+    t0 = time.perf_counter()
+    run = C.make_local_run(loss, space, fl.eps, fl.lr, backend="auto")
+    keys = C.round_keys(fl.seed, server.round, 1)
+    batches = {k: torch.as_tensor(v, device=dev)
+               for k, v in clients[0].next_batches(1).items()}
+    delta, gs = run(server.params, keys, batches,
+                    torch.zeros(space.n, device=dev))
+    rec = C.reconstruct_delta(space, keys, gs.cpu().numpy(), fl.lr)
+    rel = float((delta - rec).abs().max() / rec.abs().max())
+    replay_ok = bool(torch.allclose(delta, rec, rtol=1e-6,
+                                    atol=1e-6 * float(rec.abs().max())))
+    phase_done("replay_check", t0)
+    counts = ops.launches()  # the main path ends here
+
+    # the kernel route's logits against the scan route's on the eval batch
+    t0 = time.perf_counter()
+    scan = Model(cfg, ModelCtx(mamba_mode="scan"), device=dev)
+    with torch.no_grad():
+        lk, _ = model.forward(params, {"tokens": ev["tokens"]})
+        ls, _ = scan.forward(params, {"tokens": ev["tokens"]})
+        route_rel = float((lk - ls).abs().max() / ls.abs().max())
+        logit_max = float(ls.abs().max())
+    del lk, ls
+    phase_done("route_check", t0)
+
+    n_mamba = cfg.n_periods * sum(m == "mamba" for m, _ in cfg.layer_pattern)
+    n_attn = cfg.n_layers - n_mamba
+    n_steps = N_CLIENTS * JAMBA_T_CALI + JAMBA_ROUNDS * N_CLIENTS + 1
+    n_forwards = 2 * n_steps + 2  # two per ZO step, plus the two evals
+    n_grads = 2 * JAMBA_PRETRAIN_BATCHES  # mask and pre-training gradient
+    expected = {name: 0 for name in counts}
+    expected.update({
+        "gradip_flat": N_CLIENTS * JAMBA_T_CALI + JAMBA_ROUNDS * N_CLIENTS,
+        "flash_attention": n_attn * (n_forwards + n_grads),
+        "flash_attention_bwd_dq": n_attn * n_grads,
+        "flash_attention_bwd_dkv": n_attn * n_grads,
+        "mamba_scan": n_mamba * n_forwards})
+    scalars = [g for h in server.gradip_log.values() for g in h]
+    finite = (all(np.isfinite(v) for v in (*m0.values(), *m1.values()))
+              and all(np.all(np.isfinite(t)) for t in trajs)
+              and all(np.all(np.isfinite(g)) for g in scalars)
+              and bool(torch.isfinite(gp).all())
+              and bool(torch.isfinite(gs).all()))
+    emit("slice_jamba", model=cfg.name, n_layers=cfg.n_layers,
+         layer_pattern=cfg.layer_pattern, n_params=model.n_params,
+         mask_coords=space.n, clients=N_CLIENTS,
+         client_batch=JAMBA_CLIENT_BATCH, seq_len=SEQ_LEN,
+         T_cali=JAMBA_T_CALI, rounds=JAMBA_ROUNDS, flagged=flagged,
+         eval_before=m0, eval_after=m1, up_bytes=server.comm.up_bytes,
+         down_bytes=server.comm.down_bytes, launches=counts,
+         expected_launches=expected, replay_max_rel_err=rel,
+         replay_ok=replay_ok, finite=finite, route_rel=route_rel,
+         route_bound=MAMBA_ROUTE_REL, logit_max=logit_max, times_s=times,
+         round_s=times["rounds"] / JAMBA_ROUNDS,
+         zo_step_s=times["rounds"] / (JAMBA_ROUNDS * N_CLIENTS),
+         peak_gb=peaks, resident_gb=resident,
+         max_memory_allocated_gb=max(peaks.values(), default=None))
+    if not finite:
+        fail("non-finite loss, scalar or GradIP in the Jamba slice")
+    if not replay_ok:
+        fail(f"Jamba: client delta and server replay differ (max rel {rel})")
+    if route_rel > MAMBA_ROUTE_REL:
+        fail(f"Jamba: kernel-route logits differ from the scan route's by "
+             f"{route_rel} of max |logit|")
+    if on_card:
+        profile_step(torch, "zo_step_jamba", lambda: run(
+            server.params, keys, batches, torch.zeros(space.n, device=dev)))
+    return counts, expected
+
+
+def moe_loop_ref(torch, x, p, mcfg):
+    """Plain reference of the MoE FFN's capacity dispatch, independent of
+    ``moe.moe_dense_ref``'s one-hot cumsum: (token, slot) pairs in token
+    order, each taking its expert's next free place until the expert holds
+    C = ceil(T * k / E * capacity_factor); then each expert's kept rows
+    through its (silu-gated) FFN, gate-weighted.  Returns (y [B, S, D],
+    kept [E], C)."""
+    B, S, D = x.shape
+    E, k, T = mcfg.n_experts, mcfg.top_k, B * S
+    assert "sw1" not in p  # Jamba's MoE has no shared expert
+    C = max(1, math.ceil(T * k / E * mcfg.capacity_factor))
+    x2d = x.reshape(T, D)
+    probs = torch.softmax(x2d.float() @ p["router"].float(), dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)
+    gate = gate / (gate.sum(-1, keepdim=True) + 1e-9)
+    places = [[] for _ in range(E)]
+    for t, experts in enumerate(idx.tolist()):
+        for j, e in enumerate(experts):
+            if len(places[e]) < C:
+                places[e].append((t, j))
+    y = torch.zeros_like(x2d)
+    for e, pairs in enumerate(places):
+        if not pairs:
+            continue
+        t, j = torch.tensor(pairs, device=x.device).T
+        h = torch.nn.functional.silu(x2d[t] @ p["w1"][e])
+        if "w3" in p:
+            h = h * (x2d[t] @ p["w3"][e])
+        y.index_add_(0, t, gate[t, j][:, None] * (h @ p["w2"][e]))
+    return y.reshape(B, S, D), [len(pl) for pl in places], C
+
+
+def run_jamba_moe(torch, dev, cfg):
+    """One forward and one LM loss of the (Mamba, MoE) layer ``cfg`` at
+    batch JAMBA_MOE_BATCH x SEQ_LEN on the default routes, finite; then the
+    MoE FFN on the layer's real input against :func:`moe_loop_ref`, at the
+    configured capacity and at MOE_TIGHT_CAPACITY, where pairs must be
+    dropped.  Returns (launch counts over the forward and the loss, the
+    counts they imply)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import tree_map
+
+    on_card = dev.type == "cuda"
+    phase_done, times, peaks, resident = phase_clock(torch, on_card)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(seed=SEED)
+    tokens = torch.randint(0, cfg.vocab, (JAMBA_MOE_BATCH, SEQ_LEN),
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED), device=dev)
+    phase_done("setup", t0)
+
+    ops.reset_launches()  # the path starts here
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, aux = model.forward(params, {"tokens": tokens})
+        finite = bool(torch.isfinite(logits).all()) and \
+            bool(torch.isfinite(aux))
+        del logits
+        phase_done("forward", t0)
+        t0 = time.perf_counter()
+        lm = float(model.loss(params, {"tokens": tokens}))
+        phase_done("lm_loss", t0)
+        counts = ops.launches()  # the path ends here
+        # the MoE FFN's input in that forward, through both dispatches
+        t0 = time.perf_counter()
+        lp = tree_map(lambda a: a[0], params["stack"])["p0"]
+        x = T.embed_input(params, {"tokens": tokens}, cfg)
+        x = T._mixer_fwd(x, lp, "mamba", cfg, model.ctx, None)
+        h = L.rmsnorm(x, lp["norm2"]["scale"], cfg.norm_eps)
+        dispatch = {}
+        for cf in (cfg.moe.capacity_factor, MOE_TIGHT_CAPACITY):
+            mcfg = dataclasses.replace(cfg.moe, capacity_factor=cf)
+            y, _ = MOE.moe_dense_ref(h, lp, mcfg, cfg.act)
+            ry, kept, cap = moe_loop_ref(torch, h, lp, mcfg)
+            dispatch[cf] = dict(
+                capacity=cap, kept=kept,
+                dropped=JAMBA_MOE_BATCH * SEQ_LEN * mcfg.top_k - sum(kept),
+                rel_err=float((y - ry).abs().max() / ry.abs().max()))
+            del y, ry
+        phase_done("dispatch_check", t0)
+    expected = {name: 0 for name in counts}
+    expected["mamba_scan"] = 2 * cfg.n_layers  # the forward and the loss
+    emit("jamba_moe", model=cfg.name, layer_pattern=cfg.layer_pattern,
+         n_params=model.n_params, batch=JAMBA_MOE_BATCH, seq_len=SEQ_LEN,
+         n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+         dispatch=dispatch, tol=MOE_LOOP_REL, aux=float(aux), lm_loss=lm,
+         finite=finite and math.isfinite(lm), launches=counts,
+         expected_launches=expected, times_s=times, peak_gb=peaks,
+         resident_gb=resident)
+    if not (finite and math.isfinite(lm)):
+        fail("jamba_moe: non-finite logits, load-balance loss or LM loss")
+    for cf, d in dispatch.items():
+        if d["rel_err"] > MOE_LOOP_REL:
+            fail(f"jamba_moe: the MoE FFN at capacity factor {cf} differs "
+                 f"from the per-token loop by {d['rel_err']} of its largest "
+                 f"entry")
+    if dispatch[MOE_TIGHT_CAPACITY]["dropped"] == 0:
+        fail(f"jamba_moe: capacity factor {MOE_TIGHT_CAPACITY} dropped no "
+             f"pair, so the dispatch check did not test capacity")
+    return counts, expected
+
+
 def profile_step(torch, name, step):
     """One more step (``step()``) under torch.profiler, after a warm one:
     device time by kernel, by kind, and the device's idle share of the
@@ -1034,18 +1381,22 @@ def profile_step(torch, name, step):
     kinds = {"gemm": 0.0, "ported_kernels": 0.0, "other": 0.0}
     ported = ("flash_fwd", "flash_bwd", "dual_perturb_kernel",
               "fused_update_kernel", "gradip_", "decode_split",
-              "decode_combine")
+              "decode_combine", "mamba_scan_kernel")
+    by_ported = {}
     for e in kern:
         key = e.key.lower()
-        kind = ("ported_kernels" if any(t in e.key for t in ported) else
+        tag = next((t for t in ported if t in e.key), None)
+        kind = ("ported_kernels" if tag else
                 "gemm" if ("gemm" in key or "cutlass" in key
                            or "xmma" in key) else "other")
         kinds[kind] += dev_ms(e)
+        if tag:
+            by_ported[tag] = by_ported.get(tag, 0.0) + dev_ms(e)
     busy = sum(kinds.values())
     top = sorted(kern, key=dev_ms, reverse=True)[:12]
     emit(f"profile.{name}", traced=bool(kern), wall_ms=wall_ms,
          device_busy_ms=busy, idle_share=1 - busy / wall_ms if kern else None,
-         by_kind_ms=kinds,
+         by_kind_ms=kinds, ported_ms=by_ported,
          top=[{"kernel": e.key[:90], "ms": dev_ms(e), "calls": e.count}
               for e in top])
 
@@ -1072,7 +1423,8 @@ def main() -> int:
     emit("card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
 
-    from repro_torch.configs import GEMMA2_2B, LLAMA32_1B
+    from repro_torch.configs import GEMMA2_2B, JAMBA_1_5_LARGE, LLAMA32_1B
+    from repro_torch.configs.jamba_1_5_large_398b import SLICE_CUT
     from repro_torch.kernels import build, ops, ref
     t0 = time.perf_counter()
     build.load()
@@ -1098,14 +1450,20 @@ def main() -> int:
     rows.update(check_flash_bwd(torch, ops, ref, dev, LLAMA32_1B, FO_BATCH))
     rows.update(check_flash_decode(torch, ops, ref, dev, LLAMA32_1B,
                                    SERVE_SLOTS, SERVE_S_MAX, gemma))
+    rows.update(check_mamba_scan(torch, ops, ref, dev))
     torch.cuda.empty_cache()
     emit("kernels", seconds=time.perf_counter() - t0, rows=rows)
 
+    # one (Mamba, MoE) layer of Jamba at full width: 11.2 B parameters
+    moe_layer = JAMBA_1_5_LARGE.replace(n_layers=1,
+                                        layer_pattern=(("mamba", "moe"),))
     launches = {name: 0 for name in KERNEL_SOURCES}
     for phase, run, cfg in (("slice", run_slice, LLAMA32_1B),
                             ("first_order", run_first_order, LLAMA32_1B),
                             ("serve", run_serve_llama, LLAMA32_1B),
-                            ("serve_gemma", run_serve_gemma, gemma)):
+                            ("serve_gemma", run_serve_gemma, gemma),
+                            ("slice_jamba", run_slice_jamba, SLICE_CUT),
+                            ("jamba_moe", run_jamba_moe, moe_layer)):
         t0 = time.perf_counter()
         counts, expected = run(torch, dev, cfg)
         if counts != expected:

@@ -1,11 +1,14 @@
 from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.configs.jamba_1_5_large_398b import CONFIG as JAMBA_1_5_LARGE
 from repro_torch.configs.paper_models import GEMMA2_2B, LLAMA32_1B, QWEN2_1_5B
 from repro_torch.configs.tiny import TINY
 
 # the port's architectures by name (the JAX package's ``REGISTRY`` holds
-# more; the port has the paper's models and the tiny test config)
+# more; the port has the paper's models, the hybrid Jamba and the tiny test
+# config)
 REGISTRY = {"tiny": TINY,
-            **{c.name: c for c in (LLAMA32_1B, QWEN2_1_5B, GEMMA2_2B)}}
+            **{c.name: c for c in (LLAMA32_1B, QWEN2_1_5B, GEMMA2_2B,
+                                   JAMBA_1_5_LARGE)}}
 
 
 def get_config(name: str) -> ModelConfig:

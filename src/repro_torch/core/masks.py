@@ -37,6 +37,27 @@ def sensitivity_scores(loss_fn: Callable, params, batches: Iterable):
     return tree_map(lambda a: a.div_(max(n, 1)), acc)
 
 
+# torch.topk on CUDA fails a device assert past ~2^31 elements (seen at
+# Jamba's 4.9 B on an H100), so longer vectors are cut into chunks of 2^30
+TOPK_CHUNK = 1 << 30
+
+
+def _topk_indices(flat, k: int):
+    """Indices of the k largest entries of a 1-D tensor of any length: the
+    top k of each TOPK_CHUNK-long chunk, then the top k of their union
+    (which holds every global winner)."""
+    if flat.numel() <= TOPK_CHUNK:
+        return torch.topk(flat, k, sorted=False).indices
+    vals, idx = [], []
+    for off in range(0, flat.numel(), TOPK_CHUNK):
+        part = flat[off:off + TOPK_CHUNK]
+        v, i = torch.topk(part, min(k, part.numel()), sorted=False)
+        vals.append(v)
+        idx.append(i + off)
+    idx = torch.cat(idx)
+    return idx[torch.topk(torch.cat(vals), k, sorted=False).indices]
+
+
 def _global_topk_indices(score_tree, density: float):
     """Per-leaf int64 flat-index tensors of the global top-k scores, each
     sorted ascending."""
@@ -45,7 +66,7 @@ def _global_topk_indices(score_tree, density: float):
     total = sum(sizes)
     k = _n_select(total, density)
     flat = torch.cat([l.reshape(-1).float() for l in leaves])
-    top = torch.topk(flat, k, sorted=False).indices
+    top = _topk_indices(flat, k)
     del flat
     top = torch.sort(top).values
     idx_leaves, off = [], 0

@@ -42,6 +42,7 @@ SIGNATURES = {
                             _I, _I, _I, _F, _I, _F, _I, _P], _I),
     "flash_decode": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                       _F, _I, _P], _I),
+    "mamba_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -26,6 +26,7 @@ BWD_HEAD_DIMS = (64, 128)          # the flash backward
 DECODE_HEAD_DIMS = (64, 128, 256)
 DECODE_MAX_G = 16
 DECODE_CHUNK = 256  # cache positions per split of the decode kernel
+MAMBA_STATE_DIMS = (8, 16)  # the selective scan's d_state instances
 _FLOATS = (torch.float32, torch.bfloat16)
 _GRADIP_SCRATCH = 1024  # partial sums of the first pass (gradip.cu)
 
@@ -349,9 +350,56 @@ def flash_decode(q, k, v, length, softcap: float = 0.0):
     return out
 
 
+def mamba_scan(dt, B_in, C_in, x, A):
+    """Mamba-1 selective scan (``repro.kernels.ops.mamba_scan_op``): dt, x
+    [B, S, E] (dt after softplus); B_in, C_in [B, S, N]; A [E, N].  Returns
+    (y [B, S, E] f32, h_last [B, E, N] f32), ``h_t = exp(dt_t * A) h_{t-1}
+    + (dt_t * x_t) B_t`` and ``y_t = <h_t, C_t>`` from h = 0.
+
+    The JAX kernel has no VJP, and neither has this one: it raises while
+    autograd records through any operand (the model's ``scan`` route is the
+    differentiable one).  On CUDA it launches ``csrc/mamba_scan.cu`` on
+    contiguous f32 operands with N in ``MAMBA_STATE_DIMS``; any B, S and E
+    (the TPU wrapper needed S and E divisible by its blocks)."""
+    if dt.dim() != 3 or B_in.dim() != 3:
+        raise ValueError(f"mamba_scan takes dt [B, S, E] and B_in [B, S, N], "
+                         f"got {tuple(dt.shape)}, {tuple(B_in.shape)}")
+    Bsz, S, E = dt.shape
+    N = B_in.shape[-1]
+    if (x.shape != dt.shape or B_in.shape != (Bsz, S, N)
+            or C_in.shape != B_in.shape or A.shape != (E, N)):
+        raise ValueError(
+            f"bad selective-scan shapes dt {tuple(dt.shape)}, B "
+            f"{tuple(B_in.shape)}, C {tuple(C_in.shape)}, x "
+            f"{tuple(x.shape)}, A {tuple(A.shape)}")
+    ts = (dt, B_in, C_in, x, A)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError("mamba_scan has no backward: run the model's "
+                           "'scan' route under autograd")
+    if _on_cpu(*ts):
+        return ref.mamba_scan_ref(*ts)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError(f"mamba_scan takes f32 operands, got "
+                         f"{[str(t.dtype) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("mamba_scan operands must be contiguous")
+    if N not in MAMBA_STATE_DIMS or S < 1:
+        raise ValueError(f"the selective-scan kernel takes N in "
+                         f"{MAMBA_STATE_DIMS} and S >= 1, got N={N}, S={S}")
+    lib = build.load()
+    y = torch.empty_like(dt)
+    h_last = torch.empty((Bsz, E, N), dtype=torch.float32, device=dt.device)
+    rc = lib.mamba_scan(dt.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
+                        x.data_ptr(), A.data_ptr(), y.data_ptr(),
+                        h_last.data_ptr(), Bsz, S, E, N, _stream(dt.device))
+    build.check(lib, rc, "mamba_scan")
+    mamba_scan.launches += 1
+    return y, h_last
+
+
 KERNEL_WRAPPERS = (zo_dual_perturb_flat, zo_fused_update_flat, gradip_flat,
                    flash_attention, flash_attention_bwd_dq,
-                   flash_attention_bwd_dkv, flash_decode)
+                   flash_attention_bwd_dkv, flash_decode, mamba_scan)
 
 
 def reset_launches() -> None:

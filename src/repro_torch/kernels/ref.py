@@ -7,7 +7,8 @@ the TPU kernels: the perturbation is taken in f32 (``eps * z``, then ``* m``),
 cast to w's dtype, and then added; the flash backward recomputes the
 probabilities from the forward's logsumexp, as the TPU's recompute kernels
 do; the decode attention masks with an explicit zero, so a row without a
-live key is zeros.
+live key is zeros; the selective scan steps through the sequence one
+position at a time, as the JAX oracle does.
 """
 from __future__ import annotations
 
@@ -33,6 +34,24 @@ def gradip_reduce_ref(gp, z, g):
     """g * sum(gp * z) in f32."""
     return torch.as_tensor(g, dtype=torch.float32, device=gp.device) * \
         torch.sum(gp.float() * z.float())
+
+
+def mamba_scan_ref(dt, B_in, C_in, x, A):
+    """Serial selective scan (``repro.kernels.ref.mamba_scan_ref``).
+
+    dt, x [B, S, E] (dt after softplus); B_in, C_in [B, S, N]; A [E, N].
+    ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t``, ``y_t = <h_t, C_t>``
+    from h = 0.  Returns (y [B, S, E] f32, h_last [B, E, N] f32)."""
+    B, S, E = dt.shape
+    N = B_in.shape[-1]
+    dt, B_in, C_in, x, A = (t.float() for t in (dt, B_in, C_in, x, A))
+    h = torch.zeros((B, E, N), dtype=torch.float32, device=dt.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t, :, None] * A)            # [B, E, N]
+        h = decay * h + (dt[:, t] * x[:, t])[..., None] * B_in[:, t, None, :]
+        ys.append(torch.einsum("ben,bn->be", h, C_in[:, t]))
+    return torch.stack(ys, 1), h
 
 
 def attention_valid(S: int, lengths, *, window: int, causal: bool):

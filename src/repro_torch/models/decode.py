@@ -11,8 +11,9 @@ sequence has absorbed.  Rows are independent: continuous-batching slots
 prefill and retire at different positions, and ``decode_step(active=...)``
 leaves the cache and position of inactive rows as they were.
 
-The Mamba, mLSTM, sLSTM and cross-attention caches of the JAX package raise
-``NotImplementedError`` until their families are ported.
+The Mamba, mLSTM, sLSTM and cross-attention caches of the JAX package, and
+MoE layers at decode time, raise ``NotImplementedError`` until their
+serving is ported.
 
 Unlike the JAX package's pure functions, :func:`decode_step` updates the
 cache it is given in place and returns it.
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.init import check_dense_family
+from repro_torch.models.init import check_family
 from repro_torch.models.transformer import (DEFAULT_CTX, ModelCtx, _ffn_fwd,
                                             embed_input, unembed)
 from repro_torch.utils.tree import tree_map
@@ -36,13 +37,16 @@ def _window(cfg: ModelConfig, mixer: str, S_max: int) -> int:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.encoder is not None or any(
-            m not in ("attn", "local_attn") for m, _ in cfg.layer_pattern):
+    if cfg.encoder is not None or cfg.rope_style != "full" or any(
+            m not in ("attn", "local_attn") or f != "dense"
+            for m, f in cfg.layer_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: the port's caches cover attention layers only; "
-            f"the mamba, mlstm, slstm and cross-attention caches come with "
-            f"their families")
-    check_dense_family(cfg)
+            f"{cfg.name}: the port serves attention layers with dense FFNs "
+            f"and RoPE only; the Mamba and MoE layers of the hybrid family "
+            f"(mamba caches, mamba_decode, per-row MoE dispatch) come with "
+            f"hybrid serving in a later slice, the mlstm, slstm and "
+            f"cross-attention caches with their families")
+    check_family(cfg)
 
 
 # --------------------------------------------------------------- init ------
@@ -86,7 +90,7 @@ def decode_step(params, token, cache, cfg: ModelConfig,
                 local=mixer == "local_attn", ctx=ctx, active=act)
             if cfg.post_norms and "post_norm" in lp:
                 y = L.rmsnorm(y, lp["post_norm"]["scale"], cfg.norm_eps)
-            x = _ffn_fwd(x + y, lp, cfg)
+            x, _ = _ffn_fwd(x + y, lp, "dense", cfg)
     x = L.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = unembed(x, params, cfg)[:, 0]
     cache["pos"] = cur + (1 if act is None else act.to(torch.int32))
@@ -165,7 +169,7 @@ def prefill(params, batch, cfg: ModelConfig, ctx: ModelCtx = DEFAULT_CTX,
                              None if kv_mask is None else lengths_total)
             if cfg.post_norms and "post_norm" in lp:
                 y = L.rmsnorm(y, lp["post_norm"]["scale"], cfg.norm_eps)
-            x = _ffn_fwd(x + y, lp, cfg)
+            x, _ = _ffn_fwd(x + y, lp, "dense", cfg)
     # the final norm is per position: take it at the last real tokens only
     last = x[torch.arange(B, device=dev), lengths_total.long() - 1][:, None]
     last = L.rmsnorm(last, params["final_norm"]["scale"], cfg.norm_eps)

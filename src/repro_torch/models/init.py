@@ -1,5 +1,5 @@
-"""Parameter initialization for the dense decoder family
-(``repro.models.init``).
+"""Parameter initialization for the dense decoder and hybrid (Mamba +
+attention + MoE) families (``repro.models.init``).
 
 Layer parameters are *stacked over periods*: for each position ``i`` in
 ``cfg.layer_pattern`` the subtree ``stack['p{i}']`` has a leading
@@ -15,8 +15,10 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.ssm import _dt_rank
 
-_MIXERS = ("attn", "local_attn")
+_MIXERS = ("attn", "local_attn", "mamba")
+_FFNS = ("dense", "moe")
 
 
 class _Init:
@@ -83,31 +85,79 @@ def _mlp_params(ini, cfg: ModelConfig, n: int):
     return p
 
 
-def check_dense_family(cfg: ModelConfig) -> None:
-    """The port so far covers decoder-only attention + gated dense-MLP
-    stacks with RMSNorm and full RoPE (the paper's models); the other
-    families and options of ``repro`` raise until they are ported."""
+def _moe_params(ini, cfg: ModelConfig, n: int):
+    m = cfg.moe
+    D, F, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
+    p = {
+        "norm2": _norm_p(ini, D, n),
+        "router": ini.dense((D, E), n=n),
+        "w1": ini.dense((E, D, F), n=n),
+        "w3": ini.dense((E, D, F), n=n),
+        "w2": ini.dense((E, F, D), std=out_std, n=n),
+    }
+    if m.n_shared_experts:
+        Fs = F * m.n_shared_experts
+        p["sw1"] = ini.dense((D, Fs), n=n)
+        p["sw3"] = ini.dense((D, Fs), n=n)
+        p["sw2"] = ini.dense((Fs, D), std=out_std, n=n)
+    return p
+
+
+def _mamba_params(ini, cfg: ModelConfig, n: int):
+    s = cfg.ssm
+    D = cfg.d_model
+    E = s.expand * D
+    N = s.d_state
+    r = _dt_rank(D, s)
+    out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
+    dev = ini.device
+    A = torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(E, N)
+    dt_bias = torch.log(torch.expm1(torch.full((E,), 0.01, device=dev)))
+    return {
+        "norm": _norm_p(ini, D, n),
+        "in_proj": ini.dense((D, 2 * E), n=n),
+        "conv_w": ini.dense((s.d_conv, E), std=0.2, n=n),
+        "conv_b": ini.full((n, E), 0.0),
+        "x_proj": ini.dense((E, r + 2 * N), n=n),
+        "dt_proj": ini.dense((r, E), std=r ** -0.5, n=n),
+        "dt_bias": dt_bias.expand(n, E).to(ini.dtype).contiguous(),
+        "A_log": torch.log(A).expand(n, E, N).to(ini.dtype).contiguous(),
+        "D": ini.full((n, E), 1.0),
+        "out_proj": ini.dense((E, D), std=out_std, n=n),
+    }
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """The port covers decoder-only stacks of attention and Mamba mixers
+    with gated dense or MoE FFNs, RMSNorm, and full RoPE or none (the
+    paper's models and the Jamba hybrid); the other families and options of
+    ``repro`` (mLSTM/sLSTM mixers, encoders, frontends, partial RoPE,
+    LayerNorm, qk-norm, LoRA) raise until they are ported."""
     bad = [(m, f) for m, f in cfg.layer_pattern
-           if m not in _MIXERS or f != "dense"]
+           if m not in _MIXERS or f not in _FFNS]
     if (bad or cfg.encoder is not None or cfg.frontend != "none"
-            or cfg.norm != "rmsnorm" or cfg.rope_style != "full"
+            or cfg.norm != "rmsnorm" or cfg.rope_style not in ("full", "none")
             or cfg.act not in ("silu", "gelu") or cfg.qk_norm
             or cfg.lora_rank):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers the dense decoder family with "
-            f"RMSNorm, full RoPE and gated silu/gelu MLPs only")
+            f"{cfg.name}: the port covers attention and Mamba mixers with "
+            f"gated dense or MoE FFNs, RMSNorm, and full RoPE or none only")
 
 
 def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
                 device="cpu"):
     """Initialize the full parameter dict for ``cfg`` on ``device``."""
-    check_dense_family(cfg)
+    check_family(cfg)
     ini = _Init(seed, device, dtype)
     params = {"embed": ini.dense((cfg.vocab, cfg.d_model))}
     stack = {}
-    for i in range(len(cfg.layer_pattern)):
-        lp = _attn_params(ini, cfg, cfg.n_periods)
-        lp.update(_mlp_params(ini, cfg, cfg.n_periods))
+    n = cfg.n_periods
+    for i, (mixer, ffn) in enumerate(cfg.layer_pattern):
+        lp = (_mamba_params(ini, cfg, n) if mixer == "mamba"
+              else _attn_params(ini, cfg, n))
+        lp.update(_moe_params(ini, cfg, n) if ffn == "moe"
+                  else _mlp_params(ini, cfg, n))
         stack[f"p{i}"] = lp
     params["stack"] = stack
     params["final_norm"] = _norm_p(ini, cfg.d_model)

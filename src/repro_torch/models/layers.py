@@ -1,6 +1,7 @@
-"""Transformer layers of the dense decoder family, in torch
-(``repro.models.layers``): RMSNorm, RoPE, GQA attention with QKV bias,
-softcap and sliding window, gated MLPs.
+"""Transformer layers of the dense decoder and hybrid families, in torch
+(``repro.models.layers``): RMSNorm, RoPE (or no positional encoding, as in
+Jamba), GQA attention with QKV bias, softcap and sliding window, gated
+MLPs.
 
 Parameters are plain dicts of tensors (``models/init.py``).  Forward
 attention runs through one dispatch point, :func:`forward_attention`, which
@@ -186,8 +187,9 @@ def self_attention(x, p, cfg, positions, *, local: bool, ctx=None):
     """Full training/prefill self-attention. x: [B,S,D] -> [B,S,D]."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope_style != "none":  # Jamba's attention has no positions
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window if local else 0
     out = forward_attention(q, k, v, cfg, ctx, window=window)
     return out.reshape(B, S, -1) @ p["wo"]

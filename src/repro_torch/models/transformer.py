@@ -1,6 +1,6 @@
-"""Model application of the dense decoder family: training forward and the
-LM loss (``repro.models.transformer``).  The stacked layer periods run in a
-Python loop (the JAX package scans them)."""
+"""Model application of the dense decoder and hybrid families: training
+forward and the LM loss (``repro.models.transformer``).  The stacked layer
+periods run in a Python loop (the JAX package scans them)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -9,7 +9,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.init import check_dense_family
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
+from repro_torch.models.init import check_family
 from repro_torch.utils.tree import tree_map
 
 
@@ -20,10 +22,15 @@ class ModelCtx:
 
     ``attn_backend``: auto | kernel | dense (``layers.resolve_attn_backend``);
     ``decode_backend``: auto | kernel | ref, the one-token decode route
-    (``layers.resolve_decode_backend``; ``ShardCtx.decode_backend``).
+    (``layers.resolve_decode_backend``; ``ShardCtx.decode_backend``);
+    ``mamba_mode``: auto | kernel | scan, the selective-scan route of the
+    Mamba layers (``ssm.resolve_mamba_mode``; auto takes the kernel unless
+    autograd records through the layer).  The scan route's chunk is
+    ``mamba_forward``'s default of 64 positions (``ShardCtx.mamba_chunk``).
     """
     attn_backend: str = "auto"
     decode_backend: str = "auto"
+    mamba_mode: str = "auto"
 
 
 DEFAULT_CTX = ModelCtx()
@@ -44,34 +51,47 @@ def unembed(x, params, cfg: ModelConfig):
 
 def _mixer_fwd(x, lp, mixer, cfg, ctx, positions):
     h = L.rmsnorm(x, lp["norm"]["scale"], cfg.norm_eps)
-    y = L.self_attention(h, lp, cfg, positions, local=mixer == "local_attn",
-                         ctx=ctx)
+    if mixer == "mamba":
+        y = SSM.mamba_forward(h, lp, cfg.ssm, mode=ctx.mamba_mode)
+    else:
+        y = L.self_attention(h, lp, cfg, positions,
+                             local=mixer == "local_attn", ctx=ctx)
     if cfg.post_norms and "post_norm" in lp:
         y = L.rmsnorm(y, lp["post_norm"]["scale"], cfg.norm_eps)
     return x + y
 
 
-def _ffn_fwd(x, lp, cfg):
+def _ffn_fwd(x, lp, ffn, cfg):
+    """(x + FFN(x), the MoE layer's load-balance loss, or None for a dense
+    FFN)."""
     h = L.rmsnorm(x, lp["norm2"]["scale"], cfg.norm_eps)
-    y = L.mlp(h, lp, cfg)
+    aux = None
+    if ffn == "moe":
+        y, aux = MOE.moe_dense_ref(h, lp, cfg.moe, cfg.act)
+    else:
+        y = L.mlp(h, lp, cfg)
     if cfg.post_norms and "post_norm2" in lp:
         y = L.rmsnorm(y, lp["post_norm2"]["scale"], cfg.norm_eps)
-    return x + y
+    return x + y, aux
 
 
 def forward(params, batch, cfg: ModelConfig, ctx: ModelCtx = DEFAULT_CTX):
-    """Training forward: returns (logits [B, S, V] f32, aux_loss)."""
-    check_dense_family(cfg)
+    """Training forward: returns (logits [B, S, V] f32, aux_loss), aux the
+    sum of the MoE layers' load-balance losses."""
+    check_family(cfg)
     x = embed_input(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device).expand(
         x.shape[:2])
+    aux = torch.zeros((), device=x.device)
     for period in range(cfg.n_periods):
         pp = tree_map(lambda a: a[period], params["stack"])
-        for i, (mixer, _) in enumerate(cfg.layer_pattern):
+        for i, (mixer, ffn) in enumerate(cfg.layer_pattern):
             x = _mixer_fwd(x, pp[f"p{i}"], mixer, cfg, ctx, positions)
-            x = _ffn_fwd(x, pp[f"p{i}"], cfg)
+            x, a = _ffn_fwd(x, pp[f"p{i}"], ffn, cfg)
+            if a is not None:
+                aux = aux + a
     x = L.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(x, params, cfg), torch.zeros((), device=x.device)
+    return unembed(x, params, cfg), aux
 
 
 def lm_loss(params, batch, cfg: ModelConfig, ctx: ModelCtx = DEFAULT_CTX,

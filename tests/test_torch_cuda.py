@@ -277,3 +277,45 @@ def test_flash_decode_rejects_a_misaligned_cache(dev):
     k = torch.zeros(1 + 16 * 2 * 64, device=dev)[1:].view(1, 16, 2, 64)
     with pytest.raises(ValueError):
         ops.flash_decode(q, k, k, 16)
+
+
+def _mamba_args(dev, B, S, E, N, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, E, generator=g, device=dev)) * 0.1
+    Bi, Ci = (torch.randn(B, S, N, generator=g, device=dev) for _ in range(2))
+    x = torch.randn(B, S, E, generator=g, device=dev)
+    A = -torch.exp(torch.randn(E, N, generator=g, device=dev))
+    return dt, Bi, Ci, x, A
+
+
+@pytest.mark.parametrize("B,S,E,N", [(1, 1, 128, 16), (3, 37, 200, 16),
+                                     (2, 300, 256, 8), (2, 64, 129, 8),
+                                     (1, 513, 1024, 16)])
+def test_mamba_scan_matches_plain(dev, B, S, E, N):
+    """y and h_last within 1e-5 of the largest entry (f32 sums of the same
+    terms, fused on the card), and two calls bit-equal."""
+    args = _mamba_args(dev, B, S, E, N, B * 7 + S)
+    before = ops.launches()["mamba_scan"]
+    y, h = ops.mamba_scan(*args)
+    ry, rh = ref.mamba_scan_ref(*args)
+    assert ops.launches()["mamba_scan"] == before + 1
+    for got, want in ((y, ry), (h, rh)):
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+    y2, h2 = ops.mamba_scan(*args)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_mamba_scan_rejects_what_the_kernel_does_not_take(dev):
+    dt, Bi, Ci, x, A = _mamba_args(dev, 1, 8, 128, 16, 0)
+    with pytest.raises(ValueError):
+        ops.mamba_scan(dt.double(), Bi, Ci, x, A)
+    with pytest.raises(ValueError):
+        ops.mamba_scan(torch.rand(1, 8, 256, device=dev)[..., :128], Bi, Ci,
+                       x, A)  # the right shape, not contiguous
+    with pytest.raises(ValueError):
+        ops.mamba_scan(dt, Bi[..., :4].contiguous(), Ci[..., :4].contiguous(),
+                       x, A[:, :4].contiguous())  # N = 4
+    with pytest.raises(RuntimeError):
+        ops.mamba_scan(dt.requires_grad_(True), Bi, Ci, x, A)
