@@ -48,9 +48,26 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 experts of 24576, top 2, 11.2 B parameters): a forward and
                 the LM loss, finite; then the layer's MoE FFN on its real
                 input against a plain per-token loop (moe_loop_ref), at the
-                configured capacity and at one that drops pairs.
+                configured capacity and at one that drops pairs;
+10. analysis    the static analyzer (``repro_torch.analysis``) on the card:
+                every rule flags its bad fixtures and passes its good ones
+                (the fixture_double kernel: bit-equal at [128, 128], its
+                [2048, 2048] one-block launch refused); every kernel's
+                launch plan (kernels/plans.py) equals the library's own
+                query at the shapes of the registry and the earlier phases;
+                the registry's programs run clean with launches equal to
+                their kernel records, and torch.cuda.set_sync_debug_mode
+                agrees with the host-sync rule on each; then
+                make_fl_train_loop on full-size Llama-3.2-1B (8 clients x
+                2 x 512, 2 steps) under the recorder: no host sync, no f64,
+                no rebuild on a repeat call, every kernel block within the
+                card's shared memory, the liveness estimate the
+                memory-ceiling rule applies within 10% of the measured
+                peak rise, the loop equal to the folded step, the step
+                time with and without the recorder, and sample_z's time
+                against erfinv's float64 Horner form.
 
-Phases 4 to 9 each count every kernel's launches from zero, and each count
+Phases 4 to 10 each count every kernel's launches from zero, and each count
 must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
@@ -132,6 +149,21 @@ MAMBA_VARIANTS = ((3, 37, 200, 16), (2, 300, 256, 8), (1, 1, 128, 16),
 # serial scan against the parallel prefix, through 3 Mamba layers
 MAMBA_ROUTE_REL = 1e-4
 
+# the analyzer's fixture kernel: [128, 128] f32 in one block fits a block
+# (131,072 B of shared memory); [2048, 2048] in one block asks 33,554,432 B
+# and the card must refuse it
+FIXTURE_GOOD, FIXTURE_BAD = (128, 128), (2048, 2048)
+# the analysis phase's full-width run: make_fl_train_loop on Llama-3.2-1B,
+# 8 clients x batch 2 x SEQ_LEN, 2 steps; the liveness estimate of the
+# recorded call within AN_LIVENESS_REL of torch.cuda.max_memory_allocated's
+# rise over it
+AN_CLIENTS, AN_BATCH, AN_STEPS = 8, 2, 2
+AN_LIVENESS_REL = 0.10
+# sample_z against erfinv's float64 Horner form: both round each Horner step
+# once but for rare double roundings, so they differ by an ulp or two where
+# they differ; 1e-5 is some 20 ulp of the largest normals (|z| < 6)
+Z_F64_ABS = 1e-5
+
 # H100 SXM data sheet: HBM3 rate, and the f32 rate outside the tensor cores
 # (the kernels compute in f32 on CUDA cores): 132 SMs x 128 lanes x 2 (FMA)
 # at the 1.98 GHz boost clock
@@ -161,6 +193,8 @@ KERNEL_SOURCES = {
                      "src/repro/kernels/decode_attention.py:64"),
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:63"),
+    "fixture_double": ("src/repro_torch/kernels/csrc/fixture_double.cu",
+                       "src/repro/analysis/fixtures.py:182"),
 }
 # the variant grid of the flash kernels: (S, window, softcap, lengths)
 FLASH_VARIANTS = ((128, 0, 0.0, None),       # causal
@@ -642,6 +676,50 @@ def check_mamba_scan(torch, ops, ref, dev):
         plain_ms=timed(lambda: ref.mamba_scan_ref(*args), 3),
         shape=f"dt, x [{B},{S},{E}] f32, N {N}", mbytes=n_bytes / 1e6,
         g_exp=n_exp / 1e9)}
+
+
+def check_fixture_double(torch, ops, ref, dev):
+    """The analyzer's fixture kernel: at FIXTURE_GOOD bit-equal to its plain
+    version (one block, and ragged blocks of 50 rows); at FIXTURE_BAD in one
+    block the card refuses the launch, the wrapper raises, nothing is
+    counted, and the next launch runs.  Timed at FIXTURE_GOOD, where one
+    launch is all there is (launch latency)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(*FIXTURE_GOOD, generator=gen, device=dev)
+    want = ref.fixture_double_ref(x)
+    for block_rows in (FIXTURE_GOOD[0], 50):
+        got = ops.fixture_double(x, block_rows)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"fixture_double differs from plain at block_rows "
+                 f"{block_rows}")
+    before = ops.fixture_double.launches
+    xb = torch.randn(*FIXTURE_BAD, generator=gen, device=dev)
+    refused = None
+    try:
+        ops.fixture_double(xb, FIXTURE_BAD[0])
+    except RuntimeError as e:
+        refused = str(e)
+    if refused is None or ops.fixture_double.launches != before:
+        fail("fixture_double's one-block launch at [2048, 2048] was not "
+             "refused")
+    got = ops.fixture_double(x, FIXTURE_GOOD[0])
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("fixture_double differs from plain after the refused launch")
+    emit("kernels.fixture_double_variants", ok=True, bit_equal=True,
+         block_rows=[FIXTURE_GOOD[0], 50], bad_refused=refused,
+         smem_optin=torch.cuda.get_device_properties(
+             dev).shared_memory_per_block_optin)
+    n = x.numel()
+    b_ms, b_by = bound(8.0 * n, float(n))
+    return {"fixture_double": dict(
+        max_abs_err=float((got - want).abs().max()), bound_ms=b_ms,
+        bound_by=b_by,
+        ms=timed(lambda: ops.fixture_double(x, FIXTURE_GOOD[0]), 200),
+        plain_ms=timed(lambda: ref.fixture_double_ref(x), 200),
+        library_ms=timed(lambda: torch.mul(x, 2.0), 200),
+        shape=f"{list(FIXTURE_GOOD)} f32, one block (launch latency)")}
 
 
 # ------------------------------------------------------------------- slice --
@@ -1357,6 +1435,377 @@ def run_jamba_moe(torch, dev, cfg):
     return counts, expected
 
 
+# ---------------------------------------------------------------- analysis --
+def plan_cases(n_flat: int, n_mask: int):
+    """(plan function, shape) of every kernel at the shapes of the registry
+    (TINY at d_model 256, S 320) and of the earlier phases."""
+    from repro_torch.kernels import plans as P
+    cases = [(P.zo_update, dict(n=n_flat, bf16=False, has_m=False, vec=True,
+                                update=u)) for u in (False, True)]
+    cases += [(P.zo_update, dict(n=1023, bf16=True, has_m=True, vec=v,
+                                 update=True)) for v in (False, True)]
+    cases += [(P.gradip_reduce, dict(n=n_mask, vec=True)),
+              (P.gradip_reduce, dict(n=777, vec=False))]
+    attn = [dict(B=16, S=SEQ_LEN, KVH=8, G=4, dh=64),      # Llama slice
+            dict(B=4, S=SEQ_LEN, KVH=8, G=8, dh=128),      # Jamba
+            dict(B=2, S=320, KVH=2, G=2, dh=64)]           # the registry
+    cases += [(P.flash_attn_fwd, dict(**a, bf16=False)) for a in attn]
+    cases += [(P.flash_attn_fwd, dict(B=2, S=4208, KVH=4, G=2, dh=256,
+                                      bf16=False)),        # Gemma prefill
+              (P.flash_attn_fwd, dict(B=1, S=130, KVH=2, G=4, dh=128,
+                                      bf16=True))]
+    cases += [(P.flash_attn_bwd, dict(**a, bf16=False, dkv=d))
+              for a in attn for d in (False, True)]
+    cases += [(P.flash_decode, dict(B=SERVE_SLOTS, S=SERVE_S_MAX, KVH=8, G=4,
+                                    dh=64, chunk=256, bf16=False)),
+              (P.flash_decode, dict(B=2, S=4096, KVH=4, G=2, dh=256,
+                                    chunk=256, bf16=False)),
+              (P.flash_decode, dict(B=2, S=GEMMA_S_MAX, KVH=4, G=2, dh=256,
+                                    chunk=256, bf16=True)),
+              (P.flash_decode, dict(B=2, S=320, KVH=2, G=2, dh=64, chunk=256,
+                                    bf16=False))]
+    cases += [(P.mamba_scan, dict(B=4, S=SEQ_LEN, E=16384, N=16)),
+              (P.mamba_scan, dict(B=2, S=300, E=256, N=8))]
+    cases += [(P.fixture_double, dict(rows=r, cols=c, block_rows=r))
+              for r, c in (FIXTURE_GOOD, FIXTURE_BAD)]
+    return cases
+
+
+def check_plans(torch, dev, n_flat: int, n_mask: int):
+    """Every kernel's plan (kernels/plans.py) against the library's own
+    ``*_plan`` query (cudaFuncGetAttributes and the launcher's grid and
+    dynamic bytes)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import plans as P
+    lib = build.load()
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bad = []
+    cases = plan_cases(n_flat, n_mask)
+    for fn, shape in cases:
+        extra = {"n_sms": n_sms} if fn is P.zo_update else {}
+        want = [l.numbers() for l in fn(**shape, **extra)]
+        got = [l.numbers() for l in P.query(lib, fn, **shape)]
+        if want != got:
+            bad.append(dict(plan=fn.__name__, shape=shape, python=want,
+                            library=got))
+    emit("analysis.plans", ok=not bad, cases=len(cases),
+         kernels=sorted({fn.__name__ for fn, _ in cases}), mismatches=bad)
+    return bad
+
+
+def _sync_warnings(torch, fn, args):
+    """The synchronizing operations torch.cuda.set_sync_debug_mode("warn")
+    reports over one call of fn(*args)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [str(w.message)[:160] for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def _record_counted(torch, ops, AC, built, dev):
+    """Artifacts of one built program: the repeat calls, then the recorded
+    call with the launch counts from zero; returns (artifacts, counts, the
+    counts its kernel records imply: one launch per record that did not
+    raise, on the card; none on the CPU, where the plain versions run)."""
+    art = AC.Artifacts(built, dev)
+    if built.meta.get("runtime", True):
+        art.repeat()
+    ops.reset_launches()
+    trace = art.trace()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    counts = ops.launches()
+    expected = {name: 0 for name in counts}
+    for r in trace.records:
+        if on_card and r.kind == "kernel" and not r.raised:
+            expected[r.name.split(":", 1)[1]] += 1
+    return art, counts, expected
+
+
+def run_analysis_phase(torch, dev, cfg):
+    """Phase 10 (module docstring).  Returns (launch counts summed over its
+    counted calls, the counts they imply)."""
+    from repro_torch.analysis import core as AC
+    from repro_torch.analysis import rules as AR
+    from repro_torch.analysis.fixtures import FIXTURES
+    from repro_torch.analysis.registry import HOT_PATHS
+    from repro_torch.kernels import ops
+    from repro_torch.models.init import param_count
+
+    on_card = dev.type == "cuda"
+    problems = []
+    total = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    total_expected = dict(total)
+
+    def add(counts, expected, what):
+        if counts != expected:
+            problems.append(f"{what}: launches {counts} != {expected}")
+        for k in total:
+            total[k] += counts[k]
+            total_expected[k] += expected[k]
+
+    # (a) the fixture matrix: every rule against its own fixtures
+    t0 = time.perf_counter()
+    matrix = []
+    for rule in AR.ALL_RULES:
+        for kind in ("bad", "good"):
+            for prog in FIXTURES[rule.name][kind]:
+                built = prog.build(dev)
+                art, counts, expected = _record_counted(
+                    torch, ops, AC, built, dev)
+                add(counts, expected, prog.name)
+                rows = AC.check_rules(prog.name, built, art, [rule])
+                errs = [f["message"] for r in rows for f in r["findings"]
+                        if f["severity"] == "error"]
+                ok = bool(errs) == (kind == "bad")
+                row = dict(rule=rule.name, program=prog.name, ok=ok,
+                           errors=len(errs), first=errs[:1])
+                if rule.name == "host-sync" and on_card:
+                    row["sync_warnings"] = len(_sync_warnings(
+                        torch, built.fn, built.args))
+                    row["agree"] = (row["sync_warnings"] > 0) == bool(
+                        errs)
+                    ok = ok and row["agree"]
+                if not ok:
+                    problems.append(f"fixture {prog.name}: {row}")
+                matrix.append(row)
+    emit("analysis.fixtures", ok=all(r.get("agree", True) and r["ok"]
+                                     for r in matrix),
+         seconds=time.perf_counter() - t0, rows=matrix)
+
+    # (b) every kernel's plan against the library's query
+    if on_card:
+        n_flat = param_count(cfg)
+        n_pad = -(-n_flat // 1024) * 1024
+        n_mask = max(1, int(round(n_flat * DENSITY)))
+        for m in check_plans(torch, dev, n_pad, n_mask):
+            problems.append(f"plan mismatch: {m}")
+
+    # (c) the registry: clean, launches = kernel records, sync agreement
+    t0 = time.perf_counter()
+    reg = []
+    for prog in HOT_PATHS:
+        try:
+            built = prog.build(dev)
+        except AC.ProgramSkip as e:
+            # only these two skip, each naming the item it waits for
+            want = {"fl_round_sharded": "A12",
+                    "ckpt_roundtrip": "A8"}.get(prog.name)
+            if want is None or want not in str(e):
+                problems.append(f"{prog.name} skipped: {e}")
+            reg.append(dict(program=prog.name, skipped=str(e)))
+            continue
+        art, counts, expected = _record_counted(torch, ops, AC, built, dev)
+        add(counts, expected, prog.name)
+        rows = AC.check_rules(prog.name, built, art, AR.ALL_RULES)
+        errs = [f["message"] for r in rows for f in r["findings"]
+                if f["severity"] == "error"]
+        peak = next(f["detail"]["peak_bytes"] for r in rows
+                    for f in r["findings"] if r["rule"] == "memory-ceiling"
+                    and "detail" in f and "peak_bytes" in f["detail"])
+        row = dict(program=prog.name, errors=errs[:3],
+                   launches={k: v for k, v in counts.items() if v},
+                   liveness_peak_bytes=peak,
+                   not_applicable=[r["rule"] for r in rows
+                                   if r.get("skipped")])
+        if on_card:
+            syncs = _sync_warnings(torch, built.fn, built.args)
+            rule_syncs = AR.host_sync_records(art.trace())
+            row.update(sync_warnings=syncs[:3], n_sync=len(syncs),
+                       rule_syncs=rule_syncs[:3],
+                       agree=bool(syncs) == bool(rule_syncs))
+            if not row["agree"]:
+                problems.append(f"{prog.name}: sync debug mode and the "
+                                f"host-sync rule disagree: {row}")
+        if errs:
+            problems.append(f"{prog.name}: {errs[:3]}")
+        reg.append(row)
+        del built, art
+    emit("analysis.registry", ok=not any(r.get("errors") for r in reg),
+         seconds=time.perf_counter() - t0, programs=reg)
+
+    # (d) the full-width training burst under the recorder
+    counts, expected, full = run_analysis_full(torch, dev, cfg, problems)
+    add(counts, expected, "full-width make_fl_train_loop")
+    emit("analysis", ok=not problems, problems=problems, **full)
+    if problems:
+        fail(f"analysis: {problems[:4]}")
+    return total, total_expected
+
+
+def run_analysis_full(torch, dev, cfg, problems):
+    """make_fl_train_loop on ``cfg`` at full width (AN_CLIENTS x AN_BATCH x
+    SEQ_LEN, AN_STEPS steps, random weights from SEED, a random mask of
+    DENSITY) under the recorder.  Returns (launch counts of the recorded
+    call, the counts it implies, the numbers for the phase line)."""
+    import numpy as np
+
+    from repro_torch.analysis import core as AC
+    from repro_torch.analysis import rules as AR
+    from repro_torch.analysis import walk as AW
+    from repro_torch.core import prng, random_mask
+    from repro_torch.core.fl_step import make_fl_train_loop, make_fl_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.utils.tree import tree_leaves
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(seed=SEED)
+    space = random_mask(params, density=DENSITY, seed=3, balanced=False)
+    kw = dict(eps=1e-3, lr=1e-2, n_clients=AN_CLIENTS)
+
+    def loss(p, b):
+        return model.loss(p, b, per_example=True)
+
+    loop = make_fl_train_loop(loss, space, n_steps=AN_STEPS, **kw)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab, size=(AN_STEPS, AN_CLIENTS * AN_BATCH, SEQ_LEN),
+        dtype=np.int32), device=dev)
+    key = prng.key(1)
+    built = AC.Built(loop, (params, key, {"tokens": tokens}))
+    art = AC.Artifacts(built, dev)
+    sync()
+    setup_s = time.perf_counter() - t0
+
+    rep = art.repeat()                    # warm-up, then the repeat
+    t0 = time.perf_counter()
+    loop(*built.args)
+    sync()
+    plain_s = time.perf_counter() - t0
+    gc.collect()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    trace = art.trace()
+    sync()
+    recorded_s = time.perf_counter() - t0
+    counts = ops.launches()
+    rise = (torch.cuda.max_memory_allocated() - before
+            if on_card else None)
+    rows = AC.check_rules("full_width_loop", built, art,
+                          [r for r in AR.ALL_RULES
+                           if r.name != "recompile-hazard"])
+    expected = {name: 0 for name in counts}
+    if on_card:
+        expected.update({
+            "zo_dual_perturb_flat": AN_STEPS,
+            "zo_fused_update_flat": AN_STEPS,
+            "flash_attention": AN_STEPS * 2 * cfg.n_layers})
+    # the estimate the memory-ceiling rule applies (walk.liveness)
+    est = AW.liveness(trace, device=dev.type)
+    est_rise = est["peak_bytes"] - est["input_bytes"]
+    live_rel = abs(est_rise - rise) / rise if rise else None
+    errs = [f["message"] for r in rows for f in r["findings"]
+            if f["severity"] == "error"]
+    syncs = AR.host_sync_records(trace)
+    blocks = AW.kernel_block_records(trace)
+    max_block = max((b["block_bytes"] for b in blocks), default=0)
+    if trace.raised:
+        problems.append(f"full width: the recorded call raised "
+                        f"{trace.raised}")
+    if errs:
+        problems.append(f"full width: {errs[:3]}")
+    if syncs:
+        problems.append(f"full width: host syncs {syncs[:3]}")
+    if rep.get("raised") or rep["builds"] or rep["graphs"]:
+        problems.append(f"full width: the repeat call {rep}")
+    smem = trace.smem_optin or AR.SMEM_BUDGETS["h100"]
+    if max_block > smem:
+        problems.append(f"full width: a kernel block of {max_block} B")
+    if on_card and live_rel > AN_LIVENESS_REL:
+        problems.append(f"full width: liveness estimate {est_rise} B vs a "
+                        f"measured rise of {rise} B ({live_rel:.3f})")
+
+    # the loop against the step folded over the same batches and keys
+    p_loop, g_loop, _ = loop(*built.args)
+    step = make_fl_train_step(loss, space, **kw)
+    p, gs = params, []
+    for i, k in enumerate(prng.split(key, AN_STEPS)):
+        p, g, _ = step(p, k, {"tokens": tokens[i]})
+        gs.append(g)
+    fold_equal = (torch.equal(g_loop, torch.stack(gs)) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(p_loop),
+                                          tree_leaves(p))))
+    finite = bool(torch.isfinite(g_loop).all())
+    if not fold_equal:
+        problems.append("full width: the loop differs from the folded step")
+    if not finite:
+        problems.append("full width: non-finite projected gradients")
+    del p_loop, p, g_loop, gs
+    z_ms = z64_ms = z_diff = None
+    if on_card:
+        z_ms, z64_ms, z_diff = time_sample_z(torch, space, key, dev)
+        if z_diff > Z_F64_ABS:
+            problems.append(f"full width: sample_z differs from the float64 "
+                            f"Horner form by {z_diff}")
+    full = dict(
+        model=cfg.name, n_params=model.n_params, mask_coords=space.n,
+        clients=AN_CLIENTS, client_batch=AN_BATCH, seq_len=SEQ_LEN,
+        steps=AN_STEPS, setup_s=setup_s,
+        step_s=plain_s / AN_STEPS, step_s_recorded=recorded_s / AN_STEPS,
+        recorder_overhead=recorded_s / plain_s - 1.0,
+        records=len(trace.records),
+        kernel_records=sum(1 for r in trace.records if r.kind == "kernel"),
+        launches={k: v for k, v in counts.items() if v},
+        expected_launches={k: v for k, v in expected.items() if v},
+        repeat=rep, host_syncs=len(syncs), rule_errors=errs[:3],
+        max_kernel_block_bytes=max_block, smem_optin=smem,
+        liveness_peak_bytes=est["peak_bytes"],
+        liveness_input_bytes=est["input_bytes"],
+        liveness_rise_bytes=est_rise, measured_rise_bytes=rise,
+        liveness_rel_err=live_rel, liveness_rel_bound=AN_LIVENESS_REL,
+        fold_bit_equal=fold_equal, finite=finite,
+        sample_z_ms=z_ms, sample_z_f64_horner_ms=z64_ms,
+        sample_z_f64_max_abs_diff=z_diff,
+        dense_rule=f"not applicable: vocab {cfg.vocab} > S = {SEQ_LEN} "
+                   f"(the rule needs S above every other dim)")
+    return counts, expected, full
+
+
+def _normal_f64_horner(torch, prng, key, n, dev):
+    """``prng.normal`` with erfinv's Horner steps taken in float64, the form
+    the float32 FMA of ``prng._fma`` replaced; kept here to time the two."""
+    u = prng.uniform(key, n, prng._NEXT_ABOVE_MINUS_ONE, 1.0, dev)
+    w = -torch.log1p(-u * u)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    wd = w.double()
+    p = None
+    for a, b in zip(prng._ERFINV_LT5, prng._ERFINV_GE5):
+        c = torch.where(lt, a, b)
+        p = c if p is None else (c.double() + p.double() * wd).float()
+    x = torch.where(u.abs() == 1, u * torch.finfo(torch.float32).max, p * u)
+    return torch.full((), math.sqrt(2), dtype=torch.float32,
+                      device=dev) * x
+
+
+def time_sample_z(torch, space, key, dev):
+    """ms of ``space.sample_z`` (the mask's normals, erfinv by float32
+    FMAs) and of the float64-Horner form on the same key, and their
+    largest difference."""
+    from repro_torch.core import prng
+    z = space.sample_z(key)
+    z64 = _normal_f64_horner(torch, prng, key, space.n, dev)
+    diff = float((z - z64).abs().max())
+    return (timed(lambda: space.sample_z(key), 20),
+            timed(lambda: _normal_f64_horner(torch, prng, key, space.n, dev),
+                  20), diff)
+
+
 def profile_step(torch, name, step):
     """One more step (``step()``) under torch.profiler, after a warm one:
     device time by kernel, by kind, and the device's idle share of the
@@ -1451,6 +1900,7 @@ def main() -> int:
     rows.update(check_flash_decode(torch, ops, ref, dev, LLAMA32_1B,
                                    SERVE_SLOTS, SERVE_S_MAX, gemma))
     rows.update(check_mamba_scan(torch, ops, ref, dev))
+    rows.update(check_fixture_double(torch, ops, ref, dev))
     torch.cuda.empty_cache()
     emit("kernels", seconds=time.perf_counter() - t0, rows=rows)
 
@@ -1463,7 +1913,8 @@ def main() -> int:
                             ("serve", run_serve_llama, LLAMA32_1B),
                             ("serve_gemma", run_serve_gemma, gemma),
                             ("slice_jamba", run_slice_jamba, SLICE_CUT),
-                            ("jamba_moe", run_jamba_moe, moe_layer)):
+                            ("jamba_moe", run_jamba_moe, moe_layer),
+                            ("analysis", run_analysis_phase, LLAMA32_1B)):
         t0 = time.perf_counter()
         counts, expected = run(torch, dev, cfg)
         if counts != expected:

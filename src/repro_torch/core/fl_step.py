@@ -1,0 +1,235 @@
+"""Federated-ZO train steps (``repro.core.fl_step``) in torch.
+
+With the shared per-step seeds of Alg. 2/3 every client perturbs with the
+*same* z, so the high-frequency (T=1) MEERKAT step is exactly:
+
+    z  = N(0, I_n)                       (n = sparse coords, same everywhere)
+    f+ = per-client loss at w + eps*z
+    f- = per-client loss at w - eps*z
+    g_k = (f+_k - f-_k) / 2 eps          (K scalars)
+    w' = w - lr * mean_k(g_k) * z        (one sparse update)
+
+Every factory dispatches between the flat kernel route and the tree route
+(``core/dispatch.py``).  On the flat route the perturb phase is one
+``zo_dual_perturb_flat`` launch producing both perturbed copies and the
+weight update one ``zo_fused_update_flat`` launch.
+
+Left out against the JAX package: ``constrain_params`` (a mesh's weight
+shardings; the port runs on one device until ROADMAP A12), the
+``quantize`` uplink grid (raises until A8 ports ``core/quantize.py``), and
+``stack_forwards=True`` (``jax.vmap`` over the (w+, w-) pair; the
+ctypes-bound kernels cannot be vmapped, so the two forwards always run in
+sequence, ROADMAP C).
+
+Everything runs under ``torch.no_grad()`` and eagerly: ``n_steps`` is a
+Python loop in place of ``jax.lax.scan``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core.dispatch import get_backing, resolve_backend
+from repro_torch.kernels.ops import zo_dual_perturb_flat, zo_fused_update_flat
+
+
+def _masked_mean(g_clients, report_mask):
+    """Survivor/cohort mean of the per-client scalars: ``None`` (and an
+    all-ones mask) is the plain mean; a 0/1 mask excludes clients as a
+    runtime operand, so every fault pattern runs the same code."""
+    if report_mask is None:
+        return g_clients.mean()
+    m = report_mask.to(g_clients.dtype)
+    return (g_clients * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def _no_quantize(quantize) -> None:
+    if quantize is not None:
+        raise NotImplementedError(
+            "the uplink quantizer (core/quantize.py) is not ported yet "
+            "(ROADMAP A8)")
+
+
+def _g_clients(l_plus, l_minus, n_clients: int, eps: float):
+    return (l_plus - l_minus).reshape(n_clients, -1).mean(-1) / (2.0 * eps)
+
+
+def _step_bodies(per_example_loss: Callable, space, eps: float, lr: float,
+                 n_clients: int):
+    """The T=1 step on each route, shared by the step and the loop:
+    ``ref(p, z, batch, mask)`` over the parameter tree and ``flat(backing,
+    w_flat, z_flat, batch, mask)`` over the flat vector; each returns
+    (the new params or flat vector, g_clients [K], g, loss)."""
+
+    def finish(l_plus, l_minus, mask):
+        g_clients = _g_clients(l_plus, l_minus, n_clients, eps)
+        return (g_clients, _masked_mean(g_clients, mask),
+                (l_plus + l_minus).mean() / 2.0)
+
+    def ref(p, z, batch, mask):
+        w_plus = space.add(p, eps * z)
+        l_plus = per_example_loss(w_plus, batch)
+        w_minus = space.add(w_plus, (-2.0 * eps) * z)
+        del w_plus
+        l_minus = per_example_loss(w_minus, batch)
+        g_clients, g, loss = finish(l_plus, l_minus, mask)
+        return space.add(w_minus, (eps - lr * g) * z), g_clients, g, loss
+
+    def flat(backing, w_flat, z_flat, batch, mask):
+        wp, wm = zo_dual_perturb_flat(w_flat, z_flat, None, eps)
+        l_plus = per_example_loss(backing.unflatten(wp), batch)
+        del wp
+        l_minus = per_example_loss(backing.unflatten(wm), batch)
+        del wm
+        g_clients, g, loss = finish(l_plus, l_minus, mask)
+        return (zo_fused_update_flat(w_flat, z_flat, None, -lr * g),
+                g_clients, g, loss)
+
+    return ref, flat
+
+
+def make_fl_train_step(per_example_loss: Callable, space, *, eps: float,
+                       lr: float, n_clients: int,
+                       backend: Optional[str] = None, quantize=None):
+    """T=1 high-frequency MEERKAT step (Alg. 3).  Returns
+    ``step(params, key, batch, report_mask=None) -> (params', g_clients [K],
+    metrics)``; ``per_example_loss(params, batch)`` gives the [B] losses of
+    a batch whose rows are the K clients' in order.  ``report_mask`` ([K]
+    0/1) leaves the clients whose upload was lost out of the mean."""
+    _no_quantize(quantize)
+    ref, flat = _step_bodies(per_example_loss, space, eps, lr, n_clients)
+
+    @torch.no_grad()
+    def step(params, key, batch, report_mask=None):
+        backing = get_backing(space, params)
+        z = space.sample_z(key)
+        if resolve_backend(backend, backing) == "ref":
+            new_params, g_clients, g, loss = ref(params, z, batch,
+                                                 report_mask)
+        else:
+            w_flat, g_clients, g, loss = flat(
+                backing, backing.flatten(params), backing.expand(z), batch,
+                report_mask)
+            new_params = backing.unflatten(w_flat)
+        return new_params, g_clients, {"loss": loss, "g": g}
+
+    return step
+
+
+def make_fl_train_loop(per_example_loss: Callable, space, *, eps: float,
+                       lr: float, n_clients: int, n_steps: int,
+                       backend: Optional[str] = None,
+                       stack_forwards: Optional[bool] = None, quantize=None):
+    """``n_steps`` T=1 MEERKAT steps in one call, the training burst.
+
+    Returns ``loop(params, key, batches, report_masks=None) -> (params',
+    g_clients [n_steps, K], metrics)``; ``batches`` carries a leading
+    [n_steps, ...] axis and ``report_masks`` is [n_steps, K].  Step i runs
+    :func:`make_fl_train_step`'s body under ``prng.split(key, n_steps)[i]``,
+    so the loop equals that step folded over the batches bit for bit.
+
+    On the flat route the flat parameter vector is built once before the
+    loop and carried across it, as is one dense z buffer whose sparse
+    coordinates each step overwrites in place: each step is one
+    ``zo_dual_perturb_flat``, the two forwards and one
+    ``zo_fused_update_flat``.  ``stack_forwards`` may be None or False (two
+    forwards in sequence, see the module docstring)."""
+    _no_quantize(quantize)
+    if stack_forwards:
+        raise NotImplementedError(
+            "stack_forwards=True vmaps the (w+, w-) forwards in the JAX "
+            "package; the port's ctypes-bound kernels cannot be vmapped, so "
+            "it always runs the two forwards in sequence")
+    ref, flat = _step_bodies(per_example_loss, space, eps, lr, n_clients)
+
+    @torch.no_grad()
+    def loop(params, key, batches, report_masks=None):
+        backing = get_backing(space, params)
+        keys = prng.split(key, n_steps)
+        masks = ([None] * n_steps if report_masks is None
+                 else list(report_masks))
+        steps = [({k: v[i] for k, v in batches.items()}, keys[i], masks[i])
+                 for i in range(n_steps)]
+        gs, losses = [], []
+        if resolve_backend(backend, backing) == "ref":
+            p = params
+            for b, k, mask in steps:
+                p, g_cl, _, loss = ref(p, space.sample_z(k), b, mask)
+                gs.append(g_cl)
+                losses.append(loss)
+        else:
+            w_flat = backing.flatten(params)  # once per burst, not per step
+            z_buf = torch.zeros(backing.n_pad, dtype=torch.float32,
+                                device=backing.device)
+            for b, k, mask in steps:
+                z_flat = backing.scatter_into(z_buf, space.sample_z(k))
+                w_flat, g_cl, _, loss = flat(backing, w_flat, z_flat, b, mask)
+                gs.append(g_cl)
+                losses.append(loss)
+            p = backing.unflatten(w_flat)
+        gs = torch.stack(gs)
+        return p, gs, {"loss": losses[-1], "g": gs[-1].mean()}
+
+    return loop
+
+
+def make_fl_round_step(loss_fn: Callable, space, *, eps: float, lr: float,
+                       T: int, backend: Optional[str] = None):
+    """Full MEERKAT round with T > 1 local steps per client.
+
+    ``round_step(params, keys [T, 2], batches) -> (params', gs [K, T])``;
+    ``batches`` has a leading [K, T, b, ...] axis and the keys are shared
+    by the clients (Alg. 2).  The clients run one after another (the JAX
+    package vmaps them); their deltas are averaged and added once.
+
+    Flat route: the parameter vector is flattened once per round, and each
+    client carries its dense flat delta through its T steps, one fused
+    dual-perturb and one fused update launch per step."""
+
+    @torch.no_grad()
+    def round_step(params, keys, batches):
+        backing = get_backing(space, params)
+        K = next(iter(batches.values())).shape[0]
+        if int(keys.shape[0]) != T:
+            raise ValueError(f"round_step takes {T} keys, got "
+                             f"{int(keys.shape[0])}")
+        flat = resolve_backend(backend, backing) != "ref"
+        w_flat = backing.flatten(params) if flat else None
+        deltas, gs = [], []
+        for c in range(K):
+            per_step = [{k: v[c, t] for k, v in batches.items()}
+                        for t in range(T)]
+            g_c = []
+            if flat:
+                d = torch.zeros(backing.n_pad, dtype=torch.float32,
+                                device=backing.device)
+                for key, b in zip(keys, per_step):
+                    z_flat = backing.expand(space.sample_z(key))
+                    wp, wm = zo_dual_perturb_flat(w_flat + d, z_flat, None,
+                                                  eps)
+                    lp = loss_fn(backing.unflatten(wp), b)
+                    del wp
+                    lm = loss_fn(backing.unflatten(wm), b)
+                    del wm
+                    g = (lp - lm) / (2.0 * eps)
+                    d = zo_fused_update_flat(d, z_flat, None, -lr * g)
+                    g_c.append(g)
+                deltas.append(backing.restrict(d))
+            else:
+                delta = torch.zeros(space.n, dtype=torch.float32,
+                                    device=space.device)
+                for key, b in zip(keys, per_step):
+                    z = space.sample_z(key)
+                    lp = loss_fn(space.add(params, delta + eps * z), b)
+                    lm = loss_fn(space.add(params, delta - eps * z), b)
+                    g = (lp - lm) / (2.0 * eps)
+                    delta = delta - lr * g * z
+                    g_c.append(g)
+                deltas.append(delta)
+            gs.append(torch.stack(g_c))
+        agg = torch.stack(deltas).mean(0)
+        return space.add(params, agg), torch.stack(gs)
+
+    return round_step

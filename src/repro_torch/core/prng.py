@@ -13,8 +13,9 @@ and shift, because torch has no full set of unsigned 32-bit operators.
 ``normal`` follows ``jax.random.normal``: a uniform on
 ``(nextafter(-1, 0), 1)`` mapped through ``sqrt(2) * erfinv``.  The uniform
 bits match JAX exactly.  ``erfinv`` is XLA's own polynomial (Giles, "Approximating
-the erfinv function"), with each Horner step taken in float64 to stand for the
-fused multiply-add XLA emits; ``torch.erfinv`` is another approximation and
+the erfinv function"), with each Horner step a fused multiply-add as XLA
+emits it, formed in float32 from error-free products and sums (no float64
+tensor); ``torch.erfinv`` is another approximation and
 lands up to ~90 ulp from XLA's.  Against jax 0.9 on a CPU the normals differ
 by at most 3 ulp, on about 1% of the values (tests/test_torch_prng.py): the
 rest of the gap is ``log1p``.  Replay inside the port is bit-exact either way,
@@ -87,7 +88,8 @@ def bits32(k: torch.Tensor, n: int, device=None) -> torch.Tensor:
     if n >= 2**32:
         raise ValueError("bit streams of 2**32 words or more are not needed")
     lo = torch.arange(n, dtype=torch.int64, device=device)
-    kd = k.to(device)
+    # a key derived on the CPU goes to the card without a stream sync
+    kd = k.to(device, non_blocking=True)
     y0, y1 = threefry2x32(kd[0], kd[1], torch.zeros_like(lo), lo)
     return y0 ^ y1
 
@@ -103,8 +105,9 @@ def uniform(k: torch.Tensor, n: int, minval: float = 0.0, maxval: float = 1.0,
             device=None) -> torch.Tensor:
     """``jax.random.uniform(k, (n,), float32, minval, maxval)``."""
     f = _bits_to_unit(bits32(k, n, device))
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    # filled on the device: a scalar tensor copied from the host would sync
+    lo = torch.full((), minval, dtype=torch.float32, device=device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
@@ -117,28 +120,52 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
+def _split(a):
+    """Veltkamp split of float32 ``a`` into hi + lo, 12 bits each."""
+    t = a * 4097.0
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once, in float32 tensors: Dekker's exact product
+    p + e = a * b and Knuth's exact sum s + t = c + p, then s + (t + e).
+    The last two roundings leave the exactly rounded result except where
+    t + e straddles a rounding boundary of s, which the tests' ulp bound
+    against XLA's FMA covers."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = c + p
+    bb = s - c
+    t = (c - (s - bb)) + (p - bb)
+    return s + (t + e)
+
+
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """float32 erfinv by XLA's polynomial (see the module docstring)."""
     w = -torch.log1p(-x * x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-    wd = w.double()
     p = None
     for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
-        c = torch.where(lt, torch.tensor(a, device=x.device),
-                        torch.tensor(b, device=x.device))
-        p = c if p is None else (c.double() + p.double() * wd).float()
+        c = torch.where(lt, a, b)
+        p = c if p is None else _fma(p, w, c)
     return torch.where(x.abs() == 1, x * torch.finfo(torch.float32).max,
                        p * x)
+
+
+# float32's nextafter(-1, 0): the open end of ``normal``'s uniform
+_NEXT_ABOVE_MINUS_ONE = -1.0 + 2.0 ** -24
 
 
 def normal(k: torch.Tensor, n: int, device=None) -> torch.Tensor:
     """``jax.random.normal(k, (n,), float32)``: sqrt(2) * erfinv(u) with u
     uniform on (nextafter(-1, 0), 1) in float32."""
-    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    u = uniform(k, n, lo, 1.0, device)
-    return torch.tensor(math.sqrt(2), dtype=torch.float32,
-                        device=device) * erfinv(u)
+    u = uniform(k, n, _NEXT_ABOVE_MINUS_ONE, 1.0, device)
+    return torch.full((), math.sqrt(2), dtype=torch.float32,
+                      device=device) * erfinv(u)
 
 
 def gumbel(k: torch.Tensor, shape, device=None) -> torch.Tensor:

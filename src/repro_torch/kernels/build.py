@@ -43,11 +43,21 @@ SIGNATURES = {
     "flash_decode": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                       _F, _I, _P], _I),
     "mamba_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "fixture_double": ([_P, _P, _I, _I, _I, _P], _I),
+    # launch-plan queries (kernels/plans.py): shapes in, launches out
+    "zo_update_plan": ([_I, _LL, _I, _I, _I, _P], _I),
+    "gradip_reduce_plan": ([_LL, _I, _P], _I),
+    "flash_attn_fwd_plan": ([_I, _I, _I, _I, _I, _I, _P], _I),
+    "flash_attn_bwd_plan": ([_I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "flash_decode_plan": ([_I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "mamba_scan_plan": ([_I, _I, _I, _I, _P], _I),
+    "fixture_double_plan": ([_I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lib = None
 build_seconds = None  # wall time of this process's build (None: loaded)
+builds = 0  # nvcc builds in this process (the analyzer's recompile rule)
 
 
 def nvcc_path() -> str:
@@ -77,6 +87,8 @@ def _digest() -> str:
 def _compile(nvcc: str, out: Path) -> None:
     """One nvcc per source, all at once, then one link; the compilers'
     output (ptxas register and shared-memory counts) goes to ptxas.log."""
+    global builds
+    builds += 1
     tmp = out.parent / f"tmp_{os.getpid()}"
     tmp.mkdir(parents=True, exist_ok=True)
     procs = []

@@ -44,4 +44,45 @@ inline bool aligned(const void* p, size_t bytes) {
   return p == nullptr || (reinterpret_cast<size_t>(p) % bytes) == 0;
 }
 
+// One launch of a kernel: what a launcher passes to <<<...>>>.  Each
+// launcher builds its LaunchPlan with the same function as the matching
+// *_plan entry point, which reports it to the host (kernels/plans.py holds
+// its own copy of the arithmetic, checked against these on the card).
+struct LaunchPlan {
+  const void* fn;   // the kernel
+  dim3 grid;
+  int threads;
+  size_t smem;      // dynamic shared bytes
+};
+
+// Writes one launch as six values at out: grid x, y, z, threads per block,
+// the kernel's static shared bytes (cudaFuncGetAttributes) and the dynamic
+// shared bytes the launcher passes.
+inline int write_plan(const LaunchPlan& lp, long long* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, lp.fn);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // leave no error behind for the next launch check
+    return e;
+  }
+  out[0] = lp.grid.x;
+  out[1] = lp.grid.y;
+  out[2] = lp.grid.z;
+  out[3] = lp.threads;
+  out[4] = (long long)a.sharedSizeBytes;
+  out[5] = (long long)lp.smem;
+  return 0;
+}
+
+// A *_plan entry point's output: out[0] the number of launches, then six
+// values (write_plan) for each, in launch order.
+inline int write_plans(const LaunchPlan* lps, int n, long long* out) {
+  out[0] = n;
+  for (int i = 0; i < n; ++i) {
+    const int e = write_plan(lps[i], out + 1 + 6 * i);
+    if (e) return e;
+  }
+  return 0;
+}
+
 }  // namespace repro

@@ -246,19 +246,42 @@ __global__ void __launch_bounds__(kThreads) decode_combine(Params p) {
 }
 
 template <typename T, int DH>
+LaunchPlan plan_split(const Params& p, int B) {
+  return {reinterpret_cast<const void*>(decode_split<T, DH>),
+          dim3(p.n_split, p.KVH, B), kThreads, split_smem_bytes<DH>(p.G)};
+}
+
+template <typename T, int DH>
+LaunchPlan plan_combine(const Params& p, int B) {
+  return {reinterpret_cast<const void*>(decode_combine<T, DH>),
+          dim3(p.KVH, B), kThreads, 0};
+}
+
+// The launches of one call: the split pass (none when S = 0), then the
+// combine pass.  Returns how many it wrote.
+template <typename T, int DH>
+int plans(const Params& p, int B, LaunchPlan* lps) {
+  int n = 0;
+  if (p.S > 0) lps[n++] = plan_split<T, DH>(p, B);
+  lps[n++] = plan_combine<T, DH>(p, B);
+  return n;
+}
+
+template <typename T, int DH>
 cudaError_t launch(const Params& p, int B, cudaStream_t st) {
-  if (p.S > 0) {
-    const size_t smem = split_smem_bytes<DH>(p.G);
+  LaunchPlan lps[2];
+  const int n = plans<T, DH>(p, B, lps);
+  if (n == 2) {
     cudaError_t e = cudaFuncSetAttribute(
         decode_split<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        (int)lps[0].smem);
     if (e != cudaSuccess) return e;
-    const dim3 grid(p.n_split, p.KVH, B);
-    decode_split<T, DH><<<grid, kThreads, smem, st>>>(p);
+    decode_split<T, DH><<<lps[0].grid, lps[0].threads, lps[0].smem, st>>>(p);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
-  decode_combine<T, DH><<<dim3(p.KVH, B), kThreads, 0, st>>>(p);
+  const LaunchPlan& c = lps[n - 1];
+  decode_combine<T, DH><<<c.grid, c.threads, c.smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -295,4 +318,36 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The launches flash_decode makes at these shapes (write_plans).
+extern "C" int flash_decode_plan(int B, int S, int KVH, int G, int dh,
+                                 int chunk, int is_bf16, long long* out) {
+  if (G < 1 || G > kMaxG || chunk < 1) return cudaErrorInvalidValue;
+  if (B == 0 || KVH == 0) return write_plans(nullptr, 0, out);
+  Params p{};
+  p.S = S;
+  p.KVH = KVH;
+  p.G = G;
+  p.chunk = chunk;
+  p.n_split = (S + chunk - 1) / chunk;
+  LaunchPlan lps[2];
+  int n;
+  switch (dh) {
+    case 64:
+      n = is_bf16 ? plans<__nv_bfloat16, 64>(p, B, lps)
+                  : plans<float, 64>(p, B, lps);
+      break;
+    case 128:
+      n = is_bf16 ? plans<__nv_bfloat16, 128>(p, B, lps)
+                  : plans<float, 128>(p, B, lps);
+      break;
+    case 256:
+      n = is_bf16 ? plans<__nv_bfloat16, 256>(p, B, lps)
+                  : plans<float, 256>(p, B, lps);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return write_plans(lps, n, out);
 }

@@ -243,18 +243,47 @@ static_assert(sizeof(float) * smem_floats<256>() <= 227 * 1024,
               "head_dim 256 exceeds a Hopper block's shared memory");
 
 template <typename T, int DH>
+LaunchPlan plan(const Params& p, int B) {
+  return {reinterpret_cast<const void*>(flash_fwd<T, DH>),
+          dim3((p.S + p.BQ - 1) / p.BQ, p.KVH, B), kThreads,
+          sizeof(float) * smem_floats<DH>()};
+}
+
+template <typename T, int DH>
 cudaError_t launch(const Params& p, int B, cudaStream_t st) {
-  const size_t smem = sizeof(float) * smem_floats<DH>();
+  const LaunchPlan lp = plan<T, DH>(p, B);
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)lp.smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.S + p.BQ - 1) / p.BQ, p.KVH, B);
-  flash_fwd<T, DH><<<grid, kThreads, smem, st>>>(p);
+  flash_fwd<T, DH><<<lp.grid, lp.threads, lp.smem, st>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// The launch flash_attn_fwd makes at these shapes (write_plans).
+extern "C" int flash_attn_fwd_plan(int B, int S, int KVH, int G, int dh,
+                                   int is_bf16, long long* out) {
+  if (G < 1 || G > kRows) return cudaErrorInvalidValue;
+  if (B == 0 || S == 0) return write_plans(nullptr, 0, out);
+  Params p{};
+  p.S = S;
+  p.KVH = KVH;
+  p.G = G;
+  p.BQ = kRows / G;
+  LaunchPlan lp;
+  if (dh == 64) {
+    lp = is_bf16 ? plan<__nv_bfloat16, 64>(p, B) : plan<float, 64>(p, B);
+  } else if (dh == 128) {
+    lp = is_bf16 ? plan<__nv_bfloat16, 128>(p, B) : plan<float, 128>(p, B);
+  } else if (dh == 256) {
+    lp = is_bf16 ? plan<__nv_bfloat16, 256>(p, B) : plan<float, 256>(p, B);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return write_plans(&lp, 1, out);
+}
 
 // q [B, S, KVH*G, dh], k and v [B, S, KVH, dh], contiguous, f32 or bf16;
 // lengths [B] int32 (<= S); o like q; lse [B, KVH, S, G] f32.

@@ -348,26 +348,38 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
 }
 
 template <typename T, int DH>
+LaunchPlan plan_dq(const Params& p, int B) {
+  return {reinterpret_cast<const void*>(flash_bwd_dq<T, DH>),
+          dim3((p.S + p.BQ - 1) / p.BQ, p.KVH, B), kThreads,
+          sizeof(float) * dq_smem_floats<DH>()};
+}
+
+template <typename T, int DH>
+LaunchPlan plan_dkv(const Params& p, int B) {
+  return {reinterpret_cast<const void*>(flash_bwd_dkv<T, DH>),
+          dim3((p.S + kBK - 1) / kBK, p.KVH, B), kThreads,
+          sizeof(float) * dkv_smem_floats<DH>()};
+}
+
+template <typename T, int DH>
 cudaError_t launch_dq(const Params& p, int B, cudaStream_t st) {
-  const size_t smem = sizeof(float) * dq_smem_floats<DH>();
+  const LaunchPlan lp = plan_dq<T, DH>(p, B);
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)lp.smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.S + p.BQ - 1) / p.BQ, p.KVH, B);
-  flash_bwd_dq<T, DH><<<grid, kThreads, smem, st>>>(p);
+  flash_bwd_dq<T, DH><<<lp.grid, lp.threads, lp.smem, st>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 cudaError_t launch_dkv(const Params& p, int B, cudaStream_t st) {
-  const size_t smem = sizeof(float) * dkv_smem_floats<DH>();
+  const LaunchPlan lp = plan_dkv<T, DH>(p, B);
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      (int)lp.smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.S + kBK - 1) / kBK, p.KVH, B);
-  flash_bwd_dkv<T, DH><<<grid, kThreads, smem, st>>>(p);
+  flash_bwd_dkv<T, DH><<<lp.grid, lp.threads, lp.smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -422,4 +434,31 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
   }
   return is_bf16 ? launch_dkv<__nv_bfloat16, 128>(p, B, st)
                  : launch_dkv<float, 128>(p, B, st);
+}
+
+// The launch flash_attn_bwd_dq (dkv = 0) or flash_attn_bwd_dkv (dkv = 1)
+// makes at these shapes (write_plans).
+extern "C" int flash_attn_bwd_plan(int dkv, int B, int S, int KVH, int G,
+                                   int dh, int is_bf16, long long* out) {
+  const int rc = check_shape(B, S, G, dh);
+  if (rc > 0) return rc;
+  if (rc < 0) return write_plans(nullptr, 0, out);
+  Params p{};
+  p.S = S;
+  p.KVH = KVH;
+  p.G = G;
+  p.BQ = kRows / G;
+  LaunchPlan lp;
+  if (dh == 64) {
+    lp = dkv ? (is_bf16 ? plan_dkv<__nv_bfloat16, 64>(p, B)
+                        : plan_dkv<float, 64>(p, B))
+             : (is_bf16 ? plan_dq<__nv_bfloat16, 64>(p, B)
+                        : plan_dq<float, 64>(p, B));
+  } else {
+    lp = dkv ? (is_bf16 ? plan_dkv<__nv_bfloat16, 128>(p, B)
+                        : plan_dkv<float, 128>(p, B))
+             : (is_bf16 ? plan_dq<__nv_bfloat16, 128>(p, B)
+                        : plan_dq<float, 128>(p, B));
+  }
+  return write_plans(&lp, 1, out);
 }

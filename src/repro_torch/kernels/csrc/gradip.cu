@@ -66,6 +66,20 @@ gradip_finish(const float* __restrict__ partials, int n_partials, float g,
   if (threadIdx.x == 0) out[0] = g * x;
 }
 
+// The two launches of one call: partial sums, then the finishing sum.
+int plans(long long n, bool vec, LaunchPlan* lps) {
+  const int v = vec ? 4 : 1;
+  long long blocks = (n / v + n % v + kThreads - 1) / kThreads;
+  if (blocks > kMaxPartials) blocks = kMaxPartials;
+  if (blocks < 1) blocks = 1;
+  lps[0] = {vec ? reinterpret_cast<const void*>(gradip_partials<4>)
+                : reinterpret_cast<const void*>(gradip_partials<1>),
+            dim3((unsigned)blocks), kThreads, 0};
+  lps[1] = {reinterpret_cast<const void*>(gradip_finish), dim3(1),
+            kMaxPartials, 0};
+  return 2;
+}
+
 }  // namespace
 
 // partials: scratch of at least kMaxPartials floats; out: one float.
@@ -74,17 +88,24 @@ extern "C" int gradip_reduce(const float* gp, const float* z, float g,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = aligned(gp, 16) && aligned(z, 16);
-  const int v = vec ? 4 : 1;
-  long long blocks = (n / v + n % v + kThreads - 1) / kThreads;
-  if (blocks > kMaxPartials) blocks = kMaxPartials;
-  if (blocks < 1) blocks = 1;
+  LaunchPlan lps[2];
+  plans(n, vec, lps);
   if (vec) {
-    gradip_partials<4><<<(int)blocks, kThreads, 0, st>>>(gp, z, partials, n);
+    gradip_partials<4><<<lps[0].grid, lps[0].threads, 0, st>>>(gp, z,
+                                                              partials, n);
   } else {
-    gradip_partials<1><<<(int)blocks, kThreads, 0, st>>>(gp, z, partials, n);
+    gradip_partials<1><<<lps[0].grid, lps[0].threads, 0, st>>>(gp, z,
+                                                              partials, n);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  gradip_finish<<<1, kMaxPartials, 0, st>>>(partials, (int)blocks, g, out);
+  gradip_finish<<<lps[1].grid, lps[1].threads, 0, st>>>(
+      partials, (int)lps[0].grid.x, g, out);
   return cudaGetLastError();
+}
+
+// The launches gradip_reduce makes for n elements, packed (vec = 1) or not.
+extern "C" int gradip_reduce_plan(long long n, int vec, long long* out) {
+  LaunchPlan lps[2];
+  return write_plans(lps, plans(n, vec != 0, lps), out);
 }

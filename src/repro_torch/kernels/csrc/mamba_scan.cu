@@ -100,6 +100,12 @@ mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
   }
 }
 
+template <int N>
+LaunchPlan plan(int B, int E) {
+  return {reinterpret_cast<const void*>(mamba_scan_kernel<N>),
+          dim3((E + kThreads - 1) / kThreads, B), kThreads, 0};
+}
+
 }  // namespace
 
 // dt, x, y [B, S, E]; Bm, Cm [B, S, N]; A [E, N]; h_last [B, E, N]; all f32
@@ -109,15 +115,30 @@ extern "C" int mamba_scan(const float* dt, const float* Bm, const float* Cm,
                           float* h_last, int B, int S, int E, int N,
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((E + kThreads - 1) / kThreads, B);
   if (N == 16) {
-    mamba_scan_kernel<16><<<grid, kThreads, 0, st>>>(dt, Bm, Cm, x, A, y,
-                                                     h_last, S, E);
+    const LaunchPlan lp = plan<16>(B, E);
+    mamba_scan_kernel<16><<<lp.grid, lp.threads, 0, st>>>(
+        dt, Bm, Cm, x, A, y, h_last, S, E);
   } else if (N == 8) {
-    mamba_scan_kernel<8><<<grid, kThreads, 0, st>>>(dt, Bm, Cm, x, A, y,
-                                                    h_last, S, E);
+    const LaunchPlan lp = plan<8>(B, E);
+    mamba_scan_kernel<8><<<lp.grid, lp.threads, 0, st>>>(
+        dt, Bm, Cm, x, A, y, h_last, S, E);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+// The launch mamba_scan makes at these shapes (write_plans).
+extern "C" int mamba_scan_plan(int B, int S, int E, int N, long long* out) {
+  (void)S;  // the grid covers channels and rows; each block loops over S
+  LaunchPlan lp;
+  if (N == 16) {
+    lp = plan<16>(B, E);
+  } else if (N == 8) {
+    lp = plan<8>(B, E);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return write_plans(&lp, 1, out);
 }

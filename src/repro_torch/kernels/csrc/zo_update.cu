@@ -110,10 +110,23 @@ int grid_for(long long n, int v) {
 }
 
 template <typename T, bool HAS_M, int V>
+LaunchPlan dual_plan(long long n) {
+  return {reinterpret_cast<const void*>(dual_perturb_kernel<T, HAS_M, V>),
+          dim3(grid_for(n, V)), kThreads, 0};
+}
+
+template <typename T, bool HAS_M, int V>
+LaunchPlan update_plan(long long n) {
+  return {reinterpret_cast<const void*>(fused_update_kernel<T, HAS_M, V>),
+          dim3(grid_for(n, V)), kThreads, 0};
+}
+
+template <typename T, bool HAS_M, int V>
 cudaError_t dual_launch(const void* w, const float* z, const float* m,
                         const float* eps, void* plus, void* minus,
                         long long n, cudaStream_t st) {
-  dual_perturb_kernel<T, HAS_M, V><<<grid_for(n, V), kThreads, 0, st>>>(
+  const LaunchPlan lp = dual_plan<T, HAS_M, V>(n);
+  dual_perturb_kernel<T, HAS_M, V><<<lp.grid, lp.threads, 0, st>>>(
       static_cast<const T*>(w), z, m, eps, static_cast<T*>(plus),
       static_cast<T*>(minus), n);
   return cudaGetLastError();
@@ -123,14 +136,15 @@ template <typename T, bool HAS_M, int V>
 cudaError_t update_launch(const void* w, const float* z, const float* m,
                           const float* s, void* out, long long n,
                           cudaStream_t st) {
-  fused_update_kernel<T, HAS_M, V><<<grid_for(n, V), kThreads, 0, st>>>(
+  const LaunchPlan lp = update_plan<T, HAS_M, V>(n);
+  fused_update_kernel<T, HAS_M, V><<<lp.grid, lp.threads, 0, st>>>(
       static_cast<const T*>(w), z, m, s, static_cast<T*>(out), n);
   return cudaGetLastError();
 }
 
 // Picks the instantiation for (w dtype, mask or not, packed or scalar).
 template <template <typename, bool, int> class F, typename... A>
-cudaError_t dispatch(int w_bf16, bool has_m, bool vec, A... args) {
+auto dispatch(int w_bf16, bool has_m, bool vec, A... args) {
   if (w_bf16) {
     if (has_m) return vec ? F<__nv_bfloat16, true, 4>::run(args...)
                           : F<__nv_bfloat16, true, 1>::run(args...);
@@ -155,6 +169,16 @@ struct Update {
   static cudaError_t run(A... a) { return update_launch<T, HAS_M, V>(a...); }
 };
 
+template <typename T, bool HAS_M, int V>
+struct DualPlan {
+  static LaunchPlan run(long long n) { return dual_plan<T, HAS_M, V>(n); }
+};
+
+template <typename T, bool HAS_M, int V>
+struct UpdatePlan {
+  static LaunchPlan run(long long n) { return update_plan<T, HAS_M, V>(n); }
+};
+
 }  // namespace
 
 extern "C" int zo_dual_perturb(const void* w, const float* z, const float* m,
@@ -177,6 +201,18 @@ extern "C" int zo_fused_update(const void* w, const float* z, const float* m,
                    aligned(m, 16);
   return dispatch<Update>(w_bf16, m != nullptr, vec, w, z, m, s, out, n,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The launch zo_dual_perturb (update = 0) or zo_fused_update (update = 1)
+// makes for n elements of w (bf16 or f32), with or without m, packed
+// (vec = 1: every operand 16-byte aligned, 8 for bf16 w) or not.
+extern "C" int zo_update_plan(int update, long long n, int w_bf16, int has_m,
+                              int vec, long long* out) {
+  if (n <= 0) return write_plans(nullptr, 0, out);
+  const LaunchPlan lp =
+      update ? dispatch<UpdatePlan>(w_bf16, has_m != 0, vec != 0, n)
+             : dispatch<DualPlan>(w_bf16, has_m != 0, vec != 0, n);
+  return write_plans(&lp, 1, out);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

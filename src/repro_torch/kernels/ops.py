@@ -14,12 +14,21 @@ The TPU wrappers padded flat vectors to (R, 128) tiles, transposed
 attention operands into the grouped layout and padded decode caches to a
 block multiple; the CUDA kernels mask their own ragged edges and read the
 model layout, so none of these steps is needed here.
+
+While the static analyzer records a program (``analysis/walk.py`` sets
+:data:`recorder`), each wrapper call becomes one kernel record: the ops it
+runs inside (the plain version on the CPU, the output allocations on the
+card) go under that record, with the launch plan of its shapes
+(``plans.py``).  With no recorder active a call costs one ``is None`` test
+more.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, plans, ref
 
 KERNEL_HEAD_DIMS = (64, 128, 256)  # the flash forward
 BWD_HEAD_DIMS = (64, 128)          # the flash backward
@@ -29,6 +38,50 @@ DECODE_CHUNK = 256  # cache positions per split of the decode kernel
 MAMBA_STATE_DIMS = (8, 16)  # the selective scan's d_state instances
 _FLOATS = (torch.float32, torch.bfloat16)
 _GRADIP_SCRATCH = 1024  # partial sums of the first pass (gradip.cu)
+
+
+recorder = None  # the analyzer's active Recorder (analysis/walk.py), or None
+
+
+def _recorded(plan_of):
+    """Decorate a wrapper so that an active :data:`recorder` takes the call
+    as one kernel record; ``plan_of(n_sms, *args, **kwargs)`` gives its
+    launches (``plans.Launch``) from the call's arguments."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            rec = recorder
+            if rec is None:
+                return fn(*args, **kwargs)
+            return rec.kernel(fn.__name__, plan_of, fn, args, kwargs)
+        return wrapper
+    return deco
+
+
+def _aligned(t, nbytes: int) -> bool:
+    return t is None or t.data_ptr() % nbytes == 0
+
+
+def _zo_plan(update: bool):
+    def plan(n_sms, w_flat, z_flat, m_flat, _scalar):
+        bf16 = w_flat.dtype == torch.bfloat16
+        vec = (_aligned(w_flat, 8 if bf16 else 16) and _aligned(z_flat, 16)
+               and _aligned(m_flat, 16))
+        return plans.zo_update(w_flat.numel(), bf16, m_flat is not None, vec,
+                               update, n_sms)
+    return plan
+
+
+def _flash_plan(dkv=None):
+    """The forward's plan (``dkv`` None) or the dQ / dK-dV backward's."""
+    def plan(n_sms, q, k, v, *_, **__):
+        B, S, H, dh = q.shape
+        KV = k.shape[2]
+        bf16 = q.dtype == torch.bfloat16
+        if dkv is None:
+            return plans.flash_attn_fwd(B, S, KV, H // KV, dh, bf16)
+        return plans.flash_attn_bwd(B, S, KV, H // KV, dh, bf16, dkv)
+    return plan
 
 
 def _on_cpu(*ts) -> bool:
@@ -59,8 +112,12 @@ def _check_flat(w, z, m):
 
 def _scalar_on(x, device) -> torch.Tensor:
     """A one-element f32 device tensor holding x (a float or a 0-d tensor),
-    read by the kernel through its pointer: no host sync."""
-    return torch.as_tensor(x, dtype=torch.float32, device=device).reshape(1)
+    read by the kernel through its pointer: no host sync.  A float is
+    filled on the device; copying a host scalar there would sync the
+    stream."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32).reshape(1)
+    return torch.full((1,), x, dtype=torch.float32, device=device)
 
 
 def _stream(device) -> int:
@@ -71,6 +128,7 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@_recorded(_zo_plan(update=False))
 def zo_dual_perturb_flat(w_flat, z_flat, m_flat, eps):
     """(w + eps*z*m, w - eps*z*m) over flat [N] vectors; ``m_flat=None``
     means z is already zero off the sparse coordinates."""
@@ -90,6 +148,7 @@ def zo_dual_perturb_flat(w_flat, z_flat, m_flat, eps):
     return plus, minus
 
 
+@_recorded(_zo_plan(update=True))
 def zo_fused_update_flat(w_flat, z_flat, m_flat, scale):
     """w + scale*z*m over flat [N] vectors (scale = -lr*g, a float or a 0-d
     tensor); ``m_flat=None``: pre-masked z."""
@@ -108,6 +167,8 @@ def zo_fused_update_flat(w_flat, z_flat, m_flat, scale):
     return out
 
 
+@_recorded(lambda n_sms, gp_flat, z_flat, g: plans.gradip_reduce(
+    gp_flat.numel(), _aligned(gp_flat, 16) and _aligned(z_flat, 16)))
 def gradip_flat(gp_flat, z_flat, g):
     """GradIP = g * <gp, z> (f32) over flat sparse-coordinate vectors;
     ``g`` is a host float.  Returns a 0-d f32 tensor on gp's device."""
@@ -188,6 +249,7 @@ def _flash_fwd(q, k, v, L, window, softcap, causal):
     return out, lse
 
 
+@_recorded(_flash_plan(dkv=False))
 def flash_attention_bwd_dq(q, k, v, lengths, lse, delta, do, *,
                            window: int = 0, softcap: float = 0.0,
                            causal: bool = True):
@@ -216,6 +278,7 @@ def flash_attention_bwd_dq(q, k, v, lengths, lse, delta, do, *,
     return dq
 
 
+@_recorded(_flash_plan(dkv=True))
 def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
                             window: int = 0, softcap: float = 0.0,
                             causal: bool = True):
@@ -273,6 +336,7 @@ class FlashAttentionFn(torch.autograd.Function):
                 None, None)
 
 
+@_recorded(_flash_plan())
 def flash_attention(q, k, v, lengths=None, *, window: int = 0,
                     softcap: float = 0.0, causal: bool = True,
                     return_lse: bool = False):
@@ -298,6 +362,9 @@ def flash_attention(q, k, v, lengths=None, *, window: int = 0,
     return (out, lse) if return_lse else out
 
 
+@_recorded(lambda n_sms, q, k, v, length, softcap=0.0: plans.flash_decode(
+    q.shape[0], k.shape[1], q.shape[1], q.shape[2], q.shape[3], DECODE_CHUNK,
+    q.dtype == torch.bfloat16))
 def flash_decode(q, k, v, length, softcap: float = 0.0):
     """One-token GQA decode attention (``repro.kernels.ops.flash_decode``):
     q [B, KVH, G, dh] (the query grouped per KV head); k, v [B, S, KVH, dh]
@@ -350,6 +417,8 @@ def flash_decode(q, k, v, length, softcap: float = 0.0):
     return out
 
 
+@_recorded(lambda n_sms, dt, B_in, C_in, x, A: plans.mamba_scan(
+    *dt.shape, B_in.shape[-1]))
 def mamba_scan(dt, B_in, C_in, x, A):
     """Mamba-1 selective scan (``repro.kernels.ops.mamba_scan_op``): dt, x
     [B, S, E] (dt after softplus); B_in, C_in [B, S, N]; A [E, N].  Returns
@@ -397,9 +466,37 @@ def mamba_scan(dt, B_in, C_in, x, A):
     return y, h_last
 
 
+@_recorded(lambda n_sms, x, block_rows: plans.fixture_double(
+    *x.shape, block_rows))
+def fixture_double(x, block_rows: int):
+    """x * 2 for x [rows, cols] f32, ``block_rows`` rows a block: the
+    static analyzer's memory-ceiling fixture (``repro.analysis.fixtures``
+    ``_memory_bad_vmem`` / ``_memory_good``).  Each block stages its input
+    and output tiles in shared memory, 2 * block_rows * cols * 4 bytes; a
+    size past the card's per-block limit is refused by the runtime, and
+    the wrapper raises (nothing falls back)."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"fixture_double takes f32 [rows, cols], got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if block_rows < 1:
+        raise ValueError(f"block_rows must be >= 1, got {block_rows}")
+    if _on_cpu(x):
+        return ref.fixture_double_ref(x)
+    if not x.is_contiguous():
+        raise ValueError("fixture_double takes a contiguous x")
+    lib = build.load()
+    out = torch.empty_like(x)
+    rc = lib.fixture_double(x.data_ptr(), out.data_ptr(), x.shape[0],
+                            x.shape[1], int(block_rows), _stream(x.device))
+    build.check(lib, rc, "fixture_double")
+    fixture_double.launches += 1
+    return out
+
+
 KERNEL_WRAPPERS = (zo_dual_perturb_flat, zo_fused_update_flat, gradip_flat,
                    flash_attention, flash_attention_bwd_dq,
-                   flash_attention_bwd_dkv, flash_decode, mamba_scan)
+                   flash_attention_bwd_dkv, flash_decode, mamba_scan,
+                   fixture_double)
 
 
 def reset_launches() -> None:

@@ -1,0 +1,197 @@
+"""Launch plans of the port's CUDA kernels: for given shapes, the grid,
+threads per block and shared bytes of each launch a wrapper makes.
+
+Each function repeats the arithmetic of its launcher in ``csrc/*.cu`` (the
+``LaunchPlan`` each launcher builds and its ``*_plan`` entry point reports),
+so the static analyzer (``analysis/``) can hold every kernel record's
+shared bytes against a block's limit on the CPU as on the card, and
+``chip_smoke.py`` holds these plans against the library's own answer
+(:func:`query`: ``cudaFuncGetAttributes`` for the static bytes, and the
+dynamic bytes and grid the launcher passes).  Pure arithmetic on shapes:
+nothing here allocates a tensor or needs a card.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+# NVIDIA H100 SXM (the hopper-kernels guide's table): 132 SMs, 227 KB of
+# shared memory a block may opt in to.  On the card both are read from the
+# device; these stand in for it on the CPU.
+H100_SMS = 132
+H100_SMEM_OPTIN = 232_448
+
+
+@dataclass(frozen=True)
+class Launch:
+    """One kernel launch: ``grid`` (x, y, z), ``threads`` per block, the
+    kernel's static shared bytes and the dynamic shared bytes passed."""
+    kernel: str
+    grid: tuple
+    threads: int
+    static_smem: int
+    dynamic_smem: int
+
+    @property
+    def shared_bytes(self) -> int:
+        return self.static_smem + self.dynamic_smem
+
+    def numbers(self) -> tuple:
+        return (*self.grid, self.threads, self.static_smem, self.dynamic_smem)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ------------------------------------------------------------ zo_update.cu --
+ZO_THREADS, ZO_BLOCKS_PER_SM = 256, 8
+
+
+def zo_update(n: int, bf16: bool, has_m: bool, vec: bool, update: bool,
+              n_sms: int = H100_SMS):
+    """``zo_dual_perturb`` (update False) or ``zo_fused_update``: one
+    grid-stride launch of at most 8 blocks per SM; packs of 4 when every
+    operand is aligned (``vec``)."""
+    if n <= 0:
+        return []
+    v = 4 if vec else 1
+    blocks = _cdiv(n // v + n % v, ZO_THREADS)
+    blocks = max(1, min(blocks, n_sms * ZO_BLOCKS_PER_SM))
+    name = "fused_update_kernel" if update else "dual_perturb_kernel"
+    return [Launch(f"{name}<{'bf16' if bf16 else 'f32'},{int(has_m)},{v}>",
+                   (blocks, 1, 1), ZO_THREADS, 0, 0)]
+
+
+# --------------------------------------------------------------- gradip.cu --
+GRADIP_THREADS, GRADIP_MAX_PARTIALS = 256, 1024
+
+
+def gradip_reduce(n: int, vec: bool):
+    """Partial sums (one f32 per warp of shared memory), then one block of
+    1024 threads summing them."""
+    v = 4 if vec else 1
+    blocks = max(1, min(_cdiv(n // v + n % v, GRADIP_THREADS),
+                        GRADIP_MAX_PARTIALS))
+    return [Launch(f"gradip_partials<{v}>", (blocks, 1, 1), GRADIP_THREADS,
+                   4 * (GRADIP_THREADS // 32), 0),
+            Launch("gradip_finish", (1, 1, 1), GRADIP_MAX_PARTIALS,
+                   4 * (GRADIP_MAX_PARTIALS // 32), 0)]
+
+
+# ------------------------------------------------- flash_attn(_bwd).cu -----
+FLASH_ROWS, FLASH_BK, FLASH_THREADS = 64, 64, 256
+
+
+def flash_attn_fwd(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool):
+    """One block per (BQ = 64 / G queries, KV head, row); q, k and v tiles,
+    the score tile and three row statistics in dynamic shared memory."""
+    if B == 0 or S == 0:
+        return []
+    bq = FLASH_ROWS // G
+    floats = (FLASH_ROWS * (dh + 1) + FLASH_BK * (dh + 1) + FLASH_BK * dh
+              + FLASH_ROWS * (FLASH_BK + 1) + 3 * FLASH_ROWS)
+    return [Launch(f"flash_fwd<{'bf16' if bf16 else 'f32'},{dh}>",
+                   (_cdiv(S, bq), KVH, B), FLASH_THREADS, 0, 4 * floats)]
+
+
+def flash_attn_bwd(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool,
+                   dkv: bool):
+    """dQ: one block per (64 / G queries, KV head, row); dK/dV: one block per
+    (64 keys, KV head, row)."""
+    if B == 0 or S == 0:
+        return []
+    sp = FLASH_BK + 1
+    tiles = 2 * FLASH_ROWS * (dh + 1) + 2 * FLASH_BK * (dh + 1)
+    t = "bf16" if bf16 else "f32"
+    if dkv:
+        floats = tiles + 2 * FLASH_ROWS * sp + 2 * FLASH_ROWS
+        return [Launch(f"flash_bwd_dkv<{t},{dh}>", (_cdiv(S, FLASH_BK), KVH, B),
+                       FLASH_THREADS, 0, 4 * floats)]
+    floats = tiles + FLASH_ROWS * sp + 2 * FLASH_ROWS
+    return [Launch(f"flash_bwd_dq<{t},{dh}>",
+                   (_cdiv(S, FLASH_ROWS // G), KVH, B), FLASH_THREADS, 0,
+                   4 * floats)]
+
+
+# ---------------------------------------------------------- decode_attn.cu --
+DECODE_THREADS = 128
+
+
+def flash_decode(B: int, S: int, KVH: int, G: int, dh: int, chunk: int,
+                 bf16: bool):
+    """The split pass (one block per ``chunk`` cache positions, KV head and
+    row; none when S = 0), then the combine pass (one block per KV head and
+    row)."""
+    if B == 0 or KVH == 0:
+        return []
+    t = "bf16" if bf16 else "f32"
+    out = []
+    if S > 0:
+        bk = 4096 // dh
+        floats = G * dh + bk * (dh + 1) + bk * dh + G * (bk + 1) + 3 * G
+        out.append(Launch(f"decode_split<{t},{dh}>", (_cdiv(S, chunk), KVH, B),
+                          DECODE_THREADS, 0, 4 * floats))
+    out.append(Launch(f"decode_combine<{t},{dh}>", (KVH, B, 1),
+                      DECODE_THREADS, 0, 0))
+    return out
+
+
+# ----------------------------------------------------------- mamba_scan.cu --
+MAMBA_THREADS, MAMBA_TILE = 128, 64
+
+
+def mamba_scan(B: int, S: int, E: int, N: int):
+    """One block per 128 channels of a row, looping over S; 64 steps of B
+    and C staged in static shared memory."""
+    return [Launch(f"mamba_scan_kernel<{N}>", (_cdiv(E, MAMBA_THREADS), B, 1),
+                   MAMBA_THREADS, 2 * 4 * MAMBA_TILE * N, 0)]
+
+
+# ------------------------------------------------------- fixture_double.cu --
+FIXTURE_THREADS = 256
+
+
+def fixture_double(rows: int, cols: int, block_rows: int):
+    """One block per ``block_rows`` rows; its input and output tiles in
+    dynamic shared memory, as the Pallas block held both refs in VMEM."""
+    return [Launch("fixture_double_kernel", (_cdiv(rows, block_rows), 1, 1),
+                   FIXTURE_THREADS, 0, 2 * 4 * block_rows * cols)]
+
+
+# ------------------------------------------------------------ the queries --
+_QUERIES = {
+    zo_update: lambda lib, out, n, bf16, has_m, vec, update: (
+        lib.zo_update_plan(int(update), n, int(bf16), int(has_m), int(vec),
+                           out)),
+    gradip_reduce: lambda lib, out, n, vec: lib.gradip_reduce_plan(
+        n, int(vec), out),
+    flash_attn_fwd: lambda lib, out, B, S, KVH, G, dh, bf16: (
+        lib.flash_attn_fwd_plan(B, S, KVH, G, dh, int(bf16), out)),
+    flash_attn_bwd: lambda lib, out, B, S, KVH, G, dh, bf16, dkv: (
+        lib.flash_attn_bwd_plan(int(dkv), B, S, KVH, G, dh, int(bf16), out)),
+    flash_decode: lambda lib, out, B, S, KVH, G, dh, chunk, bf16: (
+        lib.flash_decode_plan(B, S, KVH, G, dh, chunk, int(bf16), out)),
+    mamba_scan: lambda lib, out, B, S, E, N: lib.mamba_scan_plan(
+        B, S, E, N, out),
+    fixture_double: lambda lib, out, rows, cols, block_rows: (
+        lib.fixture_double_plan(rows, cols, block_rows, out)),
+}
+MAX_LAUNCHES = 2
+
+
+def query(lib, plan_fn, **shape) -> list:
+    """The launches the loaded library reports for ``plan_fn`` at ``shape``
+    (its ``*_plan`` entry point), as :class:`Launch` records named as
+    ``plan_fn`` names them; ``shape`` as ``plan_fn`` takes it, without
+    ``n_sms`` (the library reads the device's)."""
+    out = (ctypes.c_longlong * (1 + 6 * MAX_LAUNCHES))()
+    rc = _QUERIES[plan_fn](lib, out, **shape)
+    if rc:
+        raise RuntimeError(f"{plan_fn.__name__}_plan: CUDA error {rc} "
+                           f"({lib.repro_cuda_error_string(rc).decode()})")
+    names = [l.kernel for l in plan_fn(**shape)]
+    return [Launch(names[i] if i < len(names) else "?",
+                   tuple(out[1 + 6 * i:4 + 6 * i]), out[4 + 6 * i],
+                   out[5 + 6 * i], out[6 + 6 * i])
+            for i in range(out[0])]

@@ -36,6 +36,11 @@ def gradip_reduce_ref(gp, z, g):
         torch.sum(gp.float() * z.float())
 
 
+def fixture_double_ref(x):
+    """x * 2: the analyzer's memory-ceiling fixture (``fixture_double``)."""
+    return x * 2.0
+
+
 def mamba_scan_ref(dt, B_in, C_in, x, A):
     """Serial selective scan (``repro.kernels.ref.mamba_scan_ref``).
 

@@ -27,6 +27,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.init import check_family
 from repro_torch.models.transformer import (DEFAULT_CTX, ModelCtx, _ffn_fwd,
                                             embed_input, unembed)
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
 
@@ -51,9 +52,11 @@ def _check_family(cfg: ModelConfig) -> None:
 
 # --------------------------------------------------------------- init ------
 def init_cache(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
-               device="cpu"):
-    """Zero cache for ``B`` rows of capacity ``S_max``."""
+               device=None):
+    """Zero cache for ``B`` rows of capacity ``S_max`` on ``device`` (the
+    CUDA card unless the caller says otherwise)."""
     _check_family(cfg)
+    device = resolve_device(device)
     n, KV, hd = cfg.n_periods, cfg.n_kv_heads, cfg.resolved_head_dim
     stack = {}
     for i, (mixer, _) in enumerate(cfg.layer_pattern):

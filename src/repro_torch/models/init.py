@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.ssm import _dt_rank
+from repro_torch.utils.device import resolve_device
 
 _MIXERS = ("attn", "local_attn", "mamba")
 _FFNS = ("dense", "moe")
@@ -146,10 +147,11 @@ def check_family(cfg: ModelConfig) -> None:
 
 
 def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
-                device="cpu"):
-    """Initialize the full parameter dict for ``cfg`` on ``device``."""
+                device=None):
+    """Initialize the full parameter dict for ``cfg`` on ``device`` (the
+    CUDA card unless the caller says otherwise, ``utils.device``)."""
     check_family(cfg)
-    ini = _Init(seed, device, dtype)
+    ini = _Init(seed, resolve_device(device), dtype)
     params = {"embed": ini.dense((cfg.vocab, cfg.d_model))}
     stack = {}
     n = cfg.n_periods

@@ -36,8 +36,9 @@ class Model:
     def forward(self, params, batch):
         return T.forward(params, self._batch(batch), self.cfg, self.ctx)
 
-    def loss(self, params, batch):
-        return T.lm_loss(params, self._batch(batch), self.cfg, self.ctx)
+    def loss(self, params, batch, per_example: bool = False):
+        return T.lm_loss(params, self._batch(batch), self.cfg, self.ctx,
+                         per_example=per_example)
 
     def prefill(self, params, batch, S_max: int = 0, lengths=None):
         return D.prefill(params, self._batch(batch), self.cfg, self.ctx,

@@ -94,12 +94,29 @@ def forward(params, batch, cfg: ModelConfig, ctx: ModelCtx = DEFAULT_CTX):
     return unembed(x, params, cfg), aux
 
 
+def _logsumexp_last(x):
+    """logsumexp over the last axis by the arithmetic of ``torch.logsumexp``
+    (max, shifted exp, sum, log, add the max back), written out so that its
+    [..., V] temporary is an op of its own that a recorder
+    (``analysis/walk.py``) sees, and exponentiated in place, so there is
+    one such temporary and not two.  The max is detached, as JAX's
+    ``logsumexp`` stops its gradient."""
+    m = x.detach().amax(-1, keepdim=True)
+    return (x - m).exp_().sum(-1).log() + m[..., 0]
+
+
 def lm_loss(params, batch, cfg: ModelConfig, ctx: ModelCtx = DEFAULT_CTX,
-            aux_weight: float = 0.01):
-    """Next-token cross-entropy, mean over positions and examples."""
+            aux_weight: float = 0.01, per_example: bool = False):
+    """Next-token cross-entropy: the mean over positions and examples, or
+    with ``per_example`` the [B] means over each example's positions (the
+    per-client losses of ``core/fl_step``); the MoE aux term is added to
+    each, as in the JAX package."""
     logits, aux = forward(params, batch, cfg, ctx)
     targets = batch["tokens"][:, 1:].long()
     lg = logits[:, :-1]
-    nll = torch.logsumexp(lg, dim=-1) - torch.gather(
+    nll = _logsumexp_last(lg) - torch.gather(
         lg, -1, targets[..., None])[..., 0]
-    return nll.mean(-1).mean() + aux_weight * aux
+    per_ex = nll.mean(-1)
+    if per_example:
+        return per_ex + aux_weight * aux
+    return per_ex.mean() + aux_weight * aux

@@ -162,7 +162,7 @@ def test_model_grad_kernel_route_matches_jax_pallas():
                                              ).astype(np.int32)
     jg = jax.grad(lambda p: jm.loss(p, {"tokens": jnp.asarray(toks)}))(jp)
     tm = Model(TINY, ModelCtx(attn_backend="kernel"), device="cpu")
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     tg = grad_tree(lambda p, b: tm.loss(p, b), tp, {"tokens": toks})
     for a, b in zip(tree_leaves(tg), jax.tree_util.tree_leaves(jg)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3,

@@ -5,6 +5,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -319,3 +320,35 @@ def test_mamba_scan_rejects_what_the_kernel_does_not_take(dev):
                        x, A[:, :4].contiguous())  # N = 4
     with pytest.raises(RuntimeError):
         ops.mamba_scan(dt.requires_grad_(True), Bi, Ci, x, A)
+
+
+def test_fixture_double_matches_plain_and_refuses_one_big_block(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(128, 128, generator=g, device=dev)
+    for block_rows in (128, 50, 1):
+        assert torch.equal(ops.fixture_double(x, block_rows),
+                           ref.fixture_double_ref(x))
+    before = ops.fixture_double.launches
+    with pytest.raises(RuntimeError, match="fixture_double"):
+        ops.fixture_double(torch.ones(2048, 2048, device=dev), 2048)
+    assert ops.fixture_double.launches == before
+    # the refused size leaves no error behind for the next launch
+    assert torch.equal(ops.fixture_double(x, 128), x * 2.0)
+    torch.cuda.synchronize()
+
+
+# every kernel at the registry's and the smoke's earlier phases' shapes
+# (chip_smoke.plan_cases; Llama-3.2-1B's flat vector and mask size)
+_PLAN_CASES = chip_smoke.plan_cases(1_235_814_400, 1_235_814)
+
+
+@pytest.mark.parametrize("case", range(len(_PLAN_CASES)))
+def test_plans_equal_the_library_query(dev, case):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import plans as P
+    fn, shape = _PLAN_CASES[case]
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    extra = {"n_sms": n_sms} if fn is P.zo_update else {}
+    want = [l.numbers() for l in fn(**shape, **extra)]
+    got = [l.numbers() for l in P.query(build.load(), fn, **shape)]
+    assert want == got

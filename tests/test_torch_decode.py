@@ -126,7 +126,7 @@ def _layer(jcfg, seed):
     """(JAX layer params, port layer params) of period 0, layer p0."""
     params = JModel(jcfg).init(jax.random.key(seed))
     lp = jax.tree.map(lambda a: np.asarray(a[0]), params["stack"]["p0"])
-    return jax.tree.map(jnp.asarray, lp), params_from_numpy(lp)
+    return jax.tree.map(jnp.asarray, lp), params_from_numpy(lp, device="cpu")
 
 
 @pytest.mark.parametrize("route", ["kernel", "ref"])
@@ -187,7 +187,7 @@ def _models(name, route="dense", decode="ref"):
     tm = Model(get_config(tname), ModelCtx(attn_backend=route,
                                            decode_backend=decode),
                device="cpu")
-    return jm, params, tm, params_from_numpy(jax.tree.map(np.asarray, params))
+    return jm, params, tm, params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
 
 
 @pytest.mark.parametrize("name", list(CFGS))
@@ -266,7 +266,7 @@ def test_decode_from_a_jax_cache():
     toks = np.random.default_rng(2).integers(0, jm.cfg.vocab, (2, 37))
     _, jc = jm.prefill(params, {"tokens": jnp.asarray(toks, jnp.int32)},
                        S_max=44)
-    tc = cache_from_numpy(jax.tree.map(np.asarray, jc))
+    tc = cache_from_numpy(jax.tree.map(np.asarray, jc), device="cpu")
     nxt = np.array([3, 9], np.int32)
     jl, jc2 = jm.decode_step(params, jnp.asarray(nxt), jc)
     tl, tc2 = tm.decode_step(tp, nxt, tc)
@@ -293,7 +293,8 @@ def test_fill_attn_cache_rolling_matches_jax():
 def test_init_cache_layout_matches_jax():
     jcfg, tname = CFGS["gemma2-reduced"]
     jc = JD.init_cache(jcfg, 3, 40, dtype=jnp.float32)
-    tc = D.init_cache(get_config(tname), 3, 40, dtype=torch.float32)
+    tc = D.init_cache(get_config(tname), 3, 40, dtype=torch.float32,
+                      device="cpu")
     _assert_cache_close(tc, jc, rel=0)
     assert tc["pos"].dtype == torch.int32
 
@@ -301,4 +302,4 @@ def test_init_cache_layout_matches_jax():
 def test_other_cache_families_raise():
     cfg = get_config("tiny").replace(layer_pattern=(("mamba", "dense"),))
     with pytest.raises(NotImplementedError):
-        D.init_cache(cfg, 1, 8)
+        D.init_cache(cfg, 1, 8, device="cpu")

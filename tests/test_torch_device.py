@@ -92,3 +92,26 @@ def test_cpu_runs_do_not_count_launches():
     ops.zo_fused_update_flat(x, x, None, 0.5)
     ops.gradip_flat(x, x, 1.0)
     assert all(v == 0 for v in ops.launches().values())
+
+
+def test_builders_default_to_the_card(no_cuda):
+    """init_params, init_cache and the convert helpers run on the card
+    unless the caller asks for the CPU."""
+    from repro_torch.convert import (cache_from_numpy, params_from_numpy,
+                                     space_from_numpy)
+    from repro_torch.models.decode import init_cache
+    from repro_torch.models.init import init_params
+    tree = {"w": np.zeros((2, 3), np.float32)}
+    idx = {"w": np.arange(2, dtype=np.int32)}
+    for call in (lambda: init_params(0, TINY),
+                 lambda: init_cache(TINY, 1, 8),
+                 lambda: params_from_numpy(tree),
+                 lambda: cache_from_numpy(tree),
+                 lambda: space_from_numpy(idx)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert init_params(0, TINY, device="cpu")["embed"].device.type == "cpu"
+    assert init_cache(TINY, 1, 8, device="cpu")["pos"].device.type == "cpu"
+    assert params_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
+    assert cache_from_numpy(tree, device="cpu")["w"].device.type == "cpu"
+    assert space_from_numpy(idx, device="cpu").device.type == "cpu"

@@ -48,7 +48,7 @@ def pair():
     jm = JModel(J_TINY)
     jp = jm.init(jax.random.key(0))
     tm = Model(TINY, device="cpu")
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     rng = np.random.default_rng(5)
     toks = rng.integers(0, J_TINY.vocab, (3, 4, S)).astype(np.int32)
     return jm, jp, tm, tp, toks

@@ -46,7 +46,7 @@ def _period(get):
 def pair():
     jcfg, tcfg = _period(j_get_config), _period(get_config)
     jp = JModel(jcfg).init(jax.random.key(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 40)
                                              ).astype(np.int32)
     return dict(jcfg=jcfg, tcfg=tcfg, jp=jp, tp=tp, batch={"tokens": toks})
@@ -100,12 +100,17 @@ def test_forward_aux_and_loss_match_jax(pair, mode):
     with torch.no_grad():
         tl, taux = tm.forward(pair["tp"], pair["batch"])
         tloss = float(tm.loss(pair["tp"], pair["batch"]))
+        tper = tm.loss(pair["tp"], pair["batch"], per_example=True)
     jl = np.asarray(jl)
     assert np.abs(tl.numpy() - jl).max() <= LOGIT_REL * np.abs(jl).max()
     assert float(jaux) > 0 and float(taux) == pytest.approx(float(jaux),
                                                             rel=1e-6)
     assert tloss == pytest.approx(float(jm.loss(pair["jp"], pair["batch"])),
                                   rel=1e-6)
+    # the per-client losses of core/fl_step: [B], the aux term in each
+    jper = np.asarray(jm.loss(pair["jp"], pair["batch"], per_example=True))
+    assert tper.shape == (2,)
+    np.testing.assert_allclose(tper.numpy(), jper, rtol=1e-6)
 
 
 def test_slice_matches_jax():
@@ -122,7 +127,7 @@ def test_slice_matches_jax():
     jm = JModel(jcfg)
     tm = Model(get_config(CFG + "-reduced").replace(**cut), device="cpu")
     jp = jm.init(jax.random.key(2))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     pre = pretrain_batches(spec, n_batches=2, batch_size=8)
     jspace = JC.sensitivity_mask(lambda p, b: jm.loss(p, b), jp, pre,
                                  density=1e-2)
@@ -138,7 +143,8 @@ def test_slice_matches_jax():
 
     kw = dict(n_clients=4, local_steps=1, lr=5e-2, eps=1e-3, density=1e-2,
               vp_init_steps=1, vp_later_steps=1, vp_sigma_relative=True)
-    space = space_from_numpy(jax.tree.map(np.asarray, jspace.idx_tree))
+    space = space_from_numpy(jax.tree.map(np.asarray, jspace.idx_tree),
+                             device="cpu")
     train = sample_dataset(spec, 256, seed=1)
     parts = dirichlet_partition(train["label"], n_clients=4, alpha=0.5)
     jloss, _, jeval = j_task_fns(jm, spec)

@@ -103,7 +103,7 @@ def mixer():
     x = rng.standard_normal((2, 40, jcfg.d_model)).astype(np.float32)
     valid = np.ones((2, 40), bool)
     valid[1, 29:] = False
-    return dict(jcfg=jcfg, lp=lp, tp=params_from_numpy(lp), x=x,
+    return dict(jcfg=jcfg, lp=lp, tp=params_from_numpy(lp, device="cpu"), x=x,
                 valid=valid, scfg=get_config(CFG + "-reduced").ssm)
 
 

@@ -22,7 +22,7 @@ from repro_torch.utils.tree import tree_leaves
 @pytest.fixture(scope="module")
 def params():
     jp = JModel(J_TINY).init(jax.random.key(0))
-    return jp, params_from_numpy(jax.tree.map(np.asarray, jp))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
 
 
 def _idx_leaves(jspace, tspace):

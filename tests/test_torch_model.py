@@ -35,7 +35,7 @@ def _pair(name, route, S):
                                else "dense"))
     params = jm.init(jax.random.key(3))
     tm = Model(tcfg, ModelCtx(attn_backend=route), device="cpu")
-    tp = params_from_numpy(jax.tree.map(np.asarray, params))
+    tp = params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
     toks = np.random.default_rng(S).integers(0, jcfg.vocab, (2, S)
                                              ).astype(np.int32)
     return jm, params, tm, tp, {"tokens": toks}

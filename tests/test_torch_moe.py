@@ -37,7 +37,7 @@ def layer():
     assert "router" in lp
     x = np.random.default_rng(3).standard_normal((3, 24, 256)).astype(
         np.float32)
-    return dict(lp=lp, tp=params_from_numpy(lp), x=x, jcfg=jcfg,
+    return dict(lp=lp, tp=params_from_numpy(lp, device="cpu"), x=x, jcfg=jcfg,
                 tcfg=get_config(CFG + "-reduced"))
 
 

@@ -35,7 +35,7 @@ def _pair(name, seed=0):
     jm = JModel(jcfg)
     params = jm.init(jax.random.key(seed))
     tm = Model(get_config(tname), device="cpu")
-    return jm, params, tm, params_from_numpy(jax.tree.map(np.asarray, params))
+    return jm, params, tm, params_from_numpy(jax.tree.map(np.asarray, params), device="cpu")
 
 
 def _prompts(vocab, lens, seed):

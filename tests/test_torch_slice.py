@@ -43,7 +43,7 @@ def setup():
     jm = JModel(J_TINY)
     jp = jm.init(jax.random.key(0))
     tm = Model(TINY, device="cpu")
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     pre = pretrain_batches(spec, n_batches=4, batch_size=16)
     jspace = JC.sensitivity_mask(lambda p, b: jm.loss(p, b), jp, pre,
                                  density=1e-2)
@@ -78,7 +78,8 @@ def test_rounds_match_jax(setup, T):
     jfl = JFL(zo_backend="pallas", **kw)
     tfl = FLConfig(zo_backend="kernel", **kw)
     # the port runs on JAX's mask, so both packages walk the same coords
-    tspace = space_from_numpy(jax.tree.map(np.asarray, s["jspace"].idx_tree))
+    tspace = space_from_numpy(jax.tree.map(np.asarray, s["jspace"].idx_tree),
+                              device="cpu")
     jloss, _, jeval = j_task_fns(s["jm"], s["spec"])
     tloss, _, teval = make_task_fns(s["tm"], s["spec"])
     jsrv = JC.FederatedZO(jloss, s["jp"], s["jspace"], jfl,
