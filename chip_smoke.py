@@ -10,8 +10,12 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
 2. build        compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels      hold each kernel against its plain PyTorch version at the
                 main paths' shapes and at ragged and small ones, and time
-                the kernel, the plain version and, where one exists, the
-                PyTorch library call that computes the same function;
+                the kernel (CUDA events, and the host clock per call over
+                the same loop: enqueue_ms), the plain version and, where
+                one exists, the PyTorch library call that computes the
+                same function; the two host-bound kernels (gradip_flat,
+                fixture_double) in turns with their library call, with
+                the host time of their wrappers' pieces;
 4. slice        MEERKAT-VP on full-size Llama-3.2-1B (random weights from a
                 seed): sensitivity mask and pre-training gradient through
                 the flash kernels' backward, held against the dense
@@ -81,6 +85,7 @@ import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -151,8 +156,13 @@ MAMBA_ROUTE_REL = 1e-4
 
 # the analyzer's fixture kernel: [128, 128] f32 in one block fits a block
 # (131,072 B of shared memory); [2048, 2048] in one block asks 33,554,432 B
-# and the card must refuse it
+# and the card must refuse it.  Blocks of 32, 128, then 50 rows at
+# [128, 128]: the launcher's granted shared bytes rise, then are reused
 FIXTURE_GOOD, FIXTURE_BAD = (128, 128), (2048, 2048)
+FIXTURE_BLOCK_ROWS = (32, 128, 50)
+# host-bound kernels against their library call: turns of (kernel,
+# library, library, kernel), the median over TURNS
+TURNS = 7
 # the analysis phase's full-width run: make_fl_train_loop on Llama-3.2-1B,
 # 8 clients x batch 2 x SEQ_LEN, 2 steps; the liveness estimate of the
 # recorded call within AN_LIVENESS_REL of torch.cuda.max_memory_allocated's
@@ -211,9 +221,11 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def timed(fn, iters: int) -> float:
+def timed(fn, iters: int, host: bool = False):
     """Mean ms per call over ``iters`` calls after two warm-up calls (CUDA
-    events around the whole run)."""
+    events around the whole run).  With ``host``, (that, enqueue ms): the
+    host clock per call over the same loop, read before the closing
+    synchronize; where the two are close, the host sets the time."""
     import torch
     for _ in range(2):
         fn()
@@ -221,11 +233,77 @@ def timed(fn, iters: int) -> float:
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
+    h0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    h1 = time.perf_counter()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    ms = t0.elapsed_time(t1) / iters
+    return (ms, (h1 - h0) * 1e3 / iters) if host else ms
+
+
+def kernel_times(fn, iters: int) -> dict:
+    """A kernel row's ``ms`` and ``enqueue_ms`` (:func:`timed`)."""
+    ms, enqueue_ms = timed(fn, iters, host=True)
+    return dict(ms=ms, enqueue_ms=enqueue_ms)
+
+
+def timed_turns(kernel, library, iters: int, turns: int = TURNS) -> dict:
+    """A kernel and the library call that computes the same function, timed
+    in turns (kernel, library, library, kernel): a turn's reading of each is
+    the mean of its two, and each number is the median over ``turns``
+    turns.  Host-bound calls move by up to 2x between calls; turns put both
+    under the same conditions."""
+    k, ke, lib, libe = [], [], [], []
+    for _ in range(turns):
+        a, b, c, d = (timed(f, iters, host=True)
+                      for f in (kernel, library, library, kernel))
+        k.append((a[0] + d[0]) / 2)
+        ke.append((a[1] + d[1]) / 2)
+        lib.append((b[0] + c[0]) / 2)
+        libe.append((b[1] + c[1]) / 2)
+    med = statistics.median
+    return dict(ms=med(k), enqueue_ms=med(ke), library_ms=med(lib),
+                library_enqueue_ms=med(libe), turns=turns, ms_turns=k,
+                library_ms_turns=lib)
+
+
+def queued_ms(torch, launch, calls: int = 20, reps: int = 10) -> float:
+    """Device ms per launch with no host gap between launches:
+    ``launch(stream)`` (one kernel launch on the raw stream handle) queued
+    ``calls`` times between CUDA events behind a ~1 ms spin kernel, so the
+    card runs them back to back once the spin ends; the median of ``reps``.
+    (Not a CUDA graph: gradip_flat refuses capture.)"""
+    stream = torch.cuda.current_stream().cuda_stream
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # cycles: the launches queue meanwhile
+        t0.record()
+        for _ in range(calls):
+            launch(stream)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / calls)
+    return statistics.median(times)
+
+
+def host_us(fn, iters: int = 200, reps: int = 5) -> float:
+    """Median over ``reps`` loops of the host clock per call of ``fn`` (us),
+    with no synchronize inside a loop and one after it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(reps):
+        h0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        per.append((time.perf_counter() - h0) * 1e6 / iters)
+        torch.cuda.synchronize()
+    return statistics.median(per)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -270,7 +348,8 @@ def check_elementwise(torch, ops, ref, dev, n_slice: int):
     b_ms, b_by = bound(16.0 * n_slice, 3.0 * n_slice)
     out["zo_dual_perturb_flat"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ms=timed(lambda: ops.zo_dual_perturb_flat(w, z, None, 1e-3), 10),
+        **kernel_times(lambda: ops.zo_dual_perturb_flat(w, z, None, 1e-3),
+                       10),
         plain_ms=timed(lambda: ref.dual_perturb_ref(w, z, None, 1e-3), 10),
         shape=f"[{n_slice}] f32, pre-masked z")
     s = torch.tensor(-1e-3 * 0.731, device=dev)
@@ -283,37 +362,134 @@ def check_elementwise(torch, ops, ref, dev, n_slice: int):
     s_host = float(s)
     out["zo_fused_update_flat"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=timed(lambda: ops.zo_fused_update_flat(w, z, None, s), 10),
+        **kernel_times(lambda: ops.zo_fused_update_flat(w, z, None, s), 10),
         plain_ms=timed(lambda: ref.fused_update_ref(w, z, None, s), 10),
         library_ms=timed(lambda: torch.add(w, z, alpha=s_host), 10),
         shape=f"[{n_slice}] f32, pre-masked z")
     return out
 
 
+def gradip_two_streams(torch, ops, gp, z, g, calls: int = 4):
+    """gradip_flat from two side streams at once, ``calls`` each,
+    interleaved: the results (each stream has its own scratch and ticket)."""
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for s in streams:
+        s.wait_stream(main)
+    outs = []
+    for _ in range(calls):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(ops.gradip_flat(gp, z, g))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize()
+    return outs
+
+
+def gradip_capture_refusals(torch, ops, gp, z) -> list:
+    """gradip_flat under CUDA graph capture, on a side stream with no
+    scratch yet (the wrapper refuses) and then with one (the launcher
+    refuses): each refusal's message, or None where the call was captured
+    or launched.  A graph would replay the capture stream's scratch and
+    ticket on any stream."""
+    side = torch.cuda.Stream()
+    refusals = []
+    for warm in (False, True):
+        side.wait_stream(torch.cuda.current_stream())
+        if warm:
+            with torch.cuda.stream(side):
+                ops.gradip_flat(gp, z, 1.7)
+        before = ops.gradip_flat.launches
+        try:
+            with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+                ops.gradip_flat(gp, z, 1.7)
+            refusals.append(None)
+        except RuntimeError as e:
+            refusals.append(str(e) if ops.gradip_flat.launches == before
+                            else None)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    return refusals
+
+
 def check_gradip(torch, ops, ref, dev, n_slice: int):
+    """gradip_flat against its plain version at n in {1, 777, 1e7, the
+    slice's}; bit-equal over 3 repeats and from two streams at once; one
+    launch a call; refused under CUDA graph capture.  At the slice's n
+    (where MEERKAT-VP runs it) timed in turns against torch.dot, and
+    device time alone at n = 1e7."""
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {}
     for n in (1, 777, 10_000_000, n_slice):
         gp = torch.randn(n, generator=gen, device=dev)
         z = torch.randn(n, generator=gen, device=dev)
+        before = ops.gradip_flat.launches
         got = ops.gradip_flat(gp, z, 1.7)
+        if got.shape != () or ops.gradip_flat.launches != before + 1:
+            fail(f"gradip is not one 0-d result of one launch at n={n}")
         want = ref.gradip_reduce_ref(gp, z, 1.7)
         err = abs(float(got) - float(want))
         # f32 sums in two orders: within 1e-5 of the sum of |terms|
         if err > 1e-5 * 1.7 * float((gp * z).abs().sum()):
             fail(f"gradip differs from plain at n={n}: {err}")
-        if float(ops.gradip_flat(gp, z, 1.7)) != float(got):
-            fail("gradip is not deterministic")
+        if not all(torch.equal(ops.gradip_flat(gp, z, 1.7), got)
+                   for _ in range(3)):
+            fail(f"gradip is not bit-equal over repeats at n={n}")
+        if not all(torch.equal(o, got)
+                   for o in gradip_two_streams(torch, ops, gp, z, 1.7)):
+            fail(f"gradip is not bit-equal across two streams at n={n}")
+        if n == 10_000_000:
+            big_ms = timed(lambda: ops.gradip_flat(gp, z, 1.7), 20)
+            big_bound, _ = bound(8.0 * n + 4, 2.0 * n)
     b_ms, b_by = bound(8.0 * n_slice + 4, 2.0 * n_slice)
     out["gradip_flat"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=timed(lambda: ops.gradip_flat(gp, z, 1.7), 50),
+        **timed_turns(lambda: ops.gradip_flat(gp, z, 1.7),
+                      lambda: torch.dot(gp, z), 50),
         plain_ms=timed(lambda: ref.gradip_reduce_ref(gp, z, 1.7), 50),
-        library_ms=timed(lambda: torch.dot(gp, z), 50),
+        ms_1e7=big_ms, bound_ms_1e7=big_bound,
         shape=f"[{n_slice}] f32")
+    refusals = gradip_capture_refusals(torch, ops, gp, z)
+    if None in refusals:
+        fail(f"gradip was not refused under CUDA graph capture: {refusals}")
+    if not torch.equal(ops.gradip_flat(gp, z, 1.7), got):
+        fail("gradip differs after the refused captures")
     emit("kernels.gradip_variants", ok=True,
-         checked="n in {1, 777, 1e7, slice n}; repeat-call bit-equal")
+         checked="n in {1, 777, 1e7, slice n}; one launch, 0-d; bit-equal "
+                 "over 3 repeats and from 2 streams x 4 calls; refused "
+                 "under graph capture", refusals=refusals)
+    out["gradip_flat"]["host_us"] = host_split_gradip(torch, ops, gp, z)
     return out
+
+
+def host_split_gradip(torch, ops, gp, z):
+    """Host us per call of gradip_flat and of its pieces, at the slice's n:
+    where the host time of a call goes."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    idx = gp.get_device()
+    st = ops._stream(gp)
+    scratch_ptr, like = ops._gradip_scratch[(idx, st)]
+    out = torch.empty((), dtype=torch.float32, device=gp.device)
+    args = (gp.data_ptr(), z.data_ptr(), 1.7, scratch_ptr, out.data_ptr(),
+            gp.numel())
+    return dict(
+        device_us_queued=1e3 * queued_ms(
+            torch, lambda s: lib.gradip_reduce(*args, s)),
+        wrapper=host_us(lambda: ops.gradip_flat(gp, z, 1.7)),
+        wrapper_unrecorded=host_us(
+            lambda: ops.gradip_flat.__wrapped__(gp, z, 1.7)),
+        on_cpu=host_us(lambda: ops._on_cpu(gp, z)),
+        stream_raw=host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(idx)),
+        stream_object=host_us(
+            lambda: torch.cuda.current_stream(gp.device).cuda_stream),
+        empty_like_0d=host_us(lambda: torch.empty_like(like)),
+        empty_0d_device_arg=host_us(lambda: torch.empty(
+            (), dtype=torch.float32, device=gp.device)),
+        ctypes_launch=host_us(lambda: lib.gradip_reduce(*args, st)),
+        library=host_us(lambda: torch.dot(gp, z)))
 
 
 def _attn(torch, dev, gen, B, S, KV, G, dh, dtype):
@@ -372,7 +548,7 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     out = {"flash_attention": dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=timed(lambda: ops.flash_attention(q, k, v, L), 10),
+        **kernel_times(lambda: ops.flash_attention(q, k, v, L), 10),
         plain_ms=timed(lambda: ref.flash_attention_ref(
             q, k, v, L, window=0, softcap=0.0, causal=True), 5),
         library_ms=timed(lambda: F.scaled_dot_product_attention(
@@ -512,7 +688,7 @@ def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int):
         out[name] = dict(
             max_abs_err=max(abs_errs[sl]), max_rel_err=max(errs[sl]),
             bound_ms=b_ms, bound_by=b_by,
-            ms=timed(lambda: fn(*args, **kw), 10),
+            **kernel_times(lambda: fn(*args, **kw), 10),
             plain_ms=timed(lambda: plain(*args, **kw), 5),
             library_ms=lib_ms, shape=shape,
             gflop=n_ops * dh * live / 1e9, mbytes=n_bytes / 1e6)
@@ -612,7 +788,7 @@ def check_flash_decode(torch, ops, ref, dev, cfg, slots: int, S: int,
     mask = (torch.arange(S, device=dev)[None, :] < L[:, None])[:, None, None]
     return {"flash_decode": dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=timed(lambda: ops.flash_decode(q, k, v, L), 50),
+        **kernel_times(lambda: ops.flash_decode(q, k, v, L), 50),
         plain_ms=timed(lambda: ref.decode_attention_ref(q, k, v, L), 20),
         library_ms=timed(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask, enable_gqa=True), 50),
@@ -672,7 +848,7 @@ def check_mamba_scan(torch, ops, ref, dev):
         max_abs_err=err, bound_ms=max(mem_ms, exp_ms),
         bound_by="bytes" if mem_ms >= exp_ms else "operations",
         bytes_bound_ms=mem_ms, exp_bound_ms=exp_ms, library_ms=None,
-        ms=timed(lambda: ops.mamba_scan(*args), 20),
+        **kernel_times(lambda: ops.mamba_scan(*args), 20),
         plain_ms=timed(lambda: ref.mamba_scan_ref(*args), 3),
         shape=f"dt, x [{B},{S},{E}] f32, N {N}", mbytes=n_bytes / 1e6,
         g_exp=n_exp / 1e9)}
@@ -680,19 +856,31 @@ def check_mamba_scan(torch, ops, ref, dev):
 
 def check_fixture_double(torch, ops, ref, dev):
     """The analyzer's fixture kernel: at FIXTURE_GOOD bit-equal to its plain
-    version (one block, and ragged blocks of 50 rows); at FIXTURE_BAD in one
-    block the card refuses the launch, the wrapper raises, nothing is
-    counted, and the next launch runs.  Timed at FIXTURE_GOOD, where one
-    launch is all there is (launch latency)."""
+    version in blocks of FIXTURE_BLOCK_ROWS rows (32, then 128: the
+    launcher's granted shared bytes rise; then ragged blocks of 50: they
+    are reused, no cudaFuncSetAttribute); at FIXTURE_BAD in one block the
+    card refuses the launch, the wrapper raises, nothing is counted, the
+    granted bytes stay, and the next launch runs.  Timed at FIXTURE_GOOD,
+    where one launch is all there is, in turns with torch.mul."""
     gen = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn(*FIXTURE_GOOD, generator=gen, device=dev)
     want = ref.fixture_double_ref(x)
-    for block_rows in (FIXTURE_GOOD[0], 50):
+    states = [fixture_smem_state()]
+    for block_rows in FIXTURE_BLOCK_ROWS:
         got = ops.fixture_double(x, block_rows)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             fail(f"fixture_double differs from plain at block_rows "
                  f"{block_rows}")
+        states.append(fixture_smem_state())
+    # the granted bytes rise to each size past the mark, and a size under
+    # it asks the runtime nothing
+    for (g0, s0), (g1, s1), rows in zip(states, states[1:],
+                                        FIXTURE_BLOCK_ROWS):
+        need = 2 * 4 * rows * FIXTURE_GOOD[1]
+        if (g1, s1) != (max(g0, need), s0 + (need > g0)):
+            fail(f"fixture_double's granted shared bytes went {g0, s0} -> "
+                 f"{g1, s1} at block_rows {rows}")
     before = ops.fixture_double.launches
     xb = torch.randn(*FIXTURE_BAD, generator=gen, device=dev)
     refused = None
@@ -703,12 +891,17 @@ def check_fixture_double(torch, ops, ref, dev):
     if refused is None or ops.fixture_double.launches != before:
         fail("fixture_double's one-block launch at [2048, 2048] was not "
              "refused")
+    after_refused = fixture_smem_state()
+    if after_refused != (states[-1][0], states[-1][1] + 1):
+        fail(f"the refused launch moved the granted shared bytes: "
+             f"{states[-1]} -> {after_refused}")
     got = ops.fixture_double(x, FIXTURE_GOOD[0])
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         fail("fixture_double differs from plain after the refused launch")
     emit("kernels.fixture_double_variants", ok=True, bit_equal=True,
-         block_rows=[FIXTURE_GOOD[0], 50], bad_refused=refused,
+         block_rows=list(FIXTURE_BLOCK_ROWS), bad_refused=refused,
+         granted_bytes_and_attribute_sets=states + [after_refused],
          smem_optin=torch.cuda.get_device_properties(
              dev).shared_memory_per_block_optin)
     n = x.numel()
@@ -716,10 +909,52 @@ def check_fixture_double(torch, ops, ref, dev):
     return {"fixture_double": dict(
         max_abs_err=float((got - want).abs().max()), bound_ms=b_ms,
         bound_by=b_by,
-        ms=timed(lambda: ops.fixture_double(x, FIXTURE_GOOD[0]), 200),
+        **timed_turns(lambda: ops.fixture_double(x, FIXTURE_GOOD[0]),
+                      lambda: torch.mul(x, 2.0), 200),
         plain_ms=timed(lambda: ref.fixture_double_ref(x), 200),
-        library_ms=timed(lambda: torch.mul(x, 2.0), 200),
+        host_us=host_split_fixture(torch, ops, x),
         shape=f"{list(FIXTURE_GOOD)} f32, one block (launch latency)")}
+
+
+def fixture_smem_state():
+    """(dynamic shared bytes fixture_double's launcher holds granted for
+    its 16-byte kernel on this device, cudaFuncSetAttribute calls so
+    far)."""
+    import ctypes
+    from repro_torch.kernels import build
+    out = (ctypes.c_longlong * 3)()
+    rc = build.load().fixture_double_smem_state(out)
+    if rc:
+        fail(f"fixture_double_smem_state: CUDA error {rc}")
+    return out[1], out[2]
+
+
+def host_split_fixture(torch, ops, x):
+    """Host us per call of fixture_double at FIXTURE_GOOD and of its
+    pieces: where the host time of a call goes."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.load()
+    y = torch.empty_like(x)
+    st = ops._stream(x)
+    state = (ctypes.c_longlong * 3)()
+    args = (x.data_ptr(), y.data_ptr(), *FIXTURE_GOOD, FIXTURE_GOOD[0])
+    return dict(
+        device_us_queued=1e3 * queued_ms(
+            torch, lambda s: lib.fixture_double(*args, s)),
+        wrapper=host_us(lambda: ops.fixture_double(x, FIXTURE_GOOD[0])),
+        wrapper_unrecorded=host_us(
+            lambda: ops.fixture_double.__wrapped__(x, FIXTURE_GOOD[0])),
+        on_cpu=host_us(lambda: ops._on_cpu(x)),
+        empty_like=host_us(lambda: torch.empty_like(x)),
+        ctypes_no_launch=host_us(
+            lambda: lib.fixture_double_smem_state(state)),
+        ctypes_refused_args=host_us(
+            lambda: lib.fixture_double(*args[:2], 0, *args[3:], st)),
+        ctypes_launch=host_us(lambda: lib.fixture_double(*args, st)),
+        library=host_us(lambda: torch.mul(x, 2.0)),
+        library_device_us_queued=1e3 * queued_ms(
+            torch, lambda _: torch.mul(x, 2.0)))
 
 
 # ------------------------------------------------------------------- slice --
@@ -1466,8 +1701,12 @@ def plan_cases(n_flat: int, n_mask: int):
                                     bf16=False))]
     cases += [(P.mamba_scan, dict(B=4, S=SEQ_LEN, E=16384, N=16)),
               (P.mamba_scan, dict(B=2, S=300, E=256, N=8))]
-    cases += [(P.fixture_double, dict(rows=r, cols=c, block_rows=r))
+    cases += [(P.fixture_double, dict(rows=r, cols=c, block_rows=r,
+                                      aligned=True))
               for r, c in (FIXTURE_GOOD, FIXTURE_BAD)]
+    cases += [(P.fixture_double, dict(rows=128, cols=c, block_rows=32,
+                                      aligned=a))
+              for c, a in ((128, False), (130, True))]
     return cases
 
 
@@ -1934,7 +2173,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "enqueue_ms": r["enqueue_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=time.perf_counter() - t_start)
     print(card, flush=True)

@@ -6,7 +6,7 @@ ZO-reconstructed client gradient.  In sparse coordinates this is
 ``g_k^t * dot(gp[mask], z_t)``: the server never materializes dense
 gradients.
 
-The inner reduction is the two-pass reduction kernel
+The inner reduction is the one-launch deterministic reduction kernel
 (``kernels/csrc/gradip.cu`` via ``kernels.ops.gradip_flat``, whose plain
 version runs on the CPU).  The JAX package's jnp-dot route served traced
 and mesh-sharded vectors, which the port does not have.

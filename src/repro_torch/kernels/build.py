@@ -51,7 +51,9 @@ SIGNATURES = {
     "flash_attn_bwd_plan": ([_I, _I, _I, _I, _I, _I, _I, _P], _I),
     "flash_decode_plan": ([_I, _I, _I, _I, _I, _I, _I, _P], _I),
     "mamba_scan_plan": ([_I, _I, _I, _I, _P], _I),
-    "fixture_double_plan": ([_I, _I, _I, _P], _I),
+    "fixture_double_plan": ([_I, _I, _I, _I, _P], _I),
+    # fixture_double's launcher state: granted shared bytes, attribute calls
+    "fixture_double_smem_state": ([_P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

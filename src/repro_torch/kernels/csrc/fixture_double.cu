@@ -12,8 +12,20 @@
 // measures.  At [128, 128] f32 in one block it asks for 131,072 bytes,
 // which fit a Hopper block's 232,448 (opt-in); at [2048, 2048] in one block
 // it asks for 33,554,432, and cudaFuncSetAttribute refuses that, so the
-// launch never happens and the entry point returns the error.  What bounds
-// it: bytes (8 per element) and, at these sizes, the launch itself.
+// launch never happens and the entry point returns the error.
+//
+// What bounds it: bytes (8 per element), 39 ns at [128, 128]; one block
+// there is one SM streaming 128 KB, whose time is the latency of its load
+// rounds, so each thread issues up to kUnroll 16-byte loads before it
+// stores any (a scalar path where x, y or cols do not allow 16 bytes).  At
+// these sizes the host sets the time of a call: the wrapper's Python, the
+// ctypes call and the launch.  So the launcher asks the runtime for more
+// dynamic shared memory only when a launch needs more than this device has
+// already granted the kernel: a per-device high-water mark, raised only
+// when the runtime accepts, so a steady caller pays no cudaFuncSetAttribute.
+#include <atomic>
+#include <mutex>
+
 #include "common.cuh"
 
 using namespace repro;
@@ -21,29 +33,81 @@ using namespace repro;
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 8;
+constexpr int kMaxDevices = 64;
 
+template <int V>
 __global__ void __launch_bounds__(kThreads)
 fixture_double_kernel(const float* __restrict__ x, float* __restrict__ y,
                       long long n, long long tile) {
-  extern __shared__ float smem[];
-  float* s_in = smem;          // [tile]: the input tile
-  float* s_out = smem + tile;  // [tile]: the output tile
+  using P = Pack<float, V>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  P* s_in = reinterpret_cast<P*>(smem_raw);  // [tile / V]: the input tile
+  P* s_out = s_in + tile / V;                // [tile / V]: the output tile
   const long long base = (long long)blockIdx.x * tile;
-  const long long m = n - base < tile ? n - base : tile;
-  for (long long i = threadIdx.x; i < m; i += kThreads) s_in[i] = x[base + i];
-  __syncthreads();
-  for (long long i = threadIdx.x; i < m; i += kThreads) {
-    s_out[i] = s_in[i] * 2.f;
+  const long long m = (n - base < tile ? n - base : tile) / V;  // packs
+  const P* xs = reinterpret_cast<const P*>(x + base);
+  P* ys = reinterpret_cast<P*>(y + base);
+  for (long long i0 = threadIdx.x; i0 < m; i0 += kThreads * kUnroll) {
+    P r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + (long long)u * kThreads;
+      if (i < m) r[u] = xs[i];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = i0 + (long long)u * kThreads;
+      if (i < m) s_in[i] = r[u];
+    }
   }
   __syncthreads();
-  for (long long i = threadIdx.x; i < m; i += kThreads) y[base + i] = s_out[i];
+  for (long long i = threadIdx.x; i < m; i += kThreads) {
+    P a = s_in[i];
+#pragma unroll
+    for (int j = 0; j < V; ++j) a.v[j] *= 2.f;
+    s_out[i] = a;
+  }
+  __syncthreads();
+  for (long long i = threadIdx.x; i < m; i += kThreads) ys[i] = s_out[i];
 }
 
-LaunchPlan plan(int rows, int cols, int block_rows) {
+LaunchPlan plan(int rows, int cols, int block_rows, bool vec) {
   const long long tile = (long long)block_rows * cols;
-  return {reinterpret_cast<const void*>(fixture_double_kernel),
+  return {vec ? reinterpret_cast<const void*>(fixture_double_kernel<4>)
+              : reinterpret_cast<const void*>(fixture_double_kernel<1>),
           dim3((unsigned)((rows + block_rows - 1) / block_rows)), kThreads,
           (size_t)(2 * tile * (long long)sizeof(float))};
+}
+
+// Per device and instantiation (scalar, vector): the most dynamic shared
+// bytes the runtime has accepted for the kernel.  Read without a lock on
+// every launch; raised under the lock, after the runtime accepts, so the
+// mark never exceeds the attribute that is set.
+std::atomic<long long> g_granted[kMaxDevices][2];
+std::atomic<long long> g_attribute_sets{0};
+std::mutex g_grant_lock;
+
+cudaError_t grant(const LaunchPlan& lp, int inst) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const long long want = (long long)lp.smem;
+  const bool tracked = dev >= 0 && dev < kMaxDevices;
+  if (tracked && want <= g_granted[dev][inst].load(std::memory_order_acquire))
+    return cudaSuccess;
+  std::lock_guard<std::mutex> hold(g_grant_lock);
+  if (tracked && want <= g_granted[dev][inst].load(std::memory_order_relaxed))
+    return cudaSuccess;
+  g_attribute_sets.fetch_add(1, std::memory_order_relaxed);
+  e = cudaFuncSetAttribute(lp.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)want);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused size leaves no error for the next launch
+    return e;
+  }
+  if (tracked) g_granted[dev][inst].store(want, std::memory_order_release);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -52,24 +116,43 @@ LaunchPlan plan(int rows, int cols, int block_rows) {
 extern "C" int fixture_double(const float* x, float* y, int rows, int cols,
                               int block_rows, void* stream) {
   if (rows < 1 || cols < 1 || block_rows < 1) return cudaErrorInvalidValue;
-  const LaunchPlan lp = plan(rows, cols, block_rows);
-  cudaError_t e = cudaFuncSetAttribute(
-      fixture_double_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lp.smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // a refused size leaves no error for the next launch
-    return e;
+  const bool vec = cols % 4 == 0 && aligned(x, 16) && aligned(y, 16);
+  const LaunchPlan lp = plan(rows, cols, block_rows, vec);
+  const cudaError_t e = grant(lp, vec ? 1 : 0);
+  if (e != cudaSuccess) return e;
+  const long long n = (long long)rows * cols;
+  const long long tile = (long long)block_rows * cols;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    fixture_double_kernel<4><<<lp.grid, lp.threads, lp.smem, st>>>(x, y, n,
+                                                                   tile);
+  } else {
+    fixture_double_kernel<1><<<lp.grid, lp.threads, lp.smem, st>>>(x, y, n,
+                                                                   tile);
   }
-  fixture_double_kernel<<<lp.grid, lp.threads, lp.smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, y, (long long)rows * cols, (long long)block_rows * cols);
   return cudaGetLastError();
 }
 
-// The launch fixture_double makes at these shapes (write_plans).
+// The launch fixture_double makes at these shapes (write_plans), for x and
+// y both 16-byte aligned (aligned = 1) or not.
 extern "C" int fixture_double_plan(int rows, int cols, int block_rows,
-                                   long long* out) {
+                                   int aligned, long long* out) {
   if (rows < 1 || cols < 1 || block_rows < 1) return cudaErrorInvalidValue;
-  const LaunchPlan lp = plan(rows, cols, block_rows);
+  const LaunchPlan lp = plan(rows, cols, block_rows,
+                             aligned != 0 && cols % 4 == 0);
   return write_plans(&lp, 1, out);
+}
+
+// The launcher's state on the current device: out[0] and out[1] the
+// dynamic shared bytes granted to the scalar and the vector kernel, out[2]
+// the cudaFuncSetAttribute calls made in this process, refused ones too.
+extern "C" int fixture_double_smem_state(long long* out) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool tracked = dev >= 0 && dev < kMaxDevices;
+  out[0] = tracked ? g_granted[dev][0].load() : -1;
+  out[1] = tracked ? g_granted[dev][1].load() : -1;
+  out[2] = g_attribute_sets.load();
+  return 0;
 }

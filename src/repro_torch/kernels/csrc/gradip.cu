@@ -6,16 +6,34 @@
 //
 // What bounds it on an H100: bytes.  8 bytes read per element (gp and z) for
 // one multiply-add; at the slice's n = 1.24e6 coordinates that is ~10 MB,
-// about 3 us at 3.35 TB/s, so at this size the two launches, not the memory,
-// set its time.
+// about 3 us at 3.35 TB/s.  At that size the host sets the time of a call
+// (the wrapper's Python, the ctypes call and the launch, ~10 us), so the
+// design spends one launch and no allocation but the output.
 //
-// Design: blocks run in no order on the card, so the sequential accumulator
-// becomes a two-pass reduction with no atomics.  Pass 1: a fixed number of
-// blocks (at most kMaxPartials), each thread summing a grid-stride slice of
-// 16-byte packs, then a warp-shuffle and shared-memory tree per block into
-// one f32 partial.  Pass 2: one block sums the partials in a fixed tree and
-// multiplies by g.  The grid depends only on n, so the order of every
-// addition, and thus the result, is the same from run to run.
+// Design: one launch, the last-block-done reduction (CUDA's
+// threadFenceReduction sample).  Blocks run in no order on the card, so the
+// sequential accumulator becomes per-block partial sums: each of a fixed
+// number of blocks (at most kMaxPartials) sums a grid-stride slice of
+// 16-byte packs per thread, reduces it by warp shuffles and a shared-memory
+// tree, writes its partial, fences, and draws a ticket.  The block that
+// draws the last ticket reads the partials in index order, sums them by a
+// fixed tree, multiplies by g and writes the result.  The grid depends only
+// on n and on the operands' alignment, and each block's slice and each tree
+// only on the grid, so the order of every addition, and thus the result, is
+// the same from call to call whichever block finishes first.
+//
+// Why not a thread-block cluster (partials summed through distributed
+// shared memory): it needs no scratch, but a cluster has at most 16 blocks,
+// so 16 SMs would stream what 132 can; at n = 1e7 (80 MB) that is the
+// kernel's time.  The last-block-done form streams with the whole card and
+// needs a small scratch: the partials and the ticket, which the wrapper
+// keeps per (device, stream), zeroed once.  atomicInc wraps the ticket back
+// to 0 on the last draw, so each call leaves the scratch ready for the next
+// on its stream; two streams never share a ticket.  That holds for eager
+// launches only: a CUDA graph would freeze the capture stream's scratch
+// into its launch and replay it on any stream, beside eager calls on the
+// capture stream, so the launcher refuses a capturing stream (and the
+// wrapper refuses to make a scratch during capture).
 #include "common.cuh"
 
 using namespace repro;
@@ -30,21 +48,24 @@ __device__ __forceinline__ float block_sum(float x, float* sh) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (lane == 0) sh[warp] = x;
   __syncthreads();
-  x = threadIdx.x < blockDim.x / 32 ? sh[threadIdx.x] : 0.f;
+  x = threadIdx.x < kThreads / 32 ? sh[threadIdx.x] : 0.f;
   if (warp == 0) {
     for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   }
   return x;  // valid in thread 0
 }
 
+// partials: one float per block (at most kMaxPartials); ticket: 0 between
+// calls, and 0 again when the last block has drawn.
 template <int V>
 __global__ void __launch_bounds__(kThreads)
-gradip_partials(const float* __restrict__ gp, const float* __restrict__ z,
-                float* __restrict__ partials, long long n) {
+gradip_reduce_kernel(const float* __restrict__ gp, const float* __restrict__ z,
+                     float g, float* partials, unsigned* ticket,
+                     float* __restrict__ out, long long n) {
   __shared__ float sh[kThreads / 32];
   const long long nv = n / V;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   float acc = 0.f;
   for (long long i = tid; i < nv; i += stride) {
     const Pack<float, V> a = reinterpret_cast<const Pack<float, V>*>(gp)[i];
@@ -52,60 +73,72 @@ gradip_partials(const float* __restrict__ gp, const float* __restrict__ z,
 #pragma unroll
     for (int j = 0; j < V; ++j) acc = fmaf(a.v[j], b.v[j], acc);
   }
-  for (long long i = nv * V + tid; i < n; i += stride) acc = fmaf(gp[i], z[i], acc);
+  for (long long i = nv * V + tid; i < n; i += stride) {
+    acc = fmaf(gp[i], z[i], acc);
+  }
   acc = block_sum(acc, sh);
-  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
-}
-
-__global__ void __launch_bounds__(kMaxPartials)
-gradip_finish(const float* __restrict__ partials, int n_partials, float g,
-              float* __restrict__ out) {
-  __shared__ float sh[kMaxPartials / 32];
-  float x = threadIdx.x < n_partials ? partials[threadIdx.x] : 0.f;
+  bool drew_last = false;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = acc;
+    __threadfence();  // the partial is visible card-wide before the ticket
+    // wraps to 0 on the last draw: the ticket is ready for the next call
+    drew_last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  }
+  if (!__syncthreads_or(drew_last)) return;
+  __threadfence();
+  // the last block: partials in index order, each thread a fixed stride of
+  // them, then the same tree; read through L2 (__ldcg), where the other
+  // blocks' writes are
+  float x = 0.f;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kThreads) {
+    x += __ldcg(partials + i);
+  }
   x = block_sum(x, sh);
-  if (threadIdx.x == 0) out[0] = g * x;
+  if (threadIdx.x == 0) *out = g * x;
 }
 
-// The two launches of one call: partial sums, then the finishing sum.
-int plans(long long n, bool vec, LaunchPlan* lps) {
+LaunchPlan plan(long long n, bool vec) {
   const int v = vec ? 4 : 1;
   long long blocks = (n / v + n % v + kThreads - 1) / kThreads;
   if (blocks > kMaxPartials) blocks = kMaxPartials;
   if (blocks < 1) blocks = 1;
-  lps[0] = {vec ? reinterpret_cast<const void*>(gradip_partials<4>)
-                : reinterpret_cast<const void*>(gradip_partials<1>),
-            dim3((unsigned)blocks), kThreads, 0};
-  lps[1] = {reinterpret_cast<const void*>(gradip_finish), dim3(1),
-            kMaxPartials, 0};
-  return 2;
+  return {vec ? reinterpret_cast<const void*>(gradip_reduce_kernel<4>)
+              : reinterpret_cast<const void*>(gradip_reduce_kernel<1>),
+          dim3((unsigned)blocks), kThreads, 0};
 }
 
 }  // namespace
 
-// partials: scratch of at least kMaxPartials floats; out: one float.
+// scratch: kMaxPartials floats, then the ticket (kernels/plans.py
+// GRADIP_MAX_PARTIALS + 1 words), zeroed before the first call on this
+// stream; each call leaves its ticket at 0 again.  out: one float.  A
+// stream under graph capture is refused, before anything is enqueued.
 extern "C" int gradip_reduce(const float* gp, const float* z, float g,
-                             float* partials, float* out, long long n,
+                             void* scratch, float* out, long long n,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = aligned(gp, 16) && aligned(z, 16);
-  LaunchPlan lps[2];
-  plans(n, vec, lps);
-  if (vec) {
-    gradip_partials<4><<<lps[0].grid, lps[0].threads, 0, st>>>(gp, z,
-                                                              partials, n);
-  } else {
-    gradip_partials<1><<<lps[0].grid, lps[0].threads, 0, st>>>(gp, z,
-                                                              partials, n);
-  }
-  cudaError_t e = cudaGetLastError();
+  cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+  const cudaError_t e = cudaStreamIsCapturing(st, &capture);
   if (e != cudaSuccess) return e;
-  gradip_finish<<<lps[1].grid, lps[1].threads, 0, st>>>(
-      partials, (int)lps[0].grid.x, g, out);
+  if (capture != cudaStreamCaptureStatusNone) {
+    return cudaErrorStreamCaptureUnsupported;
+  }
+  const bool vec = aligned(gp, 16) && aligned(z, 16);
+  const LaunchPlan lp = plan(n, vec);
+  float* partials = static_cast<float*>(scratch);
+  unsigned* ticket = reinterpret_cast<unsigned*>(partials + kMaxPartials);
+  if (vec) {
+    gradip_reduce_kernel<4><<<lp.grid, lp.threads, 0, st>>>(
+        gp, z, g, partials, ticket, out, n);
+  } else {
+    gradip_reduce_kernel<1><<<lp.grid, lp.threads, 0, st>>>(
+        gp, z, g, partials, ticket, out, n);
+  }
   return cudaGetLastError();
 }
 
-// The launches gradip_reduce makes for n elements, packed (vec = 1) or not.
+// The launch gradip_reduce makes for n elements, packed (vec = 1) or not.
 extern "C" int gradip_reduce_plan(long long n, int vec, long long* out) {
-  LaunchPlan lps[2];
-  return write_plans(lps, plans(n, vec != 0, lps), out);
+  const LaunchPlan lp = plan(n, vec != 0);
+  return write_plans(&lp, 1, out);
 }

@@ -37,7 +37,6 @@ DECODE_MAX_G = 16
 DECODE_CHUNK = 256  # cache positions per split of the decode kernel
 MAMBA_STATE_DIMS = (8, 16)  # the selective scan's d_state instances
 _FLOATS = (torch.float32, torch.bfloat16)
-_GRADIP_SCRATCH = 1024  # partial sums of the first pass (gradip.cu)
 
 
 recorder = None  # the analyzer's active Recorder (analysis/walk.py), or None
@@ -85,13 +84,24 @@ def _flash_plan(dkv=None):
 
 
 def _on_cpu(*ts) -> bool:
-    devs = {t.device.type for t in ts if t is not None}
-    if devs == {"cpu"}:
-        return True
-    if devs != {"cuda"} or len({t.device for t in ts if t is not None}) > 1:
-        raise ValueError(f"operands must share one CPU or CUDA device, got "
-                         f"{[str(t.device) for t in ts if t is not None]}")
-    return False
+    """True for operands all on the CPU, False for operands all on one CUDA
+    device; raises otherwise.  Reads each tensor's flags and device index
+    (-1 on the CPU) and builds no device objects; skips None by identity
+    (``None in (tensor, ...)`` calls ``Tensor.__eq__``, tens of us)."""
+    index = None
+    for t in ts:
+        if t is None:
+            continue
+        i = t.get_device()
+        if index is None:
+            index = i
+        if i != index or not (t.is_cuda if i >= 0 else t.is_cpu):
+            break
+    else:
+        if index is not None:
+            return index < 0
+    raise ValueError(f"operands must share one CPU or CUDA device, got "
+                     f"{[str(t.device) for t in ts if t is not None]}")
 
 
 def _check_flat(w, z, m):
@@ -120,8 +130,13 @@ def _scalar_on(x, device) -> torch.Tensor:
     return torch.full((1,), x, dtype=torch.float32, device=device)
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _stream(t) -> int:
+    """The raw handle of the current stream on CUDA tensor ``t``'s device.
+    ``torch._C._cuda_getCurrentRawStream`` (what PyTorch's own Triton
+    launcher calls) returns it without building a ``torch.cuda.Stream``
+    object, as ``torch.cuda.current_stream(dev).cuda_stream`` does: ~0.1
+    against ~3 us a call on an H100 machine's host (PERF.md)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _ptr(t):
@@ -142,7 +157,7 @@ def zo_dual_perturb_flat(w_flat, z_flat, m_flat, eps):
     rc = lib.zo_dual_perturb(
         w_flat.data_ptr(), z_flat.data_ptr(), _ptr(m_flat), eps_t.data_ptr(),
         plus.data_ptr(), minus.data_ptr(), w_flat.numel(),
-        int(w_flat.dtype == torch.bfloat16), _stream(w_flat.device))
+        int(w_flat.dtype == torch.bfloat16), _stream(w_flat))
     build.check(lib, rc, "zo_dual_perturb")
     zo_dual_perturb_flat.launches += 1
     return plus, minus
@@ -161,7 +176,7 @@ def zo_fused_update_flat(w_flat, z_flat, m_flat, scale):
     rc = lib.zo_fused_update(
         w_flat.data_ptr(), z_flat.data_ptr(), _ptr(m_flat), s_t.data_ptr(),
         out.data_ptr(), w_flat.numel(), int(w_flat.dtype == torch.bfloat16),
-        _stream(w_flat.device))
+        _stream(w_flat))
     build.check(lib, rc, "zo_fused_update")
     zo_fused_update_flat.launches += 1
     return out
@@ -174,21 +189,45 @@ def gradip_flat(gp_flat, z_flat, g):
     ``g`` is a host float.  Returns a 0-d f32 tensor on gp's device."""
     if _on_cpu(gp_flat, z_flat):
         return ref.gradip_reduce_ref(gp_flat, z_flat, g)
-    n = gp_flat.shape[0]
-    for t in (gp_flat, z_flat):
-        if t.dim() != 1 or t.shape[0] != n or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError("gradip operands must be contiguous f32 [n]")
+    n = gp_flat.numel()
+    if (gp_flat.dim() != 1 or z_flat.dim() != 1 or z_flat.numel() != n
+            or gp_flat.dtype != torch.float32 or z_flat.dtype != torch.float32
+            or not (gp_flat.is_contiguous() and z_flat.is_contiguous())):
+        raise ValueError("gradip operands must be contiguous f32 [n]")
     lib = build.load()
-    scratch = torch.empty(_GRADIP_SCRATCH, dtype=torch.float32,
-                          device=gp_flat.device)
-    out = torch.empty(1, dtype=torch.float32, device=gp_flat.device)
+    stream = _stream(gp_flat)
+    key = (gp_flat.get_device(), stream)
+    scratch = _gradip_scratch.get(key) or _new_gradip_scratch(key)
+    out = torch.empty_like(scratch[1])
     rc = lib.gradip_reduce(gp_flat.data_ptr(), z_flat.data_ptr(), float(g),
-                           scratch.data_ptr(), out.data_ptr(), n,
-                           _stream(gp_flat.device))
+                           scratch[0], out.data_ptr(), n, stream)
     build.check(lib, rc, "gradip_reduce")
     gradip_flat.launches += 1
-    return out[0]
+    return out
+
+
+# (device index, raw stream) -> (pointer, 0-d f32 tensor): gradip_reduce's
+# scratch on that stream, the partial sums and the ticket of its
+# last-block-done reduction (gradip.cu), zeroed once; each call leaves the
+# ticket at 0 for the next on the stream, and two streams never share one.
+# The 0-d tensor, a view of the scratch, is what each call's output is
+# made like (``empty_like`` parses no device or dtype).  Eager launches
+# only: a graph replayed on another stream would share the capture
+# stream's ticket, so the launcher refuses a capturing stream, and no
+# scratch is made under capture (its zeroing would not run).
+_gradip_scratch = {}
+
+
+def _new_gradip_scratch(key) -> tuple:
+    with torch.cuda.device(key[0]):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("gradip_flat cannot be captured in a CUDA "
+                               "graph: its scratch is per stream")
+    words = plans.GRADIP_MAX_PARTIALS + 1  # the partials, then the ticket
+    scratch = torch.zeros(words + 1, dtype=torch.float32,
+                          device=torch.device("cuda", key[0]))
+    _gradip_scratch[key] = entry = (scratch.data_ptr(), scratch[words])
+    return entry
 
 
 def _lengths(lengths, B: int, S: int, device) -> torch.Tensor:
@@ -243,7 +282,7 @@ def _flash_fwd(q, k, v, L, window, softcap, causal):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), L.data_ptr(),
         out.data_ptr(), lse.data_ptr(), B, S, KV, G, hd, int(window),
         float(softcap), int(bool(causal)), float(hd ** -0.5),
-        int(q.dtype == torch.bfloat16), _stream(q.device))
+        int(q.dtype == torch.bfloat16), _stream(q))
     build.check(lib, rc, "flash_attn_fwd")
     flash_attention.launches += 1
     return out, lse
@@ -272,7 +311,7 @@ def flash_attention_bwd_dq(q, k, v, lengths, lse, delta, do, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         L.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S,
         KV, G, hd, int(window), float(softcap), int(bool(causal)),
-        float(hd ** -0.5), int(q.dtype == torch.bfloat16), _stream(q.device))
+        float(hd ** -0.5), int(q.dtype == torch.bfloat16), _stream(q))
     build.check(lib, rc, "flash_attn_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -302,7 +341,7 @@ def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
         L.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, S, KV, G, hd, int(window), float(softcap),
         int(bool(causal)), float(hd ** -0.5), int(q.dtype == torch.bfloat16),
-        _stream(q.device))
+        _stream(q))
     build.check(lib, rc, "flash_attn_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -411,7 +450,7 @@ def flash_decode(q, k, v, length, softcap: float = 0.0):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), L.data_ptr(),
         part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, S, KV, G,
         dh, DECODE_CHUNK, float(softcap), float(dh ** -0.5),
-        int(q.dtype == torch.bfloat16), _stream(q.device))
+        int(q.dtype == torch.bfloat16), _stream(q))
     build.check(lib, rc, "flash_decode")
     flash_decode.launches += 1
     return out
@@ -460,14 +499,14 @@ def mamba_scan(dt, B_in, C_in, x, A):
     h_last = torch.empty((Bsz, E, N), dtype=torch.float32, device=dt.device)
     rc = lib.mamba_scan(dt.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
                         x.data_ptr(), A.data_ptr(), y.data_ptr(),
-                        h_last.data_ptr(), Bsz, S, E, N, _stream(dt.device))
+                        h_last.data_ptr(), Bsz, S, E, N, _stream(dt))
     build.check(lib, rc, "mamba_scan")
     mamba_scan.launches += 1
     return y, h_last
 
 
 @_recorded(lambda n_sms, x, block_rows: plans.fixture_double(
-    *x.shape, block_rows))
+    *x.shape, block_rows, _aligned(x, 16)))  # y: from the caching allocator
 def fixture_double(x, block_rows: int):
     """x * 2 for x [rows, cols] f32, ``block_rows`` rows a block: the
     static analyzer's memory-ceiling fixture (``repro.analysis.fixtures``
@@ -486,8 +525,9 @@ def fixture_double(x, block_rows: int):
         raise ValueError("fixture_double takes a contiguous x")
     lib = build.load()
     out = torch.empty_like(x)
-    rc = lib.fixture_double(x.data_ptr(), out.data_ptr(), x.shape[0],
-                            x.shape[1], int(block_rows), _stream(x.device))
+    rows, cols = x.shape
+    rc = lib.fixture_double(x.data_ptr(), out.data_ptr(), rows, cols,
+                            int(block_rows), _stream(x))
     build.check(lib, rc, "fixture_double")
     fixture_double.launches += 1
     return out

@@ -68,15 +68,14 @@ GRADIP_THREADS, GRADIP_MAX_PARTIALS = 256, 1024
 
 
 def gradip_reduce(n: int, vec: bool):
-    """Partial sums (one f32 per warp of shared memory), then one block of
-    1024 threads summing them."""
+    """One launch: a block per 256 packs (of 4 when ``vec``) up to 1024
+    blocks, each with one f32 per warp of shared memory; the last block
+    to finish sums the partials (last-block-done)."""
     v = 4 if vec else 1
     blocks = max(1, min(_cdiv(n // v + n % v, GRADIP_THREADS),
                         GRADIP_MAX_PARTIALS))
-    return [Launch(f"gradip_partials<{v}>", (blocks, 1, 1), GRADIP_THREADS,
-                   4 * (GRADIP_THREADS // 32), 0),
-            Launch("gradip_finish", (1, 1, 1), GRADIP_MAX_PARTIALS,
-                   4 * (GRADIP_MAX_PARTIALS // 32), 0)]
+    return [Launch(f"gradip_reduce_kernel<{v}>", (blocks, 1, 1),
+                   GRADIP_THREADS, 4 * (GRADIP_THREADS // 32), 0)]
 
 
 # ------------------------------------------------- flash_attn(_bwd).cu -----
@@ -152,11 +151,15 @@ def mamba_scan(B: int, S: int, E: int, N: int):
 FIXTURE_THREADS = 256
 
 
-def fixture_double(rows: int, cols: int, block_rows: int):
+def fixture_double(rows: int, cols: int, block_rows: int, aligned: bool):
     """One block per ``block_rows`` rows; its input and output tiles in
-    dynamic shared memory, as the Pallas block held both refs in VMEM."""
-    return [Launch("fixture_double_kernel", (_cdiv(rows, block_rows), 1, 1),
-                   FIXTURE_THREADS, 0, 2 * 4 * block_rows * cols)]
+    dynamic shared memory, as the Pallas block held both refs in VMEM.
+    16-byte packs where ``cols % 4 == 0`` and both operands are 16-byte
+    ``aligned``, the same grid and bytes either way."""
+    v = 4 if aligned and cols % 4 == 0 else 1
+    return [Launch(f"fixture_double_kernel<{v}>",
+                   (_cdiv(rows, block_rows), 1, 1), FIXTURE_THREADS, 0,
+                   2 * 4 * block_rows * cols)]
 
 
 # ------------------------------------------------------------ the queries --
@@ -174,8 +177,8 @@ _QUERIES = {
         lib.flash_decode_plan(B, S, KVH, G, dh, chunk, int(bf16), out)),
     mamba_scan: lambda lib, out, B, S, E, N: lib.mamba_scan_plan(
         B, S, E, N, out),
-    fixture_double: lambda lib, out, rows, cols, block_rows: (
-        lib.fixture_double_plan(rows, cols, block_rows, out)),
+    fixture_double: lambda lib, out, rows, cols, block_rows, aligned: (
+        lib.fixture_double_plan(rows, cols, block_rows, int(aligned), out)),
 }
 MAX_LAUNCHES = 2
 

@@ -107,16 +107,23 @@ def _logsumexp_last(x):
 
 def lm_loss(params, batch, cfg: ModelConfig, ctx: ModelCtx = DEFAULT_CTX,
             aux_weight: float = 0.01, per_example: bool = False):
-    """Next-token cross-entropy: the mean over positions and examples, or
-    with ``per_example`` the [B] means over each example's positions (the
-    per-client losses of ``core/fl_step``); the MoE aux term is added to
-    each, as in the JAX package."""
+    """Next-token cross-entropy: the mean over examples of each example's
+    mean over its positions, or with ``per_example`` the [B] per-example
+    means (the per-client losses of ``core/fl_step``); the MoE aux term is
+    added to each, as in the JAX package.  With ``batch["loss_mask"]``
+    ([B, S]) an example's mean runs over the target positions its mask
+    keeps (``mask[:, 1:]``), and an example that keeps none gets 0."""
     logits, aux = forward(params, batch, cfg, ctx)
     targets = batch["tokens"][:, 1:].long()
     lg = logits[:, :-1]
     nll = _logsumexp_last(lg) - torch.gather(
         lg, -1, targets[..., None])[..., 0]
-    per_ex = nll.mean(-1)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[:, 1:].float()
+        per_ex = (nll * mask).sum(-1) / mask.sum(-1).clamp(min=1.0)
+    else:
+        per_ex = nll.mean(-1)
     if per_example:
         return per_ex + aux_weight * aux
     return per_ex.mean() + aux_weight * aux

@@ -264,7 +264,7 @@ def test_plans_match_the_launchers_arithmetic():
     assert plans.zo_update(1023, False, False, True, True)[0].grid == \
         (2, 1, 1)
     assert [x.grid for x in plans.gradip_reduce(1_235_814, True)] == \
-        [(1024, 1, 1), (1, 1, 1)]
+        [(1024, 1, 1)]
     # every kernel at the main paths' shapes fits a Hopper block
     for launches in (plans.flash_attn_fwd(16, 512, 8, 4, 64, False),
                      plans.flash_attn_fwd(2, 4208, 4, 2, 256, True),
@@ -272,8 +272,47 @@ def test_plans_match_the_launchers_arithmetic():
                      plans.flash_attn_bwd(4, 512, 8, 4, 128, False, True),
                      plans.flash_decode(2, 4352, 4, 2, 256, 256, False),
                      plans.mamba_scan(4, 512, 16384, 16),
-                     plans.fixture_double(128, 128, 128)):
+                     plans.fixture_double(128, 128, 128, True)):
         assert all(x.shared_bytes <= plans.H100_SMEM_OPTIN for x in launches)
+
+
+@pytest.mark.parametrize("n,vec,blocks", [
+    (0, True, 1), (1, True, 1), (777, False, 4), (777, True, 1),
+    (1_235_814, False, 1024), (1_235_814, True, 1024), (300_000, True, 293),
+    (10_000_000, True, 1024)])
+def test_gradip_plan_is_one_launch_set_by_n_and_alignment(n, vec, blocks):
+    """gradip_reduce is one launch (last-block-done) whose grid, and so the
+    order of its additions, follows from n and the operands' alignment
+    alone: the same for any card (no SM count enters it)."""
+    (l,) = plans.gradip_reduce(n, vec)
+    assert l.kernel == f"gradip_reduce_kernel<{4 if vec else 1}>"
+    assert l.grid == (blocks, 1, 1) and l.threads == 256
+    assert (l.static_smem, l.dynamic_smem) == (32, 0)
+    assert plans.gradip_reduce(n, vec) == [l]
+
+
+@pytest.mark.parametrize("offset,cols,v", [(0, 128, 4), (1, 128, 1),
+                                           (0, 130, 1)])
+def test_fixture_double_records_the_instantiation_it_launches(offset, cols,
+                                                              v):
+    """The recorded plan names the kernel the launcher takes: 16-byte packs
+    only for a 16-byte aligned x with cols % 4 == 0; grid and shared bytes
+    the same either way."""
+    x = torch.zeros(128 * cols + offset)[offset:].view(128, cols)
+    trace = record(lambda x: ops.fixture_double(x, 32), (x,))
+    (l,) = [l for r in trace.records if r.kind == "kernel"
+            for l in r.launches]
+    assert l.kernel == f"fixture_double_kernel<{v}>"
+    assert l == plans.fixture_double(128, cols, 32, v == 4)[0]
+    assert (l.grid, l.dynamic_smem) == ((4, 1, 1), 2 * 4 * 32 * cols)
+
+
+def test_on_cpu_reads_flags_and_refuses_mixed_devices():
+    a = torch.ones(3)
+    assert ops._on_cpu(a) and ops._on_cpu(a, None, a) and ops._on_cpu(None, a)
+    for ts in ((a, torch.ones(3, device="meta")), (None,)):
+        with pytest.raises(ValueError, match="share one CPU or CUDA"):
+            ops._on_cpu(*ts)
 
 
 # ------------------------------------------------------------ registry ------

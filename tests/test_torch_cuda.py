@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions on the card (small shapes
 and every variant).  Marked ``cuda``: skipped where there is no card; run
 them on a GPU machine with ``python -m pytest -q -m cuda tests/``."""
+import ctypes
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -56,11 +58,43 @@ def test_elementwise_kernels_unaligned_views(dev):
 @pytest.mark.parametrize("n", [1, 777, 1_235_814, 10_000_000])
 def test_gradip_kernel_matches_plain(dev, n):
     gp, z, _ = _flat(n, torch.float32, dev, n + 1)
+    before = ops.gradip_flat.launches
     got = ops.gradip_flat(gp, z, 1.7)
+    assert got.shape == () and got.dtype == torch.float32
+    assert ops.gradip_flat.launches == before + 1
     want = ref.gradip_reduce_ref(gp, z, 1.7)
     scale = 1.7 * float((gp * z).abs().sum())
     assert abs(float(got) - float(want)) <= 1e-5 * scale
-    assert float(ops.gradip_flat(gp, z, 1.7)) == float(got)  # deterministic
+    # deterministic: bit-equal over repeats, and over calls from two streams
+    # at once (each stream has its own scratch and ticket)
+    for _ in range(3):
+        assert torch.equal(ops.gradip_flat(gp, z, 1.7), got)
+    main = torch.cuda.current_stream(dev)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(main)
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(ops.gradip_flat(gp, z, 1.7))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, got) for o in outs)
+    assert ops.gradip_flat.launches == before + 4 + len(outs)
+
+
+def test_gradip_refuses_graph_capture(dev):
+    """A graph would replay one stream's scratch and ticket on any stream:
+    capture is refused with nothing launched, before a stream has its
+    scratch and after, and the next eager call is right."""
+    gp, z, _ = _flat(4096, torch.float32, dev, 5)
+    want = ops.gradip_flat(gp, z, 1.7)
+    refusals = chip_smoke.gradip_capture_refusals(torch, ops, gp, z)
+    assert len(refusals) == 2
+    assert all(r is not None and "captur" in r for r in refusals)
+    assert torch.equal(ops.gradip_flat(gp, z, 1.7), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -322,18 +356,53 @@ def test_mamba_scan_rejects_what_the_kernel_does_not_take(dev):
         ops.mamba_scan(dt.requires_grad_(True), Bi, Ci, x, A)
 
 
+def _fixture_smem_state():
+    """(dynamic shared bytes granted to the 16-byte kernel on this device,
+    cudaFuncSetAttribute calls made so far) of fixture_double's launcher."""
+    from repro_torch.kernels import build
+    out = (ctypes.c_longlong * 3)()
+    assert build.load().fixture_double_smem_state(out) == 0
+    return out[1], out[2]
+
+
 def test_fixture_double_matches_plain_and_refuses_one_big_block(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn(128, 128, generator=g, device=dev)
-    for block_rows in (128, 50, 1):
-        assert torch.equal(ops.fixture_double(x, block_rows),
-                           ref.fixture_double_ref(x))
+    want = ref.fixture_double_ref(x)
+    # blocks of 32 rows, then 128 (the high-water mark rises), then 50 and
+    # 1 (it is reused: no cudaFuncSetAttribute)
+    for block_rows in (32, 128, 50, 1):
+        granted0, sets0 = _fixture_smem_state()
+        need = 2 * 4 * block_rows * 128
+        assert torch.equal(ops.fixture_double(x, block_rows), want)
+        assert _fixture_smem_state() == (max(granted0, need),
+                                         sets0 + (need > granted0))
+    granted, sets = _fixture_smem_state()
+    assert granted >= 2 * 4 * 128 * 128
     before = ops.fixture_double.launches
     with pytest.raises(RuntimeError, match="fixture_double"):
         ops.fixture_double(torch.ones(2048, 2048, device=dev), 2048)
     assert ops.fixture_double.launches == before
+    # asked once and refused: the mark stays where the runtime left it
+    assert _fixture_smem_state() == (granted, sets + 1)
     # the refused size leaves no error behind for the next launch
-    assert torch.equal(ops.fixture_double(x, 128), x * 2.0)
+    assert torch.equal(ops.fixture_double(x, 128), want)
+    assert _fixture_smem_state() == (granted, sets + 1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("layout", ["cols130", "unaligned"])
+def test_fixture_double_scalar_path(dev, layout):
+    """The scalar kernel: cols not a multiple of 4, or x not 16-byte
+    aligned; bit-equal in one block and in ragged blocks."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    if layout == "cols130":
+        x = torch.randn(96, 130, generator=g, device=dev)
+    else:
+        x = torch.randn(1 + 96 * 128, generator=g, device=dev)[1:].view(
+            96, 128)
+    for block_rows in (96, 50, 7):
+        assert torch.equal(ops.fixture_double(x, block_rows), x * 2.0)
     torch.cuda.synchronize()
 
 
