@@ -15,7 +15,9 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 one exists, the PyTorch library call that computes the
                 same function; the two host-bound kernels (gradip_flat,
                 fixture_double) in turns with their library call, with
-                the host time of their wrappers' pieces;
+                the host time of their wrappers' pieces, and the flash
+                backward pair (dQ + dK/dV) in turns with SDPA's f32
+                backward, against both its f32 and its 3xTF32 bound;
 4. slice        MEERKAT-VP on full-size Llama-3.2-1B (random weights from a
                 seed): sensitivity mask and pre-training gradient through
                 the flash kernels' backward, held against the dense
@@ -38,6 +40,11 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 past the 4096-position window (rolling local cache) and one
                 short one, prefilled together through the flash forward at
                 head_dim 256, with the same checks but the naive engine's;
+7b. grad_gemma  the same model under autograd: the sensitivity mask and
+                one pre-training gradient of 1 x 4352 tokens (past the
+                window) through the flash kernels' backward at head_dim
+                256, held against the dense attention route (per-leaf
+                gradient, mask overlap);
 8. slice_jamba  MEERKAT-VP on Jamba-1.5-Large at full width, cut to 4
                 layers (attention + 3 Mamba, no experts: 4.9 B parameters):
                 mask and pre-training gradient (the Mamba layers on the
@@ -113,6 +120,9 @@ SERVE_SLOTS, SERVE_S_MAX, SERVE_BUCKET = 8, 2048, 16
 SERVE_REQUESTS, SERVE_PROMPT_LENS, SERVE_NEW = 24, (32, 1536), (16, 96)
 # Gemma-2-2b, 2 periods at full width: one prompt past the 4096 window
 GEMMA_PROMPTS, GEMMA_NEW, GEMMA_S_MAX = (4200, 100), 32, 4352
+# ... and under autograd (phase grad_gemma): the mask and one gradient of a
+# 1 x 4352-token batch, past the window, so the local layers mask
+GEMMA_GRAD_TOKENS = 4352
 # an engine token must be within this share of max |logit| of the largest
 # logit of the request replayed alone; the kernel and ref decode routes'
 # logits within this share of the largest
@@ -125,7 +135,12 @@ GRAD_REL_BOUND = 2e-3
 MASK_OVERLAP_MIN = 0.999
 # backward kernels against their plain versions: both compute in f32 from
 # the same (widened) operands, summing up to S*G terms in another order
+# (the kernels' products as 3xTF32 on the tensor cores, f32-accurate)
 BWD_REL_TOL = 1e-4
+# the backward variant grid's (G, head_dim): Llama's and Jamba's layouts,
+# a G that does not divide the 64-row tile, and Gemma-2's head_dim 256
+BWD_LAYOUTS = ((1, 64), (4, 64), (1, 128), (4, 128), (6, 64), (1, 256),
+               (2, 256))
 # decode kernel against its plain version, of the largest entry: f32 splits
 # merged in another order than one softmax; bf16 one rounding of the result
 DECODE_REL_TOL = {"f32": 1e-5, "bf16": 8e-3}
@@ -180,6 +195,9 @@ Z_F64_ABS = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 SM_CLOCK_HZ = 1.98e9
 F32_FLOP_PER_S = 67e12
+# the dense TF32 rate of the tensor cores (the same data sheet): the flash
+# backward kernels run each f32 product as three TF32 products (3xTF32)
+TF32_FLOP_PER_S = 495e12
 # exponentials: 16 a clock per SM on the special-function units (NVIDIA's
 # arithmetic-instruction throughput table, compute capability 9.0), at the
 # clock of the f32 rate above
@@ -206,6 +224,10 @@ KERNEL_SOURCES = {
     "fixture_double": ("src/repro_torch/kernels/csrc/fixture_double.cu",
                        "src/repro/analysis/fixtures.py:182"),
 }
+# fields a kernel row carries into the kernels line beside the required
+# ones, all measured in the run but bounds: the flash backward's pair timed
+# in turns with SDPA, and its Gemma-2 (head_dim 256) instance
+KERNEL_LINE_EXTRAS = ("pair_ms_in_turns", "gemma")
 # the variant grid of the flash kernels: (S, window, softcap, lengths)
 FLASH_VARIANTS = ((128, 0, 0.0, None),       # causal
                   (200, 0, 0.0, (200, 77)),  # ragged S, lengths
@@ -306,9 +328,9 @@ def host_us(fn, iters: int = 200, reps: int = 5) -> float:
     return statistics.median(per)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, flop_per_s: float = F32_FLOP_PER_S):
     mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    op_ms = n_ops / F32_FLOP_PER_S * 1e3
+    op_ms = n_ops / flop_per_s * 1e3
     return max(mem_ms, op_ms), ("bytes" if mem_ms >= op_ms else "operations")
 
 
@@ -597,10 +619,13 @@ def check_flash_prefill(torch, ops, ref, dev, cfg, lengths):
                f"softcap {cfg.attn_softcap}", **out)
 
 
-def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int):
+def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int, gemma):
     """The dQ and dK/dV kernels against their plain versions on the same
     (q, k, v, lengths, lse, delta, dO), bit-equal over two calls, over the
-    variant grid and at the first-order shape."""
+    variant grid, at the first-order shape and at Gemma-2's head_dim-256
+    shape (``gemma``: its local and global layers); the pair timed in
+    turns with SDPA's f32 backward; the kernels' record of their blocks
+    (balance) and the one-pass TF32 control (precision) on the card."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(4)
 
@@ -624,7 +649,7 @@ def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int):
 
     n_var, worst = 0, 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for G, dh in ((1, 64), (4, 64), (1, 128), (4, 128), (6, 64)):
+        for G, dh in BWD_LAYOUTS:
             for S, window, softcap, lens in FLASH_VARIANTS:
                 kw = dict(window=window, softcap=softcap, causal=True)
                 args = inputs(2, S, 2, G, dh, dtype, lens, window, softcap)
@@ -643,9 +668,10 @@ def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int):
                 n_var += 1
     emit("kernels.flash_bwd_variants", ok=True, checked=n_var,
          max_rel_err=worst, tol=BWD_REL_TOL, repeat_bit_equal=True,
-         grid="{f32,bf16} x (G,dh) in {(1,64),(4,64),(1,128),(4,128),(6,64)}"
-              " x {causal; ragged S with lengths; window; window+softcap+"
-              "lengths with a length-1 row}")
+         grid="{f32,bf16} x (G,dh) in {" + ",".join(
+             f"({G},{dh})" for G, dh in BWD_LAYOUTS) + "} x {causal; ragged "
+         "S with lengths; window; window+softcap+lengths with a length-1 "
+         "row}")
 
     # the first-order shape: one attention layer of a B x 512 backward
     B, S = batch, SEQ_LEN
@@ -660,38 +686,195 @@ def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int):
         fail(f"flash backward differs from plain at the first-order shape: "
              f"dQ, dK, dV {errs}")
     abs_errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    # the kernels' own record of their blocks, and the one-pass TF32
+    # control, which must miss the tolerance the 3xTF32 split keeps
+    blocks = bwd_blocks(torch, ops, args, kw, got, (B, KV))
+    one_pass = bwd_one_pass(ops, args, kw, want, rel_err)
     del got, want
-    live = int(ref.attention_valid(S, L, window=0, causal=True).sum()) \
-        * KV * G                                   # live (query, key) pairs
-    read = 4.0 * (q.numel() + k.numel() + v.numel() + do.numel()
-                  + lse.numel() + delta.numel() + L.numel())
-    # the library yardstick: SDPA's f32 backward (dQ, dK and dV in one call)
+    dkv_tiles = blocks["flash_attention_bwd_dkv"]
+    if dkv_tiles["tiles_max"] > 1.2 * dkv_tiles["tiles_mean"]:
+        fail(f"dK/dV blocks walk unevenly: {dkv_tiles}")
+    if not blocks["flash_attention_bwd_dq"]["heaviest_first"]:
+        fail("dQ does not launch its heaviest query tiles first")
+    if max(one_pass) <= BWD_REL_TOL:
+        fail(f"the one-pass TF32 control is within {BWD_REL_TOL}: "
+             f"{one_pass}, so the gate cannot tell the split's precision")
+    emit("kernels.flash_bwd_one_pass", ok=True, tol=BWD_REL_TOL,
+         one_pass_rel_err=one_pass, three_pass_rel_err=errs,
+         shape=f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}")
+    # the library yardstick: SDPA's f32 backward (dQ, dK and dV in one
+    # call), replayed on one recorded forward
     qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
     doh = do.transpose(1, 2).contiguous()
-    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
-                                                  enable_gqa=True)
-    lib_ms = timed(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh),
-                   20) - timed(sdpa, 20)
+    o_sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                            enable_gqa=True)
+    pair = timed_turns(
+        lambda: (ops.flash_attention_bwd_dq(*args, **kw),
+                 ops.flash_attention_bwd_dkv(*args, **kw)),
+        lambda: torch.autograd.grad(o_sdpa, (qh, kh, vh), doh,
+                                    retain_graph=True), 10)
+    del o_sdpa, qh, kh, vh, doh
+    emit("kernels.flash_bwd_pair", ok=True,
+         shape=f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}",
+         pair_ms=pair["ms"], sdpa_backward_ms=pair["library_ms"],
+         pair_at_or_under_sdpa=pair["ms"] <= pair["library_ms"],
+         pair_ms_turns=pair["ms_turns"],
+         sdpa_backward_ms_turns=pair["library_ms_turns"], turns=TURNS)
     shape = f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}"
-    out = {}
-    for name, n_ops, n_out, sl, fn, plain in (
-            ("flash_attention_bwd_dq", 6.0, q.numel(), slice(0, 1),
+    gem = check_flash_bwd_gemma(torch, ops, ref, dev, gemma, inputs, both,
+                                rel_err)
+    # the launchers set the shared-memory attribute only through their
+    # high-water mark: at most once for each of the 12 instantiations
+    # (dQ and dK/dV, f32 and bf16, head_dim 64, 128, 256) in all the
+    # launches above
+    sets = bwd_attribute_sets()
+    if sets > 12:
+        fail(f"the flash backward set its shared-memory attribute {sets} "
+             f"times")
+    emit("kernels.flash_bwd_attribute", ok=True, attribute_sets=sets,
+         instantiations=12)
+    out, detail = {}, {}
+    for name, dkv, n_ops, sl, fn, plain in (
+            ("flash_attention_bwd_dq", False, 6.0, slice(0, 1),
              ops.flash_attention_bwd_dq, ref.flash_attn_bwd_dq_ref),
-            ("flash_attention_bwd_dkv", 8.0, k.numel() + v.numel(),
-             slice(1, 3), ops.flash_attention_bwd_dkv,
-             ref.flash_attn_bwd_dkv_ref)):
-        n_bytes = read + 4.0 * n_out
+            ("flash_attention_bwd_dkv", True, 8.0, slice(1, 3),
+             ops.flash_attention_bwd_dkv, ref.flash_attn_bwd_dkv_ref)):
+        flop, n_bytes = bwd_work(ref, q, k, L, dkv, n_ops, 0)
         # per live pair: QK^T and dO V^T (2 FMA x dh each), then dS K for
-        # dQ, or P^T dO and dS^T Q for dK/dV
-        b_ms, b_by = bound(n_bytes, n_ops * dh * live)
+        # dQ, or P^T dO and dS^T Q for dK/dV; the kernels run each product
+        # as 3xTF32, so their bound is three times that on the tensor
+        # cores, and the f32 CUDA cores' a side figure
+        tf_ms, tf_by = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
+        f32_ms, f32_by = bound(n_bytes, flop)
+        row = kernel_times(lambda: fn(*args, **kw), 10)
         out[name] = dict(
             max_abs_err=max(abs_errs[sl]), max_rel_err=max(errs[sl]),
-            bound_ms=b_ms, bound_by=b_by,
-            **kernel_times(lambda: fn(*args, **kw), 10),
+            bound_ms=tf_ms, bound_by=tf_by, **row,
             plain_ms=timed(lambda: plain(*args, **kw), 5),
-            library_ms=lib_ms, shape=shape,
-            gflop=n_ops * dh * live / 1e9, mbytes=n_bytes / 1e6)
+            library_ms=pair["library_ms"], pair_ms_in_turns=pair["ms"],
+            gemma={layer: {k_: r[k_] for k_ in (
+                "shape", "max_rel_err", "ms", "bound_ms", "bound_by")}
+                for layer, r in gem[name].items()})
+        detail[name] = dict(
+            shape=shape, ms=row["ms"], bound_3xtf32_ms=tf_ms,
+            bound_3xtf32_by=tf_by, share_of_3xtf32_bound=tf_ms / row["ms"],
+            bound_f32_ms=f32_ms, bound_f32_by=f32_by,
+            share_of_f32_bound=f32_ms / row["ms"], gflop=flop / 1e9,
+            mbytes=n_bytes / 1e6, **blocks[name])
+    emit("kernels.flash_bwd_bounds", ok=True, **detail)
+    emit("kernels.flash_bwd_gemma", ok=True, **gem)
+    return out
+
+
+def bwd_blocks(torch, ops, args, kw, got, lead) -> dict:
+    """Both backward kernels' record of their blocks on ``args``
+    (``ops.flash_attention_bwd_probe``, outputs bit-equal to the wrapped
+    launches' ``got``: dQ, dK, dV): max over mean of the tiles the blocks
+    walked and of the SM clocks they took, and whether dQ's blocks walk
+    no fewer tiles than the next ones launched (``lead``: the grid's (B,
+    KV) before its tile axis)."""
+    out = {}
+    for name, dkv, sl in (("flash_attention_bwd_dq", False, slice(0, 1)),
+                          ("flash_attention_bwd_dkv", True, slice(1, 3))):
+        res, rec = ops.flash_attention_bwd_probe(*args, dkv=dkv, **kw)
+        res = res if dkv else (res,)
+        if not all(torch.equal(a, b) for a, b in zip(res, got[sl])):
+            fail(f"{name}: the probe launch differs from the wrapped one")
+        tiles, clocks = rec[:, 0].double(), rec[:, 1].double()
+        out[name] = dict(
+            blocks=rec.shape[0], tiles_max=int(tiles.max()),
+            tiles_mean=float(tiles.mean()),
+            tiles_max_over_mean=float(tiles.max() / tiles.mean()),
+            clocks_max_over_mean=float(clocks.max() / clocks.mean()))
+        if not dkv:
+            by_launch = rec[:, 0].reshape(*lead, -1)
+            out[name]["heaviest_first"] = bool(
+                (by_launch[..., 1:] <= by_launch[..., :-1]).all())
+    return out
+
+
+def bwd_one_pass(ops, args, kw, want, rel_err) -> list:
+    """dQ, dK, dV of the kernels' one-pass TF32 control
+    (``ops.flash_attention_bwd_probe``) against the plain version's
+    ``want``: the error the 3xTF32 split removes."""
+    dq, _ = ops.flash_attention_bwd_probe(*args, dkv=False, one_pass=True,
+                                          **kw)
+    (dk, dv), _ = ops.flash_attention_bwd_probe(*args, dkv=True,
+                                                one_pass=True, **kw)
+    return rel_err((dq, dk, dv), want)
+
+
+def bwd_attribute_sets() -> int:
+    """cudaFuncSetAttribute calls the flash backward's launchers made in
+    this process (csrc/flash_attn_bwd.cu, flash_attn_bwd_smem_state)."""
+    import ctypes
+    from repro_torch.kernels import build
+    out = (ctypes.c_longlong * 2)()
+    rc = build.load().flash_attn_bwd_smem_state(0, 64, 0, out)
+    if rc:
+        fail(f"flash_attn_bwd_smem_state: CUDA error {rc}")
+    return out[1]
+
+
+def bwd_work(ref, q, k, L, dkv: bool, n_ops: float, window: int):
+    """(FLOP, bytes) of one backward kernel call: ``n_ops * dh`` per live
+    (query, key) pair; q, k, v, dO, lse, delta and lengths read once
+    (f32), dQ or dK and dV written once."""
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    live = int(ref.attention_valid(S, L, window=window, causal=True).sum()) \
+        * H                                        # live (query, key) pairs
+    read = 4.0 * (2 * q.numel() + 2 * k.numel() + 2 * B * KV * S
+                  * (H // KV) + L.numel())
+    written = 4.0 * (2 * k.numel() if dkv else q.numel())
+    return n_ops * dh * live, read + written
+
+
+def check_flash_bwd_gemma(torch, ops, ref, dev, cfg, inputs, both, rel_err):
+    """Both backward kernels at Gemma-2-2b's attention shape (head_dim 256,
+    G 2, softcap) for the grad_gemma phase's B = 1 x GEMMA_GRAD_TOKENS: the
+    local layers' window and the global layers' causal mask; against the
+    plain version within BWD_REL_TOL, timed, with their record of their
+    blocks, and on the global mask the one-pass TF32 control."""
+    B, S = 1, GEMMA_GRAD_TOKENS
+    KV, G, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    out = {"flash_attention_bwd_dq": {}, "flash_attention_bwd_dkv": {}}
+    for layer, window in (("local", cfg.sliding_window), ("global", 0)):
+        kw = dict(window=window, softcap=cfg.attn_softcap, causal=True)
+        args = inputs(B, S, KV, G, dh, torch.float32, None, window,
+                      cfg.attn_softcap)
+        got, want = both(args, kw)
+        errs = rel_err(got, want)
+        if max(errs) > BWD_REL_TOL:
+            fail(f"flash backward differs from plain at the gemma shape "
+                 f"({layer}): dQ, dK, dV {errs}")
+        blocks = bwd_blocks(torch, ops, args, kw, got, (B, KV))
+        one_pass = bwd_one_pass(ops, args, kw, want, rel_err) \
+            if layer == "global" else None
+        del got, want
+        q, k, _, L = args[:4]
+        for name, dkv, n_ops, sl, fn in (
+                ("flash_attention_bwd_dq", False, 6.0, slice(0, 1),
+                 ops.flash_attention_bwd_dq),
+                ("flash_attention_bwd_dkv", True, 8.0, slice(1, 3),
+                 ops.flash_attention_bwd_dkv)):
+            flop, n_bytes = bwd_work(ref, q, k, L, dkv, n_ops, window)
+            tf_ms, tf_by = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
+            f32_ms, _ = bound(n_bytes, flop)
+            ms = timed(lambda: fn(*args, **kw), 3)
+            out[name][layer] = dict(
+                shape=f"q [{B},{S},{KV * G},{dh}] f32, G={G}, softcap "
+                      f"{cfg.attn_softcap}, window {window}",
+                max_rel_err=max(errs[sl]), ms=ms, bound_ms=tf_ms,
+                bound_by=tf_by, share_of_3xtf32_bound=tf_ms / ms,
+                bound_f32_ms=f32_ms, share_of_f32_bound=f32_ms / ms,
+                gflop=flop / 1e9, **blocks[name],
+                **({} if one_pass is None else
+                   {"one_pass_rel_err": max(one_pass[sl])}))
+        del args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1428,6 +1611,89 @@ def run_serve_gemma(torch, dev, cfg):
                      naive_reqs=(), label="serve_gemma")
 
 
+def run_grad_gemma(torch, dev, cfg):
+    """Gemma-2-2b at full width, 2 periods (4 layers), under autograd: the
+    sensitivity mask and one pre-training gradient of a 1 x
+    GEMMA_GRAD_TOKENS batch, past the 4096-position window, on the auto
+    attention route (the flash kernels, backward at head_dim 256 with
+    softcap and, on the local layers, the window), held against the dense
+    route: per leaf within GRAD_REL_BOUND, the masks overlapping by
+    MASK_OVERLAP_MIN.  Returns (launch counts of the kernel-route passes,
+    the counts they imply)."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.core.gradip import grad_tree
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ModelCtx
+    from repro_torch.models.layers import resolve_attn_backend
+
+    on_card = dev.type == "cuda"
+    phase_done, times, peaks, resident = phase_clock(torch, on_card)
+    t0 = time.perf_counter()
+    route = resolve_attn_backend("auto", cfg, S=GEMMA_GRAD_TOKENS,
+                                 differentiable=True)
+    if route != "kernel":
+        fail(f"grad_gemma: the auto route under autograd is {route!r}")
+    model = Model(cfg, ModelCtx(attn_backend="auto"), device=dev)
+    dense = Model(cfg, ModelCtx(attn_backend="dense"), device=dev)
+    params = model.init(seed=SEED)
+    rng = np.random.default_rng(SEED + 2)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (1, GEMMA_GRAD_TOKENS))
+             .astype(np.int32)}
+    phase_done("setup", t0)
+
+    ops.reset_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    space = C.sensitivity_mask(lambda p, b: model.loss(p, b), params,
+                               [batch], density=DENSITY, device=dev)
+    phase_done("mask_kernel", t0)
+    t0 = time.perf_counter()
+    gk = grad_tree(lambda p, b: model.loss(p, b), params, batch)
+    phase_done("grad_kernel", t0)
+    counts = ops.launches()  # the main path ends here
+
+    t0 = time.perf_counter()
+    dense_space = C.sensitivity_mask(lambda p, b: dense.loss(p, b), params,
+                                     [batch], density=DENSITY, device=dev)
+    overlap = mask_overlap(torch, space, dense_space, params)
+    del dense_space
+    phase_done("mask_dense", t0)
+    t0 = time.perf_counter()
+    gd = grad_tree(lambda p, b: dense.loss(p, b), params, batch)
+    grad_rel = {
+        name: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        for (name, a), (_, b) in zip(named_leaves(gk), named_leaves(gd))}
+    finite = all(bool(torch.isfinite(g).all()) for _, g in named_leaves(gk))
+    del gk, gd
+    phase_done("grad_dense", t0)
+
+    n_grads = 2  # the mask's batch and the gradient's
+    expected = {name: 0 for name in counts}
+    expected.update({"flash_attention": cfg.n_layers * n_grads,
+                     "flash_attention_bwd_dq": cfg.n_layers * n_grads,
+                     "flash_attention_bwd_dkv": cfg.n_layers * n_grads})
+    emit("grad_gemma", model=cfg.name, n_layers=cfg.n_layers,
+         tokens=GEMMA_GRAD_TOKENS, window=cfg.sliding_window,
+         softcap=cfg.attn_softcap, head_dim=cfg.resolved_head_dim,
+         route=route, mask_coords=space.n, launches=counts,
+         expected_launches=expected, finite=finite,
+         mask_overlap_kernel_vs_dense=overlap,
+         mask_overlap_min=MASK_OVERLAP_MIN,
+         grad_rel_kernel_vs_dense=grad_rel,
+         grad_rel_max=max(grad_rel.values()), grad_rel_bound=GRAD_REL_BOUND,
+         times_s=times, peak_gb=peaks, resident_gb=resident)
+    if not finite:
+        fail("non-finite gradient in grad_gemma")
+    if max(grad_rel.values()) > GRAD_REL_BOUND:
+        fail(f"grad_gemma: kernel-route gradient differs from the dense "
+             f"route's: {grad_rel} > {GRAD_REL_BOUND}")
+    if overlap < MASK_OVERLAP_MIN:
+        fail(f"grad_gemma: kernel-route mask overlaps the dense-route mask "
+             f"by {overlap}")
+    return counts, expected
+
+
 # ------------------------------------------------------------------ hybrid --
 def run_slice_jamba(torch, dev, cfg):
     """MEERKAT-VP on the hybrid ``cfg`` through the port's public API: one
@@ -1691,6 +1957,9 @@ def plan_cases(n_flat: int, n_mask: int):
                                       bf16=True))]
     cases += [(P.flash_attn_bwd, dict(**a, bf16=False, dkv=d))
               for a in attn for d in (False, True)]
+    cases += [(P.flash_attn_bwd, dict(B=1, S=GEMMA_GRAD_TOKENS, KVH=4, G=2,
+                                      dh=256, bf16=b, dkv=d))
+              for b in (False, True) for d in (False, True)]  # grad_gemma
     cases += [(P.flash_decode, dict(B=SERVE_SLOTS, S=SERVE_S_MAX, KVH=8, G=4,
                                     dh=64, chunk=256, bf16=False)),
               (P.flash_decode, dict(B=2, S=4096, KVH=4, G=2, dh=256,
@@ -2135,7 +2404,8 @@ def main() -> int:
     gemma = GEMMA2_2B.replace(n_layers=GEMMA2_2B.period * 2)
     rows.update(check_flash(torch, ops, ref, dev, LLAMA32_1B, CLIENT_BATCH))
     check_flash_prefill(torch, ops, ref, dev, gemma, GEMMA_PROMPTS)
-    rows.update(check_flash_bwd(torch, ops, ref, dev, LLAMA32_1B, FO_BATCH))
+    rows.update(check_flash_bwd(torch, ops, ref, dev, LLAMA32_1B, FO_BATCH,
+                                gemma))
     rows.update(check_flash_decode(torch, ops, ref, dev, LLAMA32_1B,
                                    SERVE_SLOTS, SERVE_S_MAX, gemma))
     rows.update(check_mamba_scan(torch, ops, ref, dev))
@@ -2151,6 +2421,7 @@ def main() -> int:
                             ("first_order", run_first_order, LLAMA32_1B),
                             ("serve", run_serve_llama, LLAMA32_1B),
                             ("serve_gemma", run_serve_gemma, gemma),
+                            ("grad_gemma", run_grad_gemma, gemma),
                             ("slice_jamba", run_slice_jamba, SLICE_CUT),
                             ("jamba_moe", run_jamba_moe, moe_layer),
                             ("analysis", run_analysis_phase, LLAMA32_1B)):
@@ -2174,7 +2445,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        "enqueue_ms": r["enqueue_ms"]})
+                        "enqueue_ms": r["enqueue_ms"],
+                        **{k: r[k] for k in KERNEL_LINE_EXTRAS if k in r}})
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=time.perf_counter() - t_start)
     print(card, flush=True)

@@ -40,6 +40,9 @@ SIGNATURES = {
                            _I, _I, _F, _I, _F, _I, _P], _I),
     "flash_attn_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _F, _I, _F, _I, _P], _I),
+    "flash_attn_bwd_probe": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P,
+                              _P], _I),
     "flash_decode": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                       _F, _I, _P], _I),
     "mamba_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
@@ -52,8 +55,10 @@ SIGNATURES = {
     "flash_decode_plan": ([_I, _I, _I, _I, _I, _I, _I, _P], _I),
     "mamba_scan_plan": ([_I, _I, _I, _I, _P], _I),
     "fixture_double_plan": ([_I, _I, _I, _I, _P], _I),
-    # fixture_double's launcher state: granted shared bytes, attribute calls
+    # launcher state: granted shared bytes, attribute calls
     "fixture_double_smem_state": ([_P], _I),
+    # the flash backward's grant: one instantiation's bytes, attribute calls
+    "flash_attn_bwd_smem_state": ([_I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,10 +1,14 @@
-// Shared helpers of the port's kernels: element conversion and packed
-// vector access.  Compiled for sm_90a; every entry point is extern "C" and
-// returns the cudaError_t of its launch (0 when the launch was accepted).
+// Shared helpers of the port's kernels: element conversion, packed vector
+// access, launch plans and the dynamic shared-memory grant.  Compiled for
+// sm_90a; every entry point is extern "C" and returns the cudaError_t of
+// its launch (0 when the launch was accepted).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <mutex>
 
 namespace repro {
 
@@ -84,5 +88,53 @@ inline int write_plans(const LaunchPlan* lps, int n, long long* out) {
   }
   return 0;
 }
+
+constexpr int kMaxDevices = 64;
+
+// Per device and kernel instantiation (0 .. N-1): the most dynamic shared
+// bytes the runtime has accepted for the kernel.  A launcher asks the
+// runtime (cudaFuncSetAttribute) only for a size past the mark, so a steady
+// caller pays no attribute call.  The mark is read without a lock on every
+// launch and raised under the lock after the runtime accepts, so it never
+// exceeds the attribute that is set.  One object per source file: its
+// kernels' instantiations are numbered by that file.
+template <int N>
+struct SmemGrants {
+  std::atomic<long long> granted[kMaxDevices][N];
+  std::atomic<long long> sets;  // cudaFuncSetAttribute calls, refused too
+  std::mutex lock;
+
+  cudaError_t grant(const void* fn, int inst, size_t bytes) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const long long want = (long long)bytes;
+    const bool tracked = dev >= 0 && dev < kMaxDevices;
+    if (tracked && want <= granted[dev][inst].load(std::memory_order_acquire))
+      return cudaSuccess;
+    std::lock_guard<std::mutex> hold(lock);
+    if (tracked && want <= granted[dev][inst].load(std::memory_order_relaxed))
+      return cudaSuccess;
+    sets.fetch_add(1, std::memory_order_relaxed);
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)want);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // a refused size leaves no error behind
+      return e;
+    }
+    if (tracked) granted[dev][inst].store(want, std::memory_order_release);
+    return cudaSuccess;
+  }
+
+  // The bytes granted to instantiation inst on the current device (-1 on
+  // an untracked device) into *out.
+  cudaError_t granted_here(int inst, long long* out) const {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    *out = dev >= 0 && dev < kMaxDevices ? granted[dev][inst].load() : -1;
+    return cudaSuccess;
+  }
+};
 
 }  // namespace repro

@@ -23,9 +23,6 @@
 // dynamic shared memory only when a launch needs more than this device has
 // already granted the kernel: a per-device high-water mark, raised only
 // when the runtime accepts, so a steady caller pays no cudaFuncSetAttribute.
-#include <atomic>
-#include <mutex>
-
 #include "common.cuh"
 
 using namespace repro;
@@ -34,7 +31,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 8;
-constexpr int kMaxDevices = 64;
 
 template <int V>
 __global__ void __launch_bounds__(kThreads)
@@ -80,35 +76,9 @@ LaunchPlan plan(int rows, int cols, int block_rows, bool vec) {
           (size_t)(2 * tile * (long long)sizeof(float))};
 }
 
-// Per device and instantiation (scalar, vector): the most dynamic shared
-// bytes the runtime has accepted for the kernel.  Read without a lock on
-// every launch; raised under the lock, after the runtime accepts, so the
-// mark never exceeds the attribute that is set.
-std::atomic<long long> g_granted[kMaxDevices][2];
-std::atomic<long long> g_attribute_sets{0};
-std::mutex g_grant_lock;
-
-cudaError_t grant(const LaunchPlan& lp, int inst) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const long long want = (long long)lp.smem;
-  const bool tracked = dev >= 0 && dev < kMaxDevices;
-  if (tracked && want <= g_granted[dev][inst].load(std::memory_order_acquire))
-    return cudaSuccess;
-  std::lock_guard<std::mutex> hold(g_grant_lock);
-  if (tracked && want <= g_granted[dev][inst].load(std::memory_order_relaxed))
-    return cudaSuccess;
-  g_attribute_sets.fetch_add(1, std::memory_order_relaxed);
-  e = cudaFuncSetAttribute(lp.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)want);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // a refused size leaves no error for the next launch
-    return e;
-  }
-  if (tracked) g_granted[dev][inst].store(want, std::memory_order_release);
-  return cudaSuccess;
-}
+// Per device and instantiation (0 scalar, 1 vector): the high-water mark
+// of the dynamic shared bytes granted (common.cuh).
+SmemGrants<2> g_grants;
 
 }  // namespace
 
@@ -118,7 +88,7 @@ extern "C" int fixture_double(const float* x, float* y, int rows, int cols,
   if (rows < 1 || cols < 1 || block_rows < 1) return cudaErrorInvalidValue;
   const bool vec = cols % 4 == 0 && aligned(x, 16) && aligned(y, 16);
   const LaunchPlan lp = plan(rows, cols, block_rows, vec);
-  const cudaError_t e = grant(lp, vec ? 1 : 0);
+  const cudaError_t e = g_grants.grant(lp.fn, vec ? 1 : 0, lp.smem);
   if (e != cudaSuccess) return e;
   const long long n = (long long)rows * cols;
   const long long tile = (long long)block_rows * cols;
@@ -147,12 +117,10 @@ extern "C" int fixture_double_plan(int rows, int cols, int block_rows,
 // dynamic shared bytes granted to the scalar and the vector kernel, out[2]
 // the cudaFuncSetAttribute calls made in this process, refused ones too.
 extern "C" int fixture_double_smem_state(long long* out) {
-  int dev = 0;
-  const cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const bool tracked = dev >= 0 && dev < kMaxDevices;
-  out[0] = tracked ? g_granted[dev][0].load() : -1;
-  out[1] = tracked ? g_granted[dev][1].load() : -1;
-  out[2] = g_attribute_sets.load();
+  for (int inst = 0; inst < 2; ++inst) {
+    const cudaError_t e = g_grants.granted_here(inst, out + inst);
+    if (e != cudaSuccess) return e;
+  }
+  out[2] = g_grants.sets.load();
   return 0;
 }

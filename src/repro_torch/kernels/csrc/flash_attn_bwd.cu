@@ -1,11 +1,12 @@
 // Flash-attention backward: dQ, and dK with dV, by recomputation from the
-// forward's per-row logsumexp.
+// forward's per-row logsumexp, on the tensor cores at f32 accuracy.
 //
 // Replaces the two TPU kernels of src/repro/kernels/flash_attention.py:
-// _bwd_dq_call (_flash_attn_bwd_dq_kernel), grid (B, KVH, S/bq, S/bk) with
-// the KV axis innermost accumulating dQ in VMEM scratch, and _bwd_dkv_call
-// (_flash_attn_bwd_dkv_kernel), grid (B, KVH, S/bk, S/bq) with the query
-// axis innermost accumulating dK and dV.  Both recompute, per tile,
+// _bwd_dq_call (:285, _flash_attn_bwd_dq_kernel), grid (B, KVH, S/bq,
+// S/bk) with the KV axis innermost accumulating dQ in VMEM scratch, and
+// _bwd_dkv_call (:310, _flash_attn_bwd_dkv_kernel), grid (B, KVH, S/bk,
+// S/bq) with the query axis innermost accumulating dK and dV.  Both
+// recompute, per tile,
 //
 //     s  = q k^T * scale   (tanh-capped when softcap > 0)
 //     p  = exp(s - lse)    (explicitly 0 on masked lanes)
@@ -17,38 +18,131 @@
 //
 // What bounds them on an H100: operations.  At the first-order shape (B=4,
 // S=512, 32 query heads over 8 KV heads, head_dim 64, causal) the dQ pass
-// does 6*dh FLOP per live (query, key) pair, 6.45 GFLOP, against ~59 MB of
-// q, k, v, dO, lse, delta and dQ; the dK/dV pass 8*dh, 8.61 GFLOP.  In f32
-// on the CUDA cores (67 TFLOP/s) that is ~0.10 and ~0.13 ms of arithmetic
-// against ~0.02 ms of memory.
+// does 6*dh FLOP per live (query, key) pair, 6.44 GFLOP, against ~59 MB of
+// q, k, v, dO, lse, delta and dQ (~0.02 ms); the dK/dV pass 8*dh, 8.61
+// GFLOP.  On the CUDA cores in f32 (67 TFLOP/s) that is 0.096 and 0.128 ms.
+// As 3xTF32 on the tensor cores (three TF32 products for each f32 one, 495
+// TFLOP/s), 3 x 6.44 and 3 x 8.61 GFLOP: about 0.039 and 0.052 ms.
 //
-// Design (simple and right first; wgmma and TMA come later):
+// Design:
+// * precision, fixed here (torch.backends.cuda.matmul.allow_tf32 is not
+//   read): all five products (s, dp, and dQ or dK and dV) run as
+//   mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.  Each f32 operand
+//   is split as hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi) (that
+//   rounding in two integer operations, tf32_rna), and each product is
+//   lo*hi + hi*lo + hi*hi accumulated in f32 (3xTF32): over a 64x64x64
+//   tile it stays within ~5e-7 of max|exact| where one TF32 pass misses by
+//   ~3e-4 (tests/test_torch_tf32_split.py emulates both).  A bf16 operand
+//   widened to f32 is exact in TF32 (lo = 0), so with bf16 inputs s and dp
+//   take one pass and the products with p or ds two.  The tensor cores sum
+//   a tile's few k-steps; the long sum over tiles (dQ over key tiles, dK
+//   and dV over query tiles: 8,704 rows at Gemma's 4352 x G 2) is taken in
+//   IEEE f32 adds, which keeps it as close to f64 as the plain version;
 // * the TPU's sequential accumulating grid axis becomes a loop inside one
 //   block, so every output element is written by exactly one block: no
 //   atomics, and two calls give bit-equal results;
-// * dQ: one block per (batch row, KV head, 64 score rows = BQ queries x G
-//   heads folded, as in flash_attn.cu), looping over 64-key tiles with the
-//   forward's pruning predicate (_block_needed); dQ accumulates in
-//   registers;
-// * dK/dV: one block per (batch row, KV head, 64-key tile), looping over
-//   the folded query tiles that can see the tile, from the causal frontier
-//   up to the window's end; dK and dV accumulate in registers;
-// * operands are read in the model layout ([B, S, H, dh], [B, S, KVH, dh])
-//   and widened to f32 on load; the ragged edge of S and keys past
-//   lengths[b] are masked here; outputs are f32 (the wrapper casts);
-// * q, dO, k and v tiles, p and ds live in shared memory (above 48 KB at
-//   both head dims, so the launch opts in), CUDA-core FMAs over a 4x4
-//   register tile per thread.
+// * dQ: one block per (batch row, KV head, R score rows = BQ queries x G
+//   heads folded, as in flash_attn.cu), looping over 32-key tiles with the
+//   forward's pruning predicate (_block_needed); blocks of the latest query
+//   tiles, the heaviest under causal masking, launch first;
+// * dK/dV: one block per (batch row, KV head, pair of 32-key tiles t and
+//   n-1-t), each tile looping over the query tiles that can see it, from
+//   the causal frontier up to the window's end: under causal masking the
+//   two ranges sum to the same length for every t, so every block does the
+//   same work (34 query tiles at the first-order shape, 256 blocks);
+// * R = 64 score rows at head_dim 64 and 128, and 32 at 256 (so G <= 32
+//   there), where two 64-row tiles and the streamed ones would not fit;
+//   8 warps, each an m16 strip of the block's tile and a share of its
+//   columns;
+// * copies: the streamed tiles (k, v in dQ; q, dO, lse and delta in dK/dV)
+//   are double-buffered with cp.async (16-byte .cg for the operands,
+//   4-byte for the row statistics), the next tile's copy in flight while
+//   the current one computes; rows past S or the folded R, and keys past S,
+//   are zero-filled by the copy; operands stay in their own type in shared
+//   memory (bf16 widens at the fragment load);
+// * splits: an operand element is split when a fragment load reads it,
+//   except where it would be split many times: p and ds are split once
+//   when written, and f32 k and v tiles once when they land (dQ at
+//   head_dim <= 128, dK/dV at 128; kPreKeysDq, kPreKeysDkv), each into a
+//   hi and a lo plane;
+// * layout: the 16-byte chunks of a tile row are permuted by the row (swz),
+//   so that fragment loads along either axis of a tile (k as B of q k^T,
+//   then of ds k) hit 32 distinct banks and a chunk stays whole for
+//   cp.async;
+// * operands are read in the model layout ([B, S, H, dh], [B, S, KVH, dh]),
+//   16-byte aligned (a pointer off it is refused); keys past lengths[b] are
+//   masked here; outputs are f32 (the wrapper casts);
+// * the dynamic shared memory (49-230 KB) is granted through the
+//   per-device high-water mark of common.cuh: one attribute call per
+//   instantiation and device, not one per launch;
+// * flash_attn_bwd_probe, a launch outside the wrapped path, has each block
+//   record the tiles it walked and its clocks (the balance above, read on
+//   the card), and runs the one-pass TF32 control of the split.
+#include <cstdint>
+#include <type_traits>
+
 #include "common.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int kRows = 64;  // score rows per query tile: BQ queries x G heads
-constexpr int kBK = 64;    // keys per tile
 constexpr int kThreads = 256;
-constexpr int kSP = kBK + 1;  // padded row of the p and ds tiles
+constexpr int kWarps = kThreads / 32;
+constexpr int kBK = 32;  // keys per tile, both kernels
+constexpr int kSmemSM = 233472;  // an H100 SM's shared memory, 1 KB/block
+
+// score rows per query tile (BQ queries x G heads folded)
+template <int DH>
+constexpr int kRowsOf = DH == 256 ? 32 : 64;
+
+// a bf16 operand widened to f32 is exact in TF32 (lo = 0)
+template <typename T>
+constexpr bool kExactTf32 = std::is_same<T, __nv_bfloat16>::value;
+
+// f32 key tiles are split once when they land, their lo planes beside
+// them, where the shared memory allows: in dQ (double-buffered k and v, 4
+// warps loading each element) at head_dim <= 128, in dK/dV (k and v for
+// a whole key tile) at 128 only, as at 64 the planes would cut it to one
+// block an SM, which costs more than the splits save; otherwise, and for
+// bf16 (exact), each fragment load splits
+template <typename T, int DH>
+constexpr bool kPreKeysDq = !kExactTf32<T> && DH <= 128;
+template <typename T, int DH>
+constexpr bool kPreKeysDkv = !kExactTf32<T> && DH == 128;
+
+// dQ: q and dO [R][DH]; k and v [2][kBK][DH] (T); ds as TF32 hi and lo
+// [2][R][kBK], lse and delta [R] (f32); with kPreKeysDq the lo planes of
+// k and v [2][2][kBK][DH].
+template <typename T, int DH>
+constexpr size_t kDqSmem =
+    sizeof(T) * (2 * kRowsOf<DH> * DH + 4 * kBK * DH) +
+    sizeof(float) * (2 * kRowsOf<DH> * kBK + 2 * kRowsOf<DH>) +
+    (kPreKeysDq<T, DH> ? sizeof(uint32_t) * 4 * kBK * DH : 0);
+
+// dK/dV: k and v [kBK][DH]; q and dO [2][R][DH] (T); p^T and ds^T as hi
+// and lo [4][kBK][R], lse and delta [2][R] (f32); with kPreKeysDkv the
+// lo planes of k and v [2][kBK][DH].
+template <typename T, int DH>
+constexpr size_t kDkvSmem =
+    sizeof(T) * (2 * kBK * DH + 4 * kRowsOf<DH> * DH) +
+    sizeof(float) * (4 * kBK * kRowsOf<DH> + 4 * kRowsOf<DH>) +
+    (kPreKeysDkv<T, DH> ? sizeof(uint32_t) * 2 * kBK * DH : 0);
+
+// blocks an SM is to hold: 2 where their shared memory fits and head_dim
+// <= 128 (the registers are then capped at 128 by __launch_bounds__; at
+// 256 that would spill), else 1
+template <int DH, size_t kSmem>
+constexpr int kMinBlocks =
+    DH <= 128 && 2 * (kSmem + 1024) <= (size_t)kSmemSM ? 2 : 1;
+
+constexpr size_t kSmemOptin = 232448;  // a Hopper block's opt-in limit
+static_assert(kDqSmem<float, 256> <= kSmemOptin, "dQ tiles at dh 256");
+static_assert(kDkvSmem<float, 256> <= kSmemOptin, "dK/dV tiles at dh 256");
+static_assert(kDqSmem<float, 128> <= kSmemOptin, "dQ tiles at dh 128");
+static_assert(kDkvSmem<float, 128> <= kSmemOptin, "dK/dV tiles at dh 128");
+static_assert(kMinBlocks<64, kDqSmem<float, 64>> == 2, "dQ: 2 per SM");
+static_assert(kMinBlocks<64, kDkvSmem<float, 64>> == 2, "dK/dV: 2 per SM");
 
 struct Params {
   const void* q;
@@ -63,8 +157,249 @@ struct Params {
   float* dv;
   int S, KVH, G, BQ, window, causal;
   float softcap, scale;
+  long long* blocks;  // per-block record (flash_attn_bwd_probe), or null
 };
 
+// r / G for 0 <= r < 2^16 and G <= 64, from inv_g = 1 / G: (r + 0.5) / G
+// lies at least 0.5 / G from an integer, far beyond float's error here.
+__device__ __forceinline__ int div_g(int r, float inv_g) {
+  return __float2int_rd((static_cast<float>(r) + 0.5f) * inv_g);
+}
+
+// ------------------------------------------------------------ tensor cores --
+// cvt.rna.tf32.f32 for finite x: nearest, ties away from zero, on the 13
+// low mantissa bits (a carry into the exponent is the rounding up).  Two
+// integer operations; the cvt instruction itself lowers to a longer
+// sequence on sm_90.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[j0 + u] += a b[u] for u < U: one term of the 3xTF32 product over U n8
+// tiles.  The callers issue the terms lo*hi, hi*lo (skipped where lo is 0
+// by type), then hi*hi, each across several accumulators, so that an
+// accumulator's next product is independent ones away.
+template <int U, int J>
+__device__ __forceinline__ void mma_row(float (&d)[J][4], int j0,
+                                        const uint32_t (&a)[4],
+                                        const uint32_t (&b)[U][2]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) mma_tf32(d[j0 + u], a, b[u]);
+}
+
+// ----------------------------------------------------------- tile layout --
+// The 16-byte chunk a row's chunk j lands in is j ^ swz(row).  With f32
+// (4 per chunk) the permutation flips column bits 2-4 by row bits 0-2 so
+// that the 32 lanes of a fragment load, 8 rows x 4 columns or 4 rows x 8
+// columns, hit 32 banks; with bf16 (8 per chunk, two per bank) the same
+// holds for the 16 words such a load touches.
+template <typename T>
+__device__ __forceinline__ int swz(int r);
+template <>
+__device__ __forceinline__ int swz<float>(int r) {
+  return ((r & 3) << 1) | ((r >> 2) & 1);
+}
+template <>
+__device__ __forceinline__ int swz<__nv_bfloat16>(int r) {
+  return r & 7;
+}
+
+// Offset of element (r, c) in a tile of W columns of T (W / (16 /
+// sizeof(T)) >= 8 chunks, so the permutation stays inside the row).
+template <typename T, int W>
+__device__ __forceinline__ int at(int r, int c) {
+  constexpr int E = 16 / sizeof(T);
+  static_assert(W % (8 * E) == 0, "a tile row holds a multiple of 8 chunks");
+  return r * W + ((c / E) ^ swz<T>(r)) * E + c % E;
+}
+
+// An operand tile in shared memory, [rows][W] of T.  Unless kPre, an
+// element is split when loaded: hi = cvt.rna.tf32(x), lo =
+// cvt.rna.tf32(x - hi), and a widened bf16 is hi alone.  With kPre (f32)
+// the tile was split once after it landed (split_tile): t holds the hi
+// bits in place and lo the lo plane, so a load is two reads.
+template <typename T, int W, bool kPre = false>
+struct Opnd {
+  const T* t;
+  const uint32_t* lo;
+
+  __device__ __forceinline__ void get(int r, int c, uint32_t& h,
+                                      uint32_t& l) const {
+    const int o = at<T, W>(r, c);
+    if constexpr (kPre) {
+      h = reinterpret_cast<const uint32_t*>(t)[o];
+      l = lo[o];
+    } else if constexpr (kExactTf32<T>) {
+      h = __float_as_uint(to_f(t[o]));
+      l = 0u;
+    } else {
+      split(to_f(t[o]), h, l);
+    }
+  }
+};
+
+// The A fragment (16 x 8, row-major) at rows m0.., columns k0.. of a tile.
+template <typename O>
+__device__ __forceinline__ void frag_a(const O& x, int m0, int k0, int lane,
+                                       uint32_t (&h)[4], uint32_t (&l)[4]) {
+  const int g = lane >> 2, c = lane & 3;
+  x.get(m0 + g, k0 + c, h[0], l[0]);
+  x.get(m0 + g + 8, k0 + c, h[1], l[1]);
+  x.get(m0 + g, k0 + c + 4, h[2], l[2]);
+  x.get(m0 + g + 8, k0 + c + 4, h[3], l[3]);
+}
+
+// The B fragment (8 x 8, k x n) of a tile stored [n][k]: k^T of q k^T.
+template <typename O>
+__device__ __forceinline__ void frag_b_nk(const O& x, int k0, int n0,
+                                          int lane, uint32_t (&h)[2],
+                                          uint32_t (&l)[2]) {
+  const int g = lane >> 2, c = lane & 3;
+  x.get(n0 + g, k0 + c, h[0], l[0]);
+  x.get(n0 + g, k0 + c + 4, h[1], l[1]);
+}
+
+// The B fragment of a tile stored [k][n]: k of ds k.
+template <typename O>
+__device__ __forceinline__ void frag_b_kn(const O& x, int k0, int n0,
+                                          int lane, uint32_t (&h)[2],
+                                          uint32_t (&l)[2]) {
+  const int g = lane >> 2, c = lane & 3;
+  x.get(k0 + c, n0 + g, h[0], l[0]);
+  x.get(k0 + c + 4, n0 + g, h[1], l[1]);
+}
+
+// Two neighbouring scores (r, c), (r, c + 1), c even, into the hi and lo
+// planes of a p or ds tile (split once, here).
+template <int W>
+__device__ __forceinline__ void st_split(uint32_t* hp, uint32_t* lp, int r,
+                                         int c, float x0, float x1) {
+  uint2 h, l;
+  split(x0, h.x, l.x);
+  split(x1, h.y, l.y);
+  const int o = at<float, W>(r, c);
+  *reinterpret_cast<uint2*>(hp + o) = h;
+  *reinterpret_cast<uint2*>(lp + o) = l;
+}
+
+// Split, in place, the 16-byte chunks of an f32 key tile ([kBK][DH]) that
+// this thread copied (copy_keys' assignment), once they have landed: the
+// hi bits over the elements, the lo plane into lo.  No other thread reads
+// them before the next barrier.
+template <int DH>
+__device__ __forceinline__ void split_keys(float* t, uint32_t* lo) {
+  constexpr int CPR = DH / 4;
+#pragma unroll
+  for (int n = 0; n < kBK * CPR / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int c = i / CPR, j = i % CPR;
+    const int o = c * DH + (j ^ swz<float>(c)) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(t + o);
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(t + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+// ---------------------------------------------------------------- copies --
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Folded rows q0.. of a [B, S, KVH*G, DH] tensor into a [R][DH] tile: row r
+// <-> query q0 + r / G, head h*G + r % G; rows past BQ*G or S: zeros.
+template <typename T, int DH, int R>
+__device__ void copy_rows(T* dst, const void* src_, const Params& p, int b,
+                          int h, int q0, float inv_g) {
+  constexpr int E = 16 / sizeof(T), CPR = DH / E;  // chunks per row
+  const T* src = static_cast<const T*>(src_);
+  static_assert(R * CPR % kThreads == 0, "whole rounds of chunks");
+  const int rows = p.BQ * p.G;
+#pragma unroll
+  for (int n = 0; n < R * CPR / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i / CPR, j = i % CPR;
+    const int rq = div_g(r, inv_g);
+    const int s = q0 + rq;
+    const bool ok = r < rows && s < p.S;
+    const T* g = ok ? src + ((((long long)b * p.S + s) * p.KVH + h) * p.G +
+                             (r - rq * p.G)) * DH + j * E
+                    : src;
+    cp16(dst + r * DH + (j ^ swz<T>(r)) * E, g, ok);
+  }
+}
+
+// Keys k0.. of a [B, S, KVH, DH] tensor into a [kBK][DH] tile; past S: 0.
+template <typename T, int DH>
+__device__ void copy_keys(T* dst, const void* src_, const Params& p, int b,
+                          int h, int k0) {
+  constexpr int E = 16 / sizeof(T), CPR = DH / E;
+  static_assert(kBK * CPR % kThreads == 0, "whole rounds of chunks");
+  const T* src = static_cast<const T*>(src_);
+#pragma unroll
+  for (int n = 0; n < kBK * CPR / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int c = i / CPR, j = i % CPR;
+    const int key = k0 + c;
+    const bool ok = key < p.S;
+    const T* g =
+        ok ? src + (((long long)b * p.S + key) * p.KVH + h) * DH + j * E : src;
+    cp16(dst + c * DH + (j ^ swz<T>(c)) * E, g, ok);
+  }
+}
+
+// lse and delta of the folded rows q0.. into [R] each; past the rows: 0.
+template <int R>
+__device__ void copy_stats(float* sLse, float* sDelta, const Params& p,
+                           int b, int h, int q0, float inv_g) {
+  const int r = threadIdx.x;
+  if (r >= R) return;
+  const int rq = div_g(r, inv_g);
+  const int s = q0 + rq;
+  const bool ok = r < p.BQ * p.G && s < p.S;
+  const long long i =
+      ok ? (((long long)b * p.KVH + h) * p.S + s) * p.G + (r - rq * p.G) : 0;
+  cp4(sLse + r, p.lse + i, ok);
+  cp4(sDelta + r, p.delta + i, ok);
+}
+
+// ------------------------------------------------------------- the masks --
 __device__ __forceinline__ bool live(int key, int pos, int L, int window,
                                      int causal) {
   bool ok = key < L;
@@ -83,318 +418,537 @@ __device__ __forceinline__ bool tile_needed(const Params& p, int L, int q0,
   return needed;
 }
 
-// Folded rows of a [B, S, KVH*G, DH] tensor into dst [kRows][DH + 1]: row r
-// <-> query q0 + r / G, head h*G + r % G; rows past R or S read as 0.
-template <typename T, int DH>
-__device__ void load_rows(float* dst, const void* src_, const Params& p,
-                          int b, int h, int q0) {
-  const T* src = static_cast<const T*>(src_);
-  const int R = p.BQ * p.G;
-  for (int i = threadIdx.x; i < kRows * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    const int s = q0 + r / p.G;
-    float x = 0.f;
-    if (r < R && s < p.S) {
-      x = to_f(src[((((long long)b * p.S + s) * p.KVH + h) * p.G + r % p.G) *
-                       DH + d]);
-    }
-    dst[r * (DH + 1) + d] = x;
-  }
+// The first key tile from t (before end) the query tile at q0 needs.
+__device__ __forceinline__ int next_key_tile(const Params& p, int L, int q0,
+                                             int t, int end) {
+  while (t < end && !tile_needed(p, L, q0, t * kBK)) ++t;
+  return t;
 }
 
-// Keys k0.. of a [B, S, KVH, DH] tensor into dst [kBK][DH + 1]; past S: 0.
-template <typename T, int DH>
-__device__ void load_keys(float* dst, const void* src_, const Params& p,
-                          int b, int h, int k0) {
-  const T* src = static_cast<const T*>(src_);
-  for (int i = threadIdx.x; i < kBK * DH; i += kThreads) {
-    const int c = i / DH, d = i % DH;
-    const int key = k0 + c;
-    dst[c * (DH + 1) + d] =
-        key < p.S ? to_f(src[(((long long)b * p.S + key) * p.KVH + h) * DH +
-                             d])
-                  : 0.f;
-  }
+// The first query tile from t (before end) that needs the key tile at k0.
+__device__ __forceinline__ int next_query_tile(const Params& p, int L, int k0,
+                                               int t, int end) {
+  while (t < end && !tile_needed(p, L, t * p.BQ, k0)) ++t;
+  return t;
 }
 
-__device__ void load_row_stats(float* sLse, float* sDelta, const Params& p,
-                               int b, int h, int q0) {
-  const int R = p.BQ * p.G;
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    const int s = q0 + r / p.G;
-    const bool ok = r < R && s < p.S;
-    const long long i =
-        (((long long)b * p.KVH + h) * p.S + s) * p.G + r % p.G;
-    sLse[r] = ok ? p.lse[i] : 0.f;
-    sDelta[r] = ok ? p.delta[i] : 0.f;
-  }
-}
-
-// p and ds of one (query tile, key tile) into sP (when non-null) and sDS,
-// [kRows][kSP]; thread (ty, tx) computes rows 4*ty + i and keys tx + 16*j.
-template <int DH>
-__device__ void tile_p_ds(const float* sQ, const float* sDO, const float* sK,
-                          const float* sV, const float* sLse,
-                          const float* sDelta, float* sP, float* sDS,
-                          const Params& p, int L, int q0, int k0) {
-  constexpr int DP = DH + 1;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int R = p.BQ * p.G;
-  float sc[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-  for (int d = 0; d < DH; ++d) {
-    float qa[4], oa[4], kb[4], vb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qa[i] = sQ[(4 * ty + i) * DP + d];
-      oa[i] = sDO[(4 * ty + i) * DP + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kb[j] = sK[(tx + 16 * j) * DP + d];
-      vb[j] = sV[(tx + 16 * j) * DP + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
-        dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    const int pos = q0 + r / p.G;
-    const bool row_ok = r < R && pos < p.S;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      float s = sc[i][j] * p.scale;
-      if (p.softcap != 0.f) s = tanhf(s / p.softcap) * p.softcap;
-      float pr = 0.f, ds = 0.f;
-      if (row_ok && live(k0 + c, pos, L, p.window, p.causal)) {
-        pr = expf(s - sLse[r]);
-        ds = pr * (dp[i][j] - sDelta[r]);
-        if (p.softcap != 0.f) {
-          const float t = s / p.softcap;  // s is the capped logit
-          ds *= 1.f - t * t;
-        }
-      }
-      if (sP != nullptr) sP[r * kSP + c] = pr;
-      sDS[r * kSP + c] = ds;
+// p and ds of one score from its s and dp accumulators.
+__device__ __forceinline__ void p_ds(float acc_s, float acc_dp, float lse,
+                                     float delta, bool ok, const Params& p,
+                                     float& pr, float& ds) {
+  float s = acc_s * p.scale;
+  if (p.softcap != 0.f) s = tanhf(s / p.softcap) * p.softcap;
+  pr = 0.f;
+  ds = 0.f;
+  if (ok) {
+    pr = expf(s - lse);
+    ds = pr * (acc_dp - delta);
+    if (p.softcap != 0.f) {
+      const float t = s / p.softcap;  // s is the capped logit
+      ds *= 1.f - t * t;
     }
   }
 }
 
-template <int DH>
-constexpr size_t dq_smem_floats() {
-  return 2 * (size_t)kRows * (DH + 1) + 2 * (size_t)kBK * (DH + 1) +
-         (size_t)kRows * kSP + 2 * kRows;
+template <int J>
+__device__ __forceinline__ void zero(float (&d)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[j][i] = 0.f;
 }
 
-template <int DH>
-constexpr size_t dkv_smem_floats() {
-  return 2 * (size_t)kRows * (DH + 1) + 2 * (size_t)kBK * (DH + 1) +
-         2 * (size_t)kRows * kSP + 2 * kRows;
+// sum += part, in IEEE f32 adds: a tile's products accumulate on the
+// tensor cores (a few k-steps), the long sum over tiles here.
+template <int J>
+__device__ __forceinline__ void add_into(float (&sum)[J][4],
+                                         const float (&part)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sum[j][i] += part[j][i];
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq(Params p) {
-  constexpr int DP = DH + 1;
-  constexpr int DJ = DH / 16;  // dQ columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;                // [kRows][DP]
-  float* sDO = sQ + kRows * DP;    // [kRows][DP]
-  float* sK = sDO + kRows * DP;    // [kBK][DP]
-  float* sV = sK + kBK * DP;       // [kBK][DP]
-  float* sDS = sV + kBK * DP;      // [kRows][kSP]
-  float* sLse = sDS + kRows * kSP;
-  float* sDelta = sLse + kRows;
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * p.BQ;
-  const int L = p.lengths[b];
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  load_rows<T, DH>(sQ, p.q, p, b, h, q0);
-  load_rows<T, DH>(sDO, p.dout, p, b, h, q0);
-  load_row_stats(sLse, sDelta, p, b, h, q0);
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+// With p.blocks set (flash_attn_bwd_probe), once every thread is done:
+// the tiles this block walked and the SM clocks since c0, at 2 * (its
+// linear index, blockIdx.x fastest).  Uniform over the block.
+__device__ __forceinline__ void record(const Params& p, int tiles,
+                                       long long c0) {
+  if (p.blocks == nullptr) return;
   __syncthreads();
-
-  const int n_tiles = (p.S + kBK - 1) / kBK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    if (!tile_needed(p, L, q0, k0)) continue;  // uniform over the block
-    load_keys<T, DH>(sK, p.k, p, b, h, k0);
-    load_keys<T, DH>(sV, p.v, p, b, h, k0);
-    __syncthreads();
-    tile_p_ds<DH>(sQ, sDO, sK, sV, sLse, sDelta, nullptr, sDS, p, L, q0, k0);
-    __syncthreads();
-    // dQ += ds @ k: thread owns rows 4*ty + i, dims tx + 16*j
-    for (int c = 0; c < kBK; ++c) {
-      float dsv[4], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sDS[(4 * ty + i) * kSP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = sK[c * DP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
-    __syncthreads();  // sK, sV and sDS are overwritten by the next tile
-  }
-
-  const int R = p.BQ * p.G;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    const int s = q0 + r / p.G;
-    if (r >= R || s >= p.S) continue;
-    const long long row =
-        ((((long long)b * p.S + s) * p.KVH + h) * p.G + r % p.G) * DH;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) p.dq[row + tx + 16 * j] = acc[i][j] * p.scale;
-  }
+  if (threadIdx.x != 0) return;
+  const long long at = blockIdx.x + (long long)gridDim.x *
+                       (blockIdx.y + (long long)gridDim.y * blockIdx.z);
+  p.blocks[2 * at] = tiles;
+  p.blocks[2 * at + 1] = clock64() - c0;
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
-  constexpr int DP = DH + 1;
-  constexpr int DJ = DH / 16;  // dK/dV columns per thread
-  extern __shared__ float smem[];
-  float* sK = smem;                // [kBK][DP]
-  float* sV = sK + kBK * DP;       // [kBK][DP]
-  float* sQ = sV + kBK * DP;       // [kRows][DP]
-  float* sDO = sQ + kRows * DP;    // [kRows][DP]
-  float* sP = sDO + kRows * DP;    // [kRows][kSP]
-  float* sDS = sP + kRows * kSP;   // [kRows][kSP]
-  float* sLse = sDS + kRows * kSP;
-  float* sDelta = sLse + kRows;
+// ----------------------------------------------------------------- dQ ----
+// kOne (flash_attn_bwd_probe's precision control only): every product
+// one TF32 pass, hi*hi.
+template <typename T, int DH, bool kOne = false>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDqSmem<T, DH>>)
+    flash_bwd_dq(Params p) {
+  constexpr int R = kRowsOf<DH>;
+  constexpr int MT = R / 16;               // m16 tiles over the rows
+  constexpr int WPM = kWarps / MT;         // warps sharing an m16 tile
+  constexpr int SN = (kBK / 8) / WPM;      // s, dp n8 tiles per warp
+  constexpr int QN = (DH / 8) / WPM;       // dQ n8 tiles per warp
+  constexpr bool kX = kExactTf32<T> || kOne;  // no operand lo terms
+  constexpr bool kPre = kPreKeysDq<T, DH>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sDO = sQ + R * DH;
+  T* sK = sDO + R * DH;       // [2][kBK * DH]
+  T* sV = sK + 2 * kBK * DH;  // [2][kBK * DH]
+  uint32_t* sDSh = reinterpret_cast<uint32_t*>(sV + 2 * kBK * DH);
+  uint32_t* sDSl = sDSh + R * kBK;
+  float* sLse = reinterpret_cast<float*>(sDSl + R * kBK);
+  float* sDelta = sLse + R;
+  uint32_t* sKl = reinterpret_cast<uint32_t*>(sDelta + R);  // with kPre
+  uint32_t* sVl = sKl + 2 * kBK * DH;
+  const Opnd<T, DH> oQ{sQ, nullptr}, oDO{sDO, nullptr};
+  const Opnd<float, kBK, true> oDS{reinterpret_cast<const float*>(sDSh),
+                                   sDSl};
 
+  const long long c0 = p.blocks ? clock64() : 0;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int k0 = blockIdx.x * kBK;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * p.BQ;  // heaviest first
   const int L = p.lengths[b];
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int R = p.BQ * p.G;
+  const float inv_g = 1.f / p.G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int m0 = 16 * (warp % MT), wn = warp / MT;
+  const int n_k = (p.S + kBK - 1) / kBK;
+  const int rows = p.BQ * p.G;
+  // this thread's score rows m0 + g + 8 * hf: their query, or -1 past R or S
+  int pos[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = m0 + g + 8 * hf;
+    pos[hf] = q0 + div_g(r, inv_g);
+    if (r >= rows || pos[hf] >= p.S) pos[hf] = -1;
+  }
 
-  load_keys<T, DH>(sK, p.k, p, b, h, k0);
-  load_keys<T, DH>(sV, p.v, p, b, h, k0);
-  float dk[4][DJ], dv[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
+  copy_rows<T, DH, R>(sQ, p.q, p, b, h, q0, inv_g);
+  copy_rows<T, DH, R>(sDO, p.dout, p, b, h, q0, inv_g);
+  copy_stats<R>(sLse, sDelta, p, b, h, q0, inv_g);
+  int t = next_key_tile(p, L, q0, 0, n_k);
+  if (t < n_k) {
+    copy_keys<T, DH>(sK, p.k, p, b, h, t * kBK);
+    copy_keys<T, DH>(sV, p.v, p, b, h, t * kBK);
+  }
+  cp_commit();
 
-  // the query tiles that can see this key tile: from the causal frontier
-  // (the tile holding query k0) to the last one inside the window
-  const int n_q = (p.S + p.BQ - 1) / p.BQ;
-  const int t_begin = p.causal ? k0 / p.BQ : 0;
-  int t_end = n_q;
-  if (p.window) t_end = min(n_q, (k0 + kBK - 1 + p.window + p.BQ - 1) / p.BQ);
-  for (int t = t_begin; t < t_end; ++t) {
-    const int q0 = t * p.BQ;
-    if (!tile_needed(p, L, q0, k0)) continue;  // uniform over the block
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, DH>(sQ, p.q, p, b, h, q0);
-    load_rows<T, DH>(sDO, p.dout, p, b, h, q0);
-    load_row_stats(sLse, sDelta, p, b, h, q0);
+  float acc[QN][4];
+  zero(acc);
+  int walked = 0;
+  for (int buf = 0; t < n_k; buf ^= 1, ++walked) {  // uniform over the block
+    const int k0 = t * kBK;
+    const int t_next = next_key_tile(p, L, q0, t + 1, n_k);
+    if (t_next < n_k) {
+      copy_keys<T, DH>(sK + (buf ^ 1) * kBK * DH, p.k, p, b, h, t_next * kBK);
+      copy_keys<T, DH>(sV + (buf ^ 1) * kBK * DH, p.v, p, b, h, t_next * kBK);
+    }
+    cp_commit();
+    cp_wait<1>();  // this tile (and q, dO, the statistics) have landed
+    const int o = buf * kBK * DH;
+    if constexpr (kPre) {
+      split_keys<DH>(reinterpret_cast<float*>(sK + o), sKl + o);
+      split_keys<DH>(reinterpret_cast<float*>(sV + o), sVl + o);
+    }
     __syncthreads();
-    tile_p_ds<DH>(sQ, sDO, sK, sV, sLse, sDelta, sP, sDS, p, L, q0, k0);
+    const Opnd<T, DH, kPre> cK{sK + o, sKl + o}, cV{sV + o, sVl + o};
+
+    // s = q k^T and dp = dO v^T: rows m0.., keys 8 * (wn * SN + j)..
+    float s[SN][4], dp[SN][4];
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 8) {
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      uint32_t kh[SN][2], kl[SN][2], vh[SN][2], vl[SN][2];
+      frag_a(oQ, m0, kk, lane, qh, ql);
+      frag_a(oDO, m0, kk, lane, oh, ol);
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+        const int n0 = 8 * (wn * SN + j);
+        frag_b_nk(cK, kk, n0, lane, kh[j], kl[j]);
+        frag_b_nk(cV, kk, n0, lane, vh[j], vl[j]);
+      }
+      if (!kX) {
+        mma_row(s, 0, ql, kh);
+        mma_row(dp, 0, ol, vh);
+        mma_row(s, 0, qh, kl);
+        mma_row(dp, 0, oh, vl);
+      }
+      mma_row(s, 0, qh, kh);
+      mma_row(dp, 0, oh, vh);
+    }
+    // ds, split, into shared memory; accumulator i holds row g + 8 * (i /
+    // 2), column c2 + i % 2 of its n8 tile
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = m0 + g + 8 * hf;
+        const int c = 8 * (wn * SN + j) + c2;
+        float pr, d0, d1;
+        p_ds(s[j][2 * hf], dp[j][2 * hf], sLse[r], sDelta[r],
+             pos[hf] >= 0 && live(k0 + c, pos[hf], L, p.window, p.causal),
+             p, pr, d0);
+        p_ds(s[j][2 * hf + 1], dp[j][2 * hf + 1], sLse[r], sDelta[r],
+             pos[hf] >= 0 && live(k0 + c + 1, pos[hf], L, p.window, p.causal),
+             p, pr, d1);
+        st_split<kBK>(sDSh, sDSl, r, c, d0, d1);
+      }
     __syncthreads();
-    // dV += p^T dO, dK += ds^T q: thread owns keys 4*ty + i, dims tx + 16*j
-    for (int r = 0; r < R; ++r) {
-      float pv[4], dsv[4], qv[DJ], ov[DJ];
+
+    // dQ += ds k: rows m0.., dims 8 * (wn * QN + j).., two n8 tiles at a
+    // time; the tile's sum goes into acc in f32 adds
+    float part[QN][4];
+    zero(part);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sP[r * kSP + 4 * ty + i];
-        dsv[i] = sDS[r * kSP + 4 * ty + i];
-      }
+    for (int kk = 0; kk < kBK; kk += 8) {
+      uint32_t dh[4], dl[4];
+      frag_a(oDS, m0, kk, lane, dh, dl);
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        qv[j] = sQ[r * DP + tx + 16 * j];
-        ov[j] = sDO[r * DP + tx + 16 * j];
-      }
+      for (int j = 0; j < QN; j += 2) {
+        uint32_t kh[2][2], kl[2][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dv[i][j] = fmaf(pv[i], ov[j], dv[i][j]);
-          dk[i][j] = fmaf(dsv[i], qv[j], dk[i][j]);
+        for (int u = 0; u < 2; ++u) {
+          frag_b_kn(cK, kk, 8 * (wn * QN + j + u), lane, kh[u], kl[u]);
         }
+        if (!kOne) mma_row(part, j, dl, kh);
+        if (!kX) mma_row(part, j, dh, kl);
+        mma_row(part, j, dh, kh);
+      }
     }
+    add_into(acc, part);
+    __syncthreads();  // this tile's k, v and ds are overwritten next
+    t = t_next;
   }
+  cp_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
-    if (key >= p.S) continue;
-    const long long row = (((long long)b * p.S + key) * p.KVH + h) * DH;
+  for (int hf = 0; hf < 2; ++hf) {
+    if (pos[hf] < 0) continue;
+    const int r = m0 + g + 8 * hf;
+    float* row = p.dq + ((((long long)b * p.S + pos[hf]) * p.KVH + h) * p.G +
+                         (r - (pos[hf] - q0) * p.G)) * DH;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      p.dk[row + tx + 16 * j] = dk[i][j] * p.scale;
-      p.dv[row + tx + 16 * j] = dv[i][j];
+    for (int j = 0; j < QN; ++j) {
+      *reinterpret_cast<float2*>(row + 8 * (wn * QN + j) + c2) = make_float2(
+          acc[j][2 * hf] * p.scale, acc[j][2 * hf + 1] * p.scale);
     }
   }
+  record(p, walked, c0);
 }
 
-template <typename T, int DH>
-LaunchPlan plan_dq(const Params& p, int B) {
-  return {reinterpret_cast<const void*>(flash_bwd_dq<T, DH>),
+// -------------------------------------------------------------- dK/dV ----
+template <typename T, int DH, bool kOne = false>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDkvSmem<T, DH>>)
+    flash_bwd_dkv(Params p) {
+  constexpr int R = kRowsOf<DH>;
+  constexpr int MT = kBK / 16;             // m16 tiles over the keys
+  constexpr int WPM = kWarps / MT;         // warps sharing an m16 tile
+  constexpr int SN = (R / 8) / WPM;        // s^T, dp^T n8 tiles per warp
+  constexpr int KN = (DH / 8) / WPM;       // dK, dV n8 tiles per warp
+  constexpr bool kX = kExactTf32<T> || kOne;  // no operand lo terms
+  constexpr bool kPre = kPreKeysDkv<T, DH>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + kBK * DH;
+  T* sQ = sV + kBK * DH;     // [2][R * DH]
+  T* sDO = sQ + 2 * R * DH;  // [2][R * DH]
+  uint32_t* sPh = reinterpret_cast<uint32_t*>(sDO + 2 * R * DH);  // [kBK][R]
+  uint32_t* sPl = sPh + kBK * R;
+  uint32_t* sDSh = sPl + kBK * R;
+  uint32_t* sDSl = sDSh + kBK * R;
+  float* sLse = reinterpret_cast<float*>(sDSl + kBK * R);  // [2][R]
+  float* sDelta = sLse + 2 * R;                             // [2][R]
+  uint32_t* sKl = reinterpret_cast<uint32_t*>(sDelta + 2 * R);  // with kPre
+  uint32_t* sVl = sKl + kBK * DH;
+  const Opnd<T, DH, kPre> oK{sK, sKl}, oV{sV, sVl};
+  const Opnd<float, R, true> oP{reinterpret_cast<const float*>(sPh), sPl};
+  const Opnd<float, R, true> oDS{reinterpret_cast<const float*>(sDSh), sDSl};
+
+  const long long c0 = p.blocks ? clock64() : 0;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int L = p.lengths[b];
+  const float inv_g = 1.f / p.G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int m0 = 16 * (warp % MT), wn = warp / MT;
+  const int rows = p.BQ * p.G;
+  const int n_k = (p.S + kBK - 1) / kBK;
+  const int n_q = (p.S + p.BQ - 1) / p.BQ;
+  // this thread's score rows 8 * (wn * SN + j) + c2 + e: their query's
+  // offset in a query tile, or a large value past the folded rows
+  int rq[SN][2];
+#pragma unroll
+  for (int j = 0; j < SN; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * (wn * SN + j) + c2 + e;
+      rq[j][e] = r < rows ? div_g(r, inv_g) : p.S;
+    }
+
+  // key tiles x and n_k - 1 - x (one tile where they meet)
+  int walked = 0;
+  for (int pass = 0; pass < 2; ++pass) {
+    const int kt = pass == 0 ? blockIdx.x : n_k - 1 - blockIdx.x;
+    if (pass == 1 && kt == (int)blockIdx.x) break;
+    const int k0 = kt * kBK;
+    // the query tiles that can see this key tile: from the causal frontier
+    // (the tile holding query k0) to the last one inside the window
+    const int t_begin = p.causal ? k0 / p.BQ : 0;
+    int t_end = n_q;
+    if (p.window) {
+      t_end = min(n_q, (k0 + kBK - 1 + p.window + p.BQ - 1) / p.BQ);
+    }
+
+    __syncthreads();  // the previous pass's readers of k and v are done
+    copy_keys<T, DH>(sK, p.k, p, b, h, k0);
+    copy_keys<T, DH>(sV, p.v, p, b, h, k0);
+    int t = next_query_tile(p, L, k0, t_begin, t_end);
+    if (t < t_end) {
+      copy_rows<T, DH, R>(sQ, p.q, p, b, h, t * p.BQ, inv_g);
+      copy_rows<T, DH, R>(sDO, p.dout, p, b, h, t * p.BQ, inv_g);
+      copy_stats<R>(sLse, sDelta, p, b, h, t * p.BQ, inv_g);
+    }
+    cp_commit();
+
+    float dk[KN][4], dv[KN][4];
+    zero(dk);
+    zero(dv);
+    for (int buf = 0, fresh = 1; t < t_end; buf ^= 1, fresh = 0, ++walked) {
+      const int q0 = t * p.BQ;  // (the loop is uniform over the block)
+      const int t_next = next_query_tile(p, L, k0, t + 1, t_end);
+      if (t_next < t_end) {
+        const int o = (buf ^ 1) * R * DH;
+        copy_rows<T, DH, R>(sQ + o, p.q, p, b, h, t_next * p.BQ, inv_g);
+        copy_rows<T, DH, R>(sDO + o, p.dout, p, b, h, t_next * p.BQ, inv_g);
+        copy_stats<R>(sLse + (buf ^ 1) * R, sDelta + (buf ^ 1) * R, p, b, h,
+                      t_next * p.BQ, inv_g);
+      }
+      cp_commit();
+      cp_wait<1>();  // this query tile (and k, v) have landed
+      if constexpr (kPre) {
+        if (fresh) {
+          split_keys<DH>(reinterpret_cast<float*>(sK), sKl);
+          split_keys<DH>(reinterpret_cast<float*>(sV), sVl);
+        }
+      }
+      __syncthreads();
+      const Opnd<T, DH> cQ{sQ + buf * R * DH, nullptr};
+      const Opnd<T, DH> cDO{sDO + buf * R * DH, nullptr};
+      const float* cLse = sLse + buf * R;
+      const float* cDelta = sDelta + buf * R;
+
+      // s^T = k q^T and dp^T = v dO^T: keys m0.., rows 8 * (wn * SN + j)..
+      float s[SN][4], dp[SN][4];
+      zero(s);
+      zero(dp);
+#pragma unroll
+      for (int kk = 0; kk < DH; kk += 8) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        uint32_t qh[SN][2], ql[SN][2], oh[SN][2], ol[SN][2];
+        frag_a(oK, m0, kk, lane, kh, kl);
+        frag_a(oV, m0, kk, lane, vh, vl);
+#pragma unroll
+        for (int j = 0; j < SN; ++j) {
+          const int n0 = 8 * (wn * SN + j);
+          frag_b_nk(cQ, kk, n0, lane, qh[j], ql[j]);
+          frag_b_nk(cDO, kk, n0, lane, oh[j], ol[j]);
+        }
+        if (!kX) {
+          mma_row(s, 0, kl, qh);
+          mma_row(dp, 0, vl, oh);
+          mma_row(s, 0, kh, ql);
+          mma_row(dp, 0, vh, ol);
+        }
+        mma_row(s, 0, kh, qh);
+        mma_row(dp, 0, vh, oh);
+      }
+      // p^T and ds^T, split, into shared memory: accumulator i holds key
+      // g + 8 * (i / 2), row c2 + i % 2 of its n8 tile
+#pragma unroll
+      for (int j = 0; j < SN; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int key = m0 + g + 8 * hf;
+          const int c = 8 * (wn * SN + j) + c2;
+          float pr[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int pos = q0 + rq[j][e];
+            const bool ok = pos < p.S &&
+                            live(k0 + key, pos, L, p.window, p.causal);
+            p_ds(s[j][2 * hf + e], dp[j][2 * hf + e], cLse[c + e],
+                 cDelta[c + e], ok, p, pr[e], ds[e]);
+          }
+          st_split<R>(sPh, sPl, key, c, pr[0], pr[1]);
+          st_split<R>(sDSh, sDSl, key, c, ds[0], ds[1]);
+        }
+      __syncthreads();
+
+      // dV += p^T dO, dK += ds^T q: keys m0.., dims 8 * (wn * KN + j)..,
+      // two n8 tiles at a time; the tile's sums go into dk, dv in f32 adds
+      float dkt[KN][4], dvt[KN][4];
+      zero(dkt);
+      zero(dvt);
+#pragma unroll
+      for (int kk = 0; kk < R; kk += 8) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        frag_a(oP, m0, kk, lane, ph, pl);
+        frag_a(oDS, m0, kk, lane, dh, dl);
+#pragma unroll
+        for (int j = 0; j < KN; j += 2) {
+          uint32_t oh[2][2], ol[2][2], qh[2][2], ql[2][2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int n0 = 8 * (wn * KN + j + u);
+            frag_b_kn(cDO, kk, n0, lane, oh[u], ol[u]);
+            frag_b_kn(cQ, kk, n0, lane, qh[u], ql[u]);
+          }
+          if (!kOne) {
+            mma_row(dvt, j, pl, oh);
+            mma_row(dkt, j, dl, qh);
+          }
+          if (!kX) {
+            mma_row(dvt, j, ph, ol);
+            mma_row(dkt, j, dh, ql);
+          }
+          mma_row(dvt, j, ph, oh);
+          mma_row(dkt, j, dh, qh);
+        }
+      }
+      add_into(dk, dkt);
+      add_into(dv, dvt);
+      __syncthreads();  // this tile's q, dO, p^T and ds^T are overwritten
+      t = t_next;
+    }
+    cp_wait<0>();
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = k0 + m0 + g + 8 * hf;
+      if (key >= p.S) continue;
+      const long long row = (((long long)b * p.S + key) * p.KVH + h) * DH;
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        const int d = 8 * (wn * KN + j) + c2;
+        *reinterpret_cast<float2*>(p.dk + row + d) = make_float2(
+            dk[j][2 * hf] * p.scale, dk[j][2 * hf + 1] * p.scale);
+        *reinterpret_cast<float2*>(p.dv + row + d) =
+            make_float2(dv[j][2 * hf], dv[j][2 * hf + 1]);
+      }
+    }
+  }
+  record(p, walked, c0);
+}
+
+// ------------------------------------------------------------- launchers --
+// Sets p.BQ for the head dim and returns the launch.
+template <bool DKV, typename T, int DH, bool kOne = false>
+LaunchPlan plan(Params& p, int B) {
+  p.BQ = kRowsOf<DH> / p.G;
+  if (DKV) {
+    const int n_k = (p.S + kBK - 1) / kBK;
+    return {reinterpret_cast<const void*>(flash_bwd_dkv<T, DH, kOne>),
+            dim3((n_k + 1) / 2, p.KVH, B), kThreads, kDkvSmem<T, DH>};
+  }
+  return {reinterpret_cast<const void*>(flash_bwd_dq<T, DH, kOne>),
           dim3((p.S + p.BQ - 1) / p.BQ, p.KVH, B), kThreads,
-          sizeof(float) * dq_smem_floats<DH>()};
+          kDqSmem<T, DH>};
 }
 
-template <typename T, int DH>
-LaunchPlan plan_dkv(const Params& p, int B) {
-  return {reinterpret_cast<const void*>(flash_bwd_dkv<T, DH>),
-          dim3((p.S + kBK - 1) / kBK, p.KVH, B), kThreads,
-          sizeof(float) * dkv_smem_floats<DH>()};
+// Instantiations for the grant: dQ then dK/dV, f32 then bf16, dh 64, 128,
+// 256.  The probe's one-pass controls have grants of their own, so that
+// the count of attribute calls (flash_attn_bwd_smem_state) is the wrapped
+// path's.
+constexpr int kInstances = 12;
+SmemGrants<kInstances> g_grants;
+SmemGrants<kInstances> g_one_pass_grants;
+
+int instance(int dkv, int is_bf16, int dh) {
+  const int d = dh == 64 ? 0 : dh == 128 ? 1 : 2;
+  return 6 * (dkv != 0) + 3 * (is_bf16 != 0) + d;
 }
 
-template <typename T, int DH>
-cudaError_t launch_dq(const Params& p, int B, cudaStream_t st) {
-  const LaunchPlan lp = plan_dq<T, DH>(p, B);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lp.smem);
+template <bool DKV, typename T, int DH, bool kOne = false>
+cudaError_t launch(Params p, int B, cudaStream_t st) {
+  const LaunchPlan lp = plan<DKV, T, DH, kOne>(p, B);
+  const cudaError_t e = (kOne ? g_one_pass_grants : g_grants)
+                            .grant(lp.fn, instance(DKV, kExactTf32<T>, DH),
+                                   lp.smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq<T, DH><<<lp.grid, lp.threads, lp.smem, st>>>(p);
+  if (DKV) {
+    flash_bwd_dkv<T, DH, kOne><<<lp.grid, lp.threads, lp.smem, st>>>(p);
+  } else {
+    flash_bwd_dq<T, DH, kOne><<<lp.grid, lp.threads, lp.smem, st>>>(p);
+  }
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
-cudaError_t launch_dkv(const Params& p, int B, cudaStream_t st) {
-  const LaunchPlan lp = plan_dkv<T, DH>(p, B);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lp.smem);
-  if (e != cudaSuccess) return e;
-  flash_bwd_dkv<T, DH><<<lp.grid, lp.threads, lp.smem, st>>>(p);
-  return cudaGetLastError();
+template <typename T_, int DH_>
+struct Inst {
+  using T = T_;
+  static constexpr int DH = DH_;
+};
+
+// f(Inst<T, DH>{}) for head dim dh (64, 128 or 256) and the operand type.
+template <typename F>
+auto visit(int dh, int is_bf16, F&& f) {
+  if (dh == 64) {
+    return is_bf16 ? f(Inst<__nv_bfloat16, 64>{}) : f(Inst<float, 64>{});
+  }
+  if (dh == 128) {
+    return is_bf16 ? f(Inst<__nv_bfloat16, 128>{}) : f(Inst<float, 128>{});
+  }
+  return is_bf16 ? f(Inst<__nv_bfloat16, 256>{}) : f(Inst<float, 256>{});
 }
 
+template <bool DKV>
+cudaError_t dispatch(const Params& p, int B, int dh, int is_bf16,
+                     cudaStream_t st) {
+  return visit(dh, is_bf16, [&](auto i) {
+    using I = decltype(i);
+    return launch<DKV, typename I::T, I::DH>(p, B, st);
+  });
+}
+
+template <bool DKV>
+LaunchPlan plan_of(Params& p, int B, int dh, int is_bf16) {
+  return visit(dh, is_bf16, [&](auto i) {
+    using I = decltype(i);
+    return plan<DKV, typename I::T, I::DH>(p, B);
+  });
+}
+
+// head_dim 64, 128 or 256, and 1 <= G <= the score rows of a tile (64, or
+// 32 at 256).
 int check_shape(int B, int S, int G, int dh) {
-  if (G < 1 || G > kRows || (dh != 64 && dh != 128)) {
+  if (dh != 64 && dh != 128 && dh != 256) return cudaErrorInvalidValue;
+  if (G < 1 || G > (dh == 256 ? kRowsOf<256> : kRowsOf<64>)) {
     return cudaErrorInvalidValue;
   }
   return (B == 0 || S == 0) ? -1 : 0;  // -1: nothing to launch
 }
 
+// The kernels read the operands in 16-byte chunks.
+bool operands_aligned(const void* q, const void* k, const void* v,
+                      const void* dout) {
+  return aligned(q, 16) && aligned(k, 16) && aligned(v, 16) &&
+         aligned(dout, 16);
+}
+
 }  // namespace
 
-// q, dout [B, S, KVH*G, dh] and k, v [B, S, KVH, dh], contiguous, all f32
-// or all bf16; lengths [B] int32 (<= S); lse, delta [B, KVH, S, G] f32;
-// dq [B, S, KVH*G, dh] f32.
+// q, dout [B, S, KVH*G, dh] and k, v [B, S, KVH, dh], contiguous and
+// 16-byte aligned, all f32 or all bf16; lengths [B] int32 (<= S); lse,
+// delta [B, KVH, S, G] f32; dq [B, S, KVH*G, dh] f32.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const int* lengths,
                                  const float* lse, const float* delta,
@@ -404,15 +958,10 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  void* stream) {
   const int rc = check_shape(B, S, G, dh);
   if (rc) return rc < 0 ? 0 : rc;
+  if (!operands_aligned(q, k, v, dout)) return cudaErrorMisalignedAddress;
   const Params p{q, k, v, dout, lengths, lse, delta, dq, nullptr, nullptr,
-                 S, KVH, G, kRows / G, window, causal, softcap, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh == 64) {
-    return is_bf16 ? launch_dq<__nv_bfloat16, 64>(p, B, st)
-                   : launch_dq<float, 64>(p, B, st);
-  }
-  return is_bf16 ? launch_dq<__nv_bfloat16, 128>(p, B, st)
-                 : launch_dq<float, 128>(p, B, st);
+                 S, KVH, G, 0, window, causal, softcap, scale};
+  return dispatch<false>(p, B, dh, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // Arguments as flash_attn_bwd_dq; dk, dv [B, S, KVH, dh] f32.
@@ -425,15 +974,45 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
                                   float scale, int is_bf16, void* stream) {
   const int rc = check_shape(B, S, G, dh);
   if (rc) return rc < 0 ? 0 : rc;
+  if (!operands_aligned(q, k, v, dout)) return cudaErrorMisalignedAddress;
   const Params p{q, k, v, dout, lengths, lse, delta, nullptr, dk, dv,
-                 S, KVH, G, kRows / G, window, causal, softcap, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh == 64) {
-    return is_bf16 ? launch_dkv<__nv_bfloat16, 64>(p, B, st)
-                   : launch_dkv<float, 64>(p, B, st);
+                 S, KVH, G, 0, window, causal, softcap, scale};
+  return dispatch<true>(p, B, dh, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// A measurement launch beside the wrapped path: the dQ (dkv = 0, into dq)
+// or dK/dV kernel (dkv = 1, into dk, dv) on flash_attn_bwd_dq's operands,
+// each block writing the tiles it walked and the SM clocks it took into
+// blocks[2 * i] and blocks[2 * i + 1], i its linear index (blockIdx.x
+// fastest; the grid of flash_attn_bwd_plan).  With one_pass (f32 at head
+// dim 64 or 256 only) every product takes one TF32 pass, hi*hi: the
+// precision control of the 3xTF32 split.
+extern "C" int flash_attn_bwd_probe(int dkv, int one_pass, const void* q,
+                                    const void* k, const void* v,
+                                    const void* dout, const int* lengths,
+                                    const float* lse, const float* delta,
+                                    float* dq, float* dk, float* dv, int B,
+                                    int S, int KVH, int G, int dh, int window,
+                                    float softcap, int causal, float scale,
+                                    int is_bf16, long long* blocks,
+                                    void* stream) {
+  const int rc = check_shape(B, S, G, dh);
+  if (rc) return rc < 0 ? 0 : rc;
+  if (!operands_aligned(q, k, v, dout)) return cudaErrorMisalignedAddress;
+  if (one_pass && (is_bf16 || dh == 128)) return cudaErrorInvalidValue;
+  const Params p{q, k, v, dout, lengths, lse, delta, dq, dk, dv,
+                 S, KVH, G, 0, window, causal, softcap, scale, blocks};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (!one_pass) {
+    return dkv ? dispatch<true>(p, B, dh, is_bf16, st)
+               : dispatch<false>(p, B, dh, is_bf16, st);
   }
-  return is_bf16 ? launch_dkv<__nv_bfloat16, 128>(p, B, st)
-                 : launch_dkv<float, 128>(p, B, st);
+  if (dh == 64) {
+    return dkv ? launch<true, float, 64, true>(p, B, st)
+               : launch<false, float, 64, true>(p, B, st);
+  }
+  return dkv ? launch<true, float, 256, true>(p, B, st)
+             : launch<false, float, 256, true>(p, B, st);
 }
 
 // The launch flash_attn_bwd_dq (dkv = 0) or flash_attn_bwd_dkv (dkv = 1)
@@ -447,18 +1026,21 @@ extern "C" int flash_attn_bwd_plan(int dkv, int B, int S, int KVH, int G,
   p.S = S;
   p.KVH = KVH;
   p.G = G;
-  p.BQ = kRows / G;
-  LaunchPlan lp;
-  if (dh == 64) {
-    lp = dkv ? (is_bf16 ? plan_dkv<__nv_bfloat16, 64>(p, B)
-                        : plan_dkv<float, 64>(p, B))
-             : (is_bf16 ? plan_dq<__nv_bfloat16, 64>(p, B)
-                        : plan_dq<float, 64>(p, B));
-  } else {
-    lp = dkv ? (is_bf16 ? plan_dkv<__nv_bfloat16, 128>(p, B)
-                        : plan_dkv<float, 128>(p, B))
-             : (is_bf16 ? plan_dq<__nv_bfloat16, 128>(p, B)
-                        : plan_dq<float, 128>(p, B));
-  }
+  const LaunchPlan lp = dkv ? plan_of<true>(p, B, dh, is_bf16)
+                            : plan_of<false>(p, B, dh, is_bf16);
   return write_plans(&lp, 1, out);
+}
+
+// The launcher's grant for one instantiation on the current device:
+// out[0] the dynamic shared bytes granted to the dQ (dkv = 0) or dK/dV
+// kernel of that head dim and type (0: none yet), out[1] the
+// cudaFuncSetAttribute calls both kernels' launches made in this process.
+extern "C" int flash_attn_bwd_smem_state(int dkv, int dh, int is_bf16,
+                                         long long* out) {
+  if (dh != 64 && dh != 128 && dh != 256) return cudaErrorInvalidValue;
+  const cudaError_t e =
+      g_grants.granted_here(instance(dkv, is_bf16, dh), out);
+  if (e != cudaSuccess) return e;
+  out[1] = g_grants.sets.load();
+  return 0;
 }

@@ -31,7 +31,7 @@ import torch
 from repro_torch.kernels import build, plans, ref
 
 KERNEL_HEAD_DIMS = (64, 128, 256)  # the flash forward
-BWD_HEAD_DIMS = (64, 128)          # the flash backward
+BWD_HEAD_DIMS = (64, 128, 256)     # the flash backward
 DECODE_HEAD_DIMS = (64, 128, 256)
 DECODE_MAX_G = 16
 DECODE_CHUNK = 256  # cache positions per split of the decode kernel
@@ -247,11 +247,11 @@ def _attn_dims(q, k, v):
     return B, S, KV, H // KV, hd
 
 
-def _check_attn_kernel(q, k, v, G, hd, *, dims=KERNEL_HEAD_DIMS, do=None,
-                       rows=(), row_shape=()):
+def _check_attn_kernel(q, k, v, G, hd, *, dims=KERNEL_HEAD_DIMS, max_g=64,
+                       do=None, rows=(), row_shape=()):
     """What the flash kernels take: q, k, v (and dO) in one of f32/bf16,
     a head_dim in ``dims`` (the forward's, or the backward's
-    ``BWD_HEAD_DIMS``), G <= 64, and f32 per-row statistics."""
+    ``BWD_HEAD_DIMS``), G <= ``max_g``, and f32 per-row statistics."""
     if q.dtype not in _FLOATS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share f32 or bf16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -261,9 +261,9 @@ def _check_attn_kernel(q, k, v, G, hd, *, dims=KERNEL_HEAD_DIMS, do=None,
         if t.dtype != torch.float32 or tuple(t.shape) != row_shape:
             raise ValueError(f"lse/delta must be f32 {row_shape}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    if hd not in dims or G > 64:
+    if hd not in dims or G > max_g:
         raise ValueError(f"the flash kernel takes head_dim in {dims} and "
-                         f"G <= 64, got {hd}, {G}")
+                         f"G <= {max_g}, got {hd}, {G}")
 
 
 def _flash_fwd(q, k, v, L, window, softcap, causal):
@@ -288,6 +288,17 @@ def _flash_fwd(q, k, v, L, window, softcap, causal):
     return out, lse
 
 
+def _bwd_operands(q, k, v, do, lse, delta, B, S, KV, G, hd):
+    """The backward kernels' operands, checked (``BWD_HEAD_DIMS``, G <=
+    ``plans.flash_bwd_rows``) and contiguous.  The kernels read q, k, v and
+    dO in 16-byte chunks and refuse a pointer off that alignment."""
+    _check_attn_kernel(q, k, v, G, hd, dims=BWD_HEAD_DIMS,
+                       max_g=plans.flash_bwd_rows(hd), do=do,
+                       rows=(lse, delta),
+                       row_shape=(B, KV, S, G))
+    return tuple(t.contiguous() for t in (q, k, v, do, lse, delta))
+
+
 @_recorded(_flash_plan(dkv=False))
 def flash_attention_bwd_dq(q, k, v, lengths, lse, delta, do, *,
                            window: int = 0, softcap: float = 0.0,
@@ -301,10 +312,8 @@ def flash_attention_bwd_dq(q, k, v, lengths, lse, delta, do, *,
         return ref.flash_attn_bwd_dq_ref(q, k, v, L, lse, delta, do,
                                          window=window, softcap=softcap,
                                          causal=causal)
-    _check_attn_kernel(q, k, v, G, hd, dims=BWD_HEAD_DIMS, do=do,
-                       rows=(lse, delta), row_shape=(B, KV, S, G))
-    q, k, v, do, lse, delta = (t.contiguous()
-                               for t in (q, k, v, do, lse, delta))
+    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, B, S,
+                                            KV, G, hd)
     lib = build.load()
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     rc = lib.flash_attn_bwd_dq(
@@ -329,10 +338,8 @@ def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
         return ref.flash_attn_bwd_dkv_ref(q, k, v, L, lse, delta, do,
                                           window=window, softcap=softcap,
                                           causal=causal)
-    _check_attn_kernel(q, k, v, G, hd, dims=BWD_HEAD_DIMS, do=do,
-                       rows=(lse, delta), row_shape=(B, KV, S, G))
-    q, k, v, do, lse, delta = (t.contiguous()
-                               for t in (q, k, v, do, lse, delta))
+    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, B, S,
+                                            KV, G, hd)
     lib = build.load()
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
@@ -345,6 +352,42 @@ def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
     build.check(lib, rc, "flash_attn_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
+
+
+def flash_attention_bwd_probe(q, k, v, lengths, lse, delta, do, *,
+                              dkv: bool, one_pass: bool = False,
+                              window: int = 0, softcap: float = 0.0,
+                              causal: bool = True):
+    """A measurement launch of the dQ (``dkv`` False) or dK/dV kernel on
+    CUDA operands of :func:`flash_attention_bwd_dq`, outside the wrapped
+    path (no launch is counted): (its outputs, a [blocks, 2] int64 record of
+    the key or query tiles each block walked and the SM clocks it took, in
+    launch order).  ``one_pass`` (f32, head_dim 64 or 256) runs every
+    product as one TF32 pass: the precision control of the kernels'
+    3xTF32 split."""
+    B, S, KV, G, hd = _attn_dims(q, k, v)
+    L = _lengths(lengths, B, S, q.device)
+    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, B, S,
+                                            KV, G, hd)
+    bf16 = q.dtype == torch.bfloat16
+    (launch,) = plans.flash_attn_bwd(B, S, KV, G, hd, bf16, dkv)
+    n_blocks = launch.grid[0] * launch.grid[1] * launch.grid[2]
+    blocks = torch.zeros((n_blocks, 2), dtype=torch.int64, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if dkv:
+        out = (torch.empty(k.shape, **f32), torch.empty(v.shape, **f32))
+        ptrs = (0, out[0].data_ptr(), out[1].data_ptr())
+    else:
+        out = torch.empty(q.shape, **f32)
+        ptrs = (out.data_ptr(), 0, 0)
+    lib = build.load()
+    rc = lib.flash_attn_bwd_probe(
+        int(dkv), int(one_pass), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), L.data_ptr(), lse.data_ptr(), delta.data_ptr(), *ptrs,
+        B, S, KV, G, hd, int(window), float(softcap), int(bool(causal)),
+        float(hd ** -0.5), int(bf16), blocks.data_ptr(), _stream(q))
+    build.check(lib, rc, "flash_attn_bwd_probe")
+    return out, blocks
 
 
 class FlashAttentionFn(torch.autograd.Function):

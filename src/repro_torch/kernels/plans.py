@@ -94,23 +94,42 @@ def flash_attn_fwd(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool):
                    (_cdiv(S, bq), KVH, B), FLASH_THREADS, 0, 4 * floats)]
 
 
+FLASH_BWD_BK = 32  # keys per tile of both backward kernels
+
+
+def flash_bwd_rows(dh: int) -> int:
+    """Score rows (BQ queries x G heads folded) of a backward query tile:
+    64, or 32 at head_dim 256; G may not exceed them."""
+    return 32 if dh == 256 else 64
+
+
 def flash_attn_bwd(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool,
                    dkv: bool):
-    """dQ: one block per (64 / G queries, KV head, row); dK/dV: one block per
-    (64 keys, KV head, row)."""
+    """dQ: one block per (rows / G queries, KV head, row), heaviest first;
+    q and dO tiles, double-buffered k and v tiles (operand type), the ds
+    tile as TF32 hi and lo and two row statistics (f32).  dK/dV: one block
+    per (pair of 32-key tiles t and n-1-t, KV head, row); k and v tiles,
+    double-buffered q and dO tiles (operand type), the p^T and ds^T tiles
+    as hi and lo and double-buffered statistics (f32).  In f32 dQ at
+    head_dim <= 128, and dK/dV at 128, also hold the lo planes of their k
+    and v tiles."""
     if B == 0 or S == 0:
         return []
-    sp = FLASH_BK + 1
-    tiles = 2 * FLASH_ROWS * (dh + 1) + 2 * FLASH_BK * (dh + 1)
+    rows, bk = flash_bwd_rows(dh), FLASH_BWD_BK
+    ts = 2 if bf16 else 4
     t = "bf16" if bf16 else "f32"
-    if dkv:
-        floats = tiles + 2 * FLASH_ROWS * sp + 2 * FLASH_ROWS
-        return [Launch(f"flash_bwd_dkv<{t},{dh}>", (_cdiv(S, FLASH_BK), KVH, B),
-                       FLASH_THREADS, 0, 4 * floats)]
-    floats = tiles + FLASH_ROWS * sp + 2 * FLASH_ROWS
+    if dkv:  # f32 key tiles split once (their lo planes) at head_dim 128
+        pre = not bf16 and dh == 128
+        smem = (ts * (2 * bk * dh + 4 * rows * dh)
+                + 4 * (4 * bk * rows + 4 * rows) + pre * 4 * 2 * bk * dh)
+        return [Launch(f"flash_bwd_dkv<{t},{dh}>",
+                       (_cdiv(_cdiv(S, bk), 2), KVH, B), FLASH_THREADS, 0,
+                       smem)]
+    pre = not bf16 and dh <= 128  # ... and at 64 in dQ
+    smem = (ts * (2 * rows * dh + 4 * bk * dh) + 4 * (2 * rows * bk + 2 * rows)
+            + pre * 4 * 4 * bk * dh)
     return [Launch(f"flash_bwd_dq<{t},{dh}>",
-                   (_cdiv(S, FLASH_ROWS // G), KVH, B), FLASH_THREADS, 0,
-                   4 * floats)]
+                   (_cdiv(S, rows // G), KVH, B), FLASH_THREADS, 0, smem)]
 
 
 # ---------------------------------------------------------- decode_attn.cu --

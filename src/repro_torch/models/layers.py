@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import plans, ref
 from repro_torch.kernels.ops import (BWD_HEAD_DIMS, DECODE_HEAD_DIMS,
                                      DECODE_MAX_G, KERNEL_HEAD_DIMS)
 
@@ -117,10 +117,13 @@ ATTN_AUTO_MIN_S = 256
 
 def kernel_supports(cfg, differentiable: bool = False) -> bool:
     """Whether the flash kernels take this head layout: the forward's
-    head dims, and under autograd the backward's too."""
+    head dims and G <= 64, and under autograd the backward's too (G up to
+    its query tile's rows: 32 at head_dim 256)."""
     G = cfg.n_heads // cfg.n_kv_heads
-    dims = BWD_HEAD_DIMS if differentiable else KERNEL_HEAD_DIMS
-    return cfg.resolved_head_dim in dims and G <= 64
+    hd = cfg.resolved_head_dim
+    if differentiable:
+        return hd in BWD_HEAD_DIMS and G <= plans.flash_bwd_rows(hd)
+    return hd in KERNEL_HEAD_DIMS and G <= 64
 
 
 def resolve_attn_backend(backend, cfg, *, S: int = 0,
@@ -131,10 +134,9 @@ def resolve_attn_backend(backend, cfg, *, S: int = 0,
     ``ATTN_AUTO_MIN_S`` or for a head layout the kernels do not take, and
     to "kernel" otherwise, whether or not autograd records
     (``differentiable``): the kernel route differentiates through the
-    recompute backward kernels, whose saved state is O(S*dh).  The forward
-    kernel takes head_dim 64, 128 and 256, the backward 64 and 128, so a
-    head_dim of 256 (Gemma-2) takes the kernel for forwards and the dense
-    route under autograd.
+    recompute backward kernels, whose saved state is O(S*dh).  Both the
+    forward and the backward kernels take head_dim 64, 128 and 256, so
+    Gemma-2 (head_dim 256) takes the kernel under autograd too.
 
     This is the port's own rule.  Under grad, the JAX package on a compiled
     TPU sends head dims off its 128-lane tile (Llama-3.2-1B's 64) to its

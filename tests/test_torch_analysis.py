@@ -265,6 +265,18 @@ def test_plans_match_the_launchers_arithmetic():
         (2, 1, 1)
     assert [x.grid for x in plans.gradip_reduce(1_235_814, True)] == \
         [(1024, 1, 1)]
+    # the backward: dQ one block per 64 / G queries (32 / G at head_dim
+    # 256), dK/dV one per pair of 32-key tiles
+    assert plans.flash_attn_bwd(4, 512, 8, 4, 64, False, False)[0].grid == \
+        (32, 8, 4)
+    assert plans.flash_attn_bwd(4, 512, 8, 4, 64, False, True)[0].grid == \
+        (8, 8, 4)
+    assert plans.flash_attn_bwd(1, 4352, 4, 2, 256, False, False)[0].grid \
+        == (272, 4, 1)
+    assert plans.flash_attn_bwd(1, 4352, 4, 2, 256, False, True)[0].grid \
+        == (68, 4, 1)
+    assert plans.flash_attn_bwd(1, 4353, 4, 2, 256, True, True)[0].grid \
+        == (69, 4, 1)  # 137 key tiles: the middle one's block has one
     # every kernel at the main paths' shapes fits a Hopper block
     for launches in (plans.flash_attn_fwd(16, 512, 8, 4, 64, False),
                      plans.flash_attn_fwd(2, 4208, 4, 2, 256, True),
@@ -274,6 +286,49 @@ def test_plans_match_the_launchers_arithmetic():
                      plans.mamba_scan(4, 512, 16384, 16),
                      plans.fixture_double(128, 128, 128, True)):
         assert all(x.shared_bytes <= plans.H100_SMEM_OPTIN for x in launches)
+
+
+@pytest.mark.parametrize("dh,bf16,dq_bytes,dkv_bytes", [
+    (64, False, 115_200, 115_712), (64, True, 49_664, 74_752),
+    (128, False, 213_504, 230_400), (128, True, 82_432, 115_712),
+    (256, False, 205_056, 213_504), (256, True, 106_752, 115_200)])
+def test_flash_bwd_shared_bytes_fit_a_block(dh, bf16, dq_bytes, dkv_bytes):
+    """The backward kernels' dynamic shared memory at every head_dim and
+    type (flash_attn_bwd.cu's kDqSmem, kDkvSmem): under the 227 KB opt-in
+    limit, the same at any S, B or G; at head_dim 64 in f32 two blocks of
+    either kernel (and their 1 KB each) fit an SM's 228 KB, the dK/dV
+    ones exactly."""
+    (dq,) = plans.flash_attn_bwd(1, 4352, 4, 2, dh, bf16, False)
+    (dkv,) = plans.flash_attn_bwd(1, 4352, 4, 2, dh, bf16, True)
+    assert (dq.dynamic_smem, dkv.dynamic_smem) == (dq_bytes, dkv_bytes)
+    assert max(dq.shared_bytes, dkv.shared_bytes) <= plans.H100_SMEM_OPTIN
+    assert plans.flash_attn_bwd(2, 77, 1, 1, dh, bf16, True)[0] \
+        .dynamic_smem == dkv_bytes
+    if (dh, bf16) == (64, False):
+        assert 2 * (dq_bytes + 1024) <= 233_472
+        assert 2 * (dkv_bytes + 1024) == 233_472
+
+
+@pytest.mark.parametrize("S,G,dh", [
+    (512, 4, 64),      # the first-order shape (Llama-3.2-1B)
+    (512, 8, 128),     # Jamba's attention layer
+    (4352, 2, 256),    # Gemma-2 in grad_gemma
+    (4353, 2, 256)])   # an odd count of key tiles
+def test_flash_bwd_grid_covers_every_tile_once(S, G, dh):
+    """dQ's blocks cover the S queries in tiles of flash_bwd_rows / G; the
+    dK/dV block x takes key tiles x and n-1-x, which cover the 32-key tiles
+    once each (the middle one alone when their count is odd); the same grid
+    for bf16, over every KV head and batch row."""
+    bq, n_k = plans.flash_bwd_rows(dh) // G, -(-S // plans.FLASH_BWD_BK)
+    (dq,) = plans.flash_attn_bwd(2, S, 3, G, dh, False, False)
+    (dkv,) = plans.flash_attn_bwd(2, S, 3, G, dh, False, True)
+    assert dq.grid[1:] == dkv.grid[1:] == (3, 2)
+    assert (dq.grid[0] - 1) * bq < S <= dq.grid[0] * bq
+    pairs = [{x, n_k - 1 - x} for x in range(dkv.grid[0])]
+    assert sorted(t for pair in pairs for t in pair) == list(range(n_k))
+    for dkv_ in (False, True):
+        assert plans.flash_attn_bwd(2, S, 3, G, dh, True, dkv_)[0].grid == \
+            (dkv if dkv_ else dq).grid
 
 
 @pytest.mark.parametrize("n,vec,blocks", [

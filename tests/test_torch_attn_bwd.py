@@ -4,7 +4,8 @@ route and against the JAX package's Pallas VJP in interpret mode:
 
 * the plain dQ and dK/dV versions equal autograd through ``gqa_attention``;
 * ``FlashAttentionFn`` equals ``jax.vjp`` of ``repro.kernels.ops
-  .flash_attention`` over the matrix of ``tests/test_attn_vjp.py``;
+  .flash_attention`` over the matrix of ``tests/test_attn_vjp.py``, and at
+  Gemma-2's head_dim 256;
 * dK/dV vanish past each row's length, and a length-0 row is finite zero;
 * the whole TINY model's gradient on the ``kernel`` route equals
   ``jax.grad`` with ``attn_backend="pallas"``.
@@ -53,13 +54,13 @@ def _isolated_autotune(monkeypatch, tmp_path):
     autotune.clear_cache()
 
 
-def _case(S, H, KV, lfrac, seed=0):
+def _case(S, H, KV, lfrac, seed=0, hd=HD):
     """q, k, v, lengths and the cotangent as numpy, the cotangent made as in
     tests/test_attn_vjp.py (position-dependent, zero past each length)."""
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(2, S, H, HD)).astype(np.float32)
-    k = rng.normal(size=(2, S, KV, HD)).astype(np.float32)
-    v = rng.normal(size=(2, S, KV, HD)).astype(np.float32)
+    q = rng.normal(size=(2, S, H, hd)).astype(np.float32)
+    k = rng.normal(size=(2, S, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(2, S, KV, hd)).astype(np.float32)
     lengths = np.array([S, S if lfrac is None else max(1, int(S * lfrac))],
                        np.int32)
     w = np.sin(np.arange(q.size, dtype=np.float32).reshape(q.shape) * 1e-3)
@@ -167,3 +168,32 @@ def test_model_grad_kernel_route_matches_jax_pallas():
     for a, b in zip(tree_leaves(tg), jax.tree_util.tree_leaves(jg)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3,
                                    atol=2e-4)
+
+
+# Gemma-2's head_dim 256 (the backward kernels' third instance): (S, H, KV,
+# softcap, window, lengths-fraction), H 2 over KV 1 (G 2, as in Gemma-2-2b)
+MATRIX_256 = [
+    (64, 2, 1, 0.0, 0, None),
+    (67, 2, 1, 50.0, 24, 0.75),
+]
+
+
+@pytest.mark.parametrize("S,H,KV,cap,window,lfrac", MATRIX_256)
+def test_flash_fn_matches_pallas_vjp_head_dim_256(S, H, KV, cap, window,
+                                                  lfrac):
+    """FlashAttentionFn at head_dim 256 on the CPU against jax.vjp of the
+    Pallas kernels (interpret mode), on the same numpy inputs and
+    cotangent, at the tolerance of the head_dim-16 matrix above."""
+    q, k, v, lengths, w = _case(S, H, KV, lfrac, seed=7, hd=256)
+
+    def jfn(q, k, v):
+        return jops.flash_attention(q, k, v, jnp.asarray(lengths),
+                                    window=window, softcap=cap, block_q=32,
+                                    block_k=32, interpret=True)
+
+    _, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(w))
+    got = _torch_vjp(q, k, v, lengths, w, window, cap)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=0)

@@ -137,7 +137,7 @@ def _bwd_inputs(dev, dtype, B, S, KV, G, dh, lengths, window, softcap, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,dh", [(1, 64), (4, 64), (4, 128), (1, 128),
-                                  (6, 64)])
+                                  (6, 64), (1, 256), (2, 256)])
 @pytest.mark.parametrize("S,window,softcap,lengths", [
     (128, 0, 0.0, None), (200, 0, 0.0, (200, 77)), (256, 48, 0.0, None),
     (130, 32, 30.0, (130, 1)), (64, 0, 0.0, (0, 64))])
@@ -252,18 +252,90 @@ def test_flash_decode_matches_plain_at_gemma_shapes(dev, dtype, S, lengths):
     assert torch.equal(ops.flash_decode(q, k, v, L, softcap=50.0), out)
 
 
-def test_flash_backward_rejects_head_dim_256(dev):
-    """The backward kernels take head_dim 64 and 128 only; the wrapper
-    raises before a launch (auto takes the dense route under autograd)."""
-    q = torch.zeros(1, 64, 2, 256, device=dev)
-    k = torch.zeros(1, 64, 1, 256, device=dev)
-    lse = torch.zeros(1, 1, 64, 2, device=dev)
+def test_flash_backward_rejects_unsupported_head_dim(dev):
+    """The backward kernels take head_dim 64, 128 and 256, and at 256 G <=
+    32 (their 32-row query tiles); the wrappers raise before a launch
+    on anything else."""
     before = ops.launches()
-    with pytest.raises(ValueError):
-        ops.flash_attention_bwd_dq(q, k, k, None, lse, lse, q)
-    with pytest.raises(ValueError):
-        ops.flash_attention_bwd_dkv(q, k, k, None, lse, lse, q)
+    for dh, H in ((96, 2), (256, 33)):
+        q = torch.zeros(1, 64, H, dh, device=dev)
+        k = torch.zeros(1, 64, 1, dh, device=dev)
+        lse = torch.zeros(1, 1, 64, H, device=dev)
+        with pytest.raises(ValueError):
+            ops.flash_attention_bwd_dq(q, k, k, None, lse, lse, q)
+        with pytest.raises(ValueError):
+            ops.flash_attention_bwd_dkv(q, k, k, None, lse, lse, q)
     assert ops.launches() == before
+
+
+def _bwd_smem_state(dkv, dh, bf16):
+    """(dynamic shared bytes granted to one backward instantiation on this
+    device, cudaFuncSetAttribute calls of the backward's launches so
+    far)."""
+    from repro_torch.kernels import build
+    out = (ctypes.c_longlong * 2)()
+    assert build.load().flash_attn_bwd_smem_state(int(dkv), dh, int(bf16),
+                                                  out) == 0
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_flash_bwd_sets_the_smem_attribute_once(dev, dh, dtype):
+    """The backward launchers ask for their shared memory through the
+    per-device high-water mark (common.cuh): after a launch the mark holds
+    the plan's bytes, and launches at other shapes (the same bytes) make
+    no cudaFuncSetAttribute call."""
+    from repro_torch.kernels import plans
+    bf16 = dtype == torch.bfloat16
+    kw = dict(window=0, softcap=0.0, causal=True)
+    args = _bwd_inputs(dev, dtype, 1, 96, 1, 2, dh, None, 0, 0.0, dh)
+    ops.flash_attention_bwd_dq(*args, **kw)
+    ops.flash_attention_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    for dkv in (False, True):
+        (plan,) = plans.flash_attn_bwd(1, 96, 1, 2, dh, bf16, dkv)
+        assert _bwd_smem_state(dkv, dh, bf16)[0] == plan.dynamic_smem
+    sets = _bwd_smem_state(False, dh, bf16)[1]
+    for S, G in ((64, 1), (300, 2), (700, 4)):
+        a = _bwd_inputs(dev, dtype, 2, S, 2, G, dh, None, 0, 0.0, S)
+        ops.flash_attention_bwd_dq(*a, **kw)
+        ops.flash_attention_bwd_dkv(*a, **kw)
+    torch.cuda.synchronize()
+    assert _bwd_smem_state(True, dh, bf16)[1] == sets
+
+
+@pytest.mark.parametrize("dh", [64, 256])
+def test_flash_bwd_probe_records_blocks_and_one_pass_misses(dev, dh):
+    """flash_attention_bwd_probe launches the wrapped kernels (bit-equal
+    outputs, no launch counted) and each block records the tiles it
+    walked: dK/dV's paired key tiles walk the same count under causal
+    masking, dQ's blocks fewer as they launch; its one-pass TF32 control
+    misses the 1e-4 that the 3xTF32 split keeps."""
+    S, G = 512, 4 if dh == 64 else 2
+    args = _bwd_inputs(dev, torch.float32, 1, S, 2, G, dh, None, 0, 0.0, dh)
+    kw = dict(window=0, softcap=0.0, causal=True)
+    got = (ops.flash_attention_bwd_dq(*args, **kw),
+           *ops.flash_attention_bwd_dkv(*args, **kw))
+    want = (ref.flash_attn_bwd_dq_ref(*args, **kw),
+            *ref.flash_attn_bwd_dkv_ref(*args, **kw))
+    before = ops.launches()
+    dq, rec_q = ops.flash_attention_bwd_probe(*args, dkv=False, **kw)
+    (dk, dv), rec_kv = ops.flash_attention_bwd_probe(*args, dkv=True, **kw)
+    assert ops.launches() == before
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), got))
+    tiles_kv = rec_kv[:, 0].reshape(2, -1)  # (KV head, pair)
+    assert (tiles_kv == tiles_kv[0, 0]).all() and (rec_kv[:, 1] > 0).all()
+    tiles_q = rec_q[:, 0].reshape(2, -1)
+    assert (tiles_q[:, 1:] <= tiles_q[:, :-1]).all()
+    assert int(tiles_q[0, 0]) == S // 32 and int(tiles_q[0, -1]) == 1
+    one = (ops.flash_attention_bwd_probe(*args, dkv=False, one_pass=True,
+                                         **kw)[0],
+           *ops.flash_attention_bwd_probe(*args, dkv=True, one_pass=True,
+                                          **kw)[0])
+    miss = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+               for a, b in zip(one, want))
+    assert miss > 1e-4
 
 
 def test_flash_decode_reads_only_the_live_prefix(dev):

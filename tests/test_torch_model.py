@@ -102,21 +102,29 @@ def test_attn_backend_resolution():
 
 
 def test_attn_backend_resolution_head_dim_256():
-    """The forward kernel takes Gemma-2's head_dim 256, the backward does
-    not: auto takes the kernel for forwards only."""
+    """The forward and the backward kernels take Gemma-2's head_dim 256:
+    auto takes the kernel at and above ATTN_AUTO_MIN_S, under autograd
+    too; the backward's 32-row tiles at head_dim 256 take G <= 32."""
     from repro_torch.configs import GEMMA2_2B
     assert GEMMA2_2B.resolved_head_dim == 256
     assert L.resolve_attn_backend("auto", GEMMA2_2B, S=4208) == "kernel"
     assert L.resolve_attn_backend("auto", GEMMA2_2B, S=4208,
-                                  differentiable=True) == "dense"
+                                  differentiable=True) == "kernel"
     assert L.resolve_attn_backend("auto", GEMMA2_2B, S=128) == "dense"
+    assert L.resolve_attn_backend("auto", GEMMA2_2B, S=L.ATTN_AUTO_MIN_S,
+                                  differentiable=True) == "kernel"
+    wide = GEMMA2_2B.replace(n_heads=64, n_kv_heads=1)  # G 64
+    assert L.resolve_attn_backend("auto", wide, S=4208) == "kernel"
+    assert L.resolve_attn_backend("auto", wide, S=4208,
+                                  differentiable=True) == "dense"
 
 
-@pytest.mark.parametrize("grad,route", [(False, "kernel"), (True, "dense")])
+@pytest.mark.parametrize("grad,route", [(False, "kernel"), (True, "kernel")])
 def test_forward_attention_head_dim_256_routes(monkeypatch, grad, route):
     """forward_attention sees whether autograd records: at head_dim 256 a
-    forward goes to the flash kernel, a differentiated pass to the dense
-    route; both give the dense route's values."""
+    forward and a differentiated pass both go to the flash kernels (the
+    latter through FlashAttentionFn and its backward kernels); both give
+    the dense route's values, and the differentiated pass its gradient."""
     from repro_torch.configs import GEMMA2_2B
     from repro_torch.kernels import ops
     cfg = GEMMA2_2B.replace(n_heads=2, n_kv_heads=1)
@@ -134,6 +142,11 @@ def test_forward_attention_head_dim_256_routes(monkeypatch, grad, route):
     want = L.forward_attention(q, k, v, cfg, ModelCtx(attn_backend="dense"),
                                window=64, lengths=torch.tensor([S - 9]))
     torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+    if grad:
+        w = torch.randn(out.shape, generator=g)
+        (gk,) = torch.autograd.grad((out * w).sum(), q)
+        (gd,) = torch.autograd.grad((want * w).sum(), q)
+        torch.testing.assert_close(gk, gd, atol=1e-5, rtol=0)
 
 
 def test_explicit_kernel_attention_under_autograd_matches_dense():
