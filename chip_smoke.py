@@ -15,9 +15,12 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 one exists, the PyTorch library call that computes the
                 same function; the two host-bound kernels (gradip_flat,
                 fixture_double) in turns with their library call, with
-                the host time of their wrappers' pieces, and the flash
-                backward pair (dQ + dK/dV) in turns with SDPA's f32
-                backward, against both its f32 and its 3xTF32 bound;
+                the host time of their wrappers' pieces, fused_update in
+                turns with torch.add, the flash forward in turns with
+                SDPA's f32 forward and the flash backward pair (dQ +
+                dK/dV) with SDPA's f32 backward, the flash kernels against
+                both their f32 and their 3xTF32 bound, with their record
+                of their blocks and their one-pass TF32 control;
 4. slice        MEERKAT-VP on full-size Llama-3.2-1B (random weights from a
                 seed): sensitivity mask and pre-training gradient through
                 the flash kernels' backward, held against the dense
@@ -228,6 +231,10 @@ KERNEL_SOURCES = {
 # ones, all measured in the run but bounds: the flash backward's pair timed
 # in turns with SDPA, and its Gemma-2 (head_dim 256) instance
 KERNEL_LINE_EXTRAS = ("pair_ms_in_turns", "gemma")
+# the forward's (G, head_dim) layouts: Llama's and Gemma's, Jamba's G 8 at
+# 128, and G 64 (one query a block) at 64 and at 256
+FLASH_LAYOUTS = ((1, 64), (4, 64), (1, 128), (4, 128), (2, 256), (8, 128),
+                 (64, 64), (64, 256))
 # the variant grid of the flash kernels: (S, window, softcap, lengths)
 FLASH_VARIANTS = ((128, 0, 0.0, None),       # causal
                   (200, 0, 0.0, (200, 77)),  # ragged S, lengths
@@ -338,8 +345,10 @@ def bound(n_bytes: float, n_ops: float, flop_per_s: float = F32_FLOP_PER_S):
 def check_elementwise(torch, ops, ref, dev, n_slice: int):
     """dual_perturb and fused_update: bit-equal to the plain version (both
     round the f32 product, then add in w's dtype)."""
+    from repro_torch.kernels import plans
     gen = torch.Generator(device=dev).manual_seed(1)
-    for n in (1, 1023, 1_000_003, 4096 * 1024):
+    ch = plans.zo_update_chunk(True)  # fused_update's block: 16,384
+    for n in (1, 1023, ch - 1, ch, ch + 1, 1_000_003, 4096 * 1024):
         for dtype in (torch.float32, torch.bfloat16):
             w = torch.randn(n, generator=gen, device=dev).to(dtype)
             z = torch.randn(n, generator=gen, device=dev)
@@ -355,7 +364,8 @@ def check_elementwise(torch, ops, ref, dev, n_slice: int):
                     fail(f"elementwise kernels differ from plain at n={n} "
                          f"{dtype} masked={mm is not None}")
     emit("kernels.elementwise_variants", ok=True,
-         checked="n in {1, 1023, 1000003, 4194304} x {f32, bf16} x {m, no m}")
+         checked=f"n in {{1, 1023, {ch - 1}, {ch}, {ch + 1}, 1000003, "
+                 f"4194304}} x {{f32, bf16}} x {{m, no m}}")
 
     # the slice's shape: the flat Llama-3.2-1B vector, f32, pre-masked z
     w = torch.randn(n_slice, generator=gen, device=dev)
@@ -382,12 +392,22 @@ def check_elementwise(torch, ops, ref, dev, n_slice: int):
         fail(f"fused_update differs from plain at the slice shape: {err}")
     b_ms, b_by = bound(12.0 * n_slice, 2.0 * n_slice)
     s_host = float(s)
+    # in turns with torch.add(w, z, alpha=s), the same bytes (median of 7)
     out["zo_fused_update_flat"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        **kernel_times(lambda: ops.zo_fused_update_flat(w, z, None, s), 10),
+        **timed_turns(lambda: ops.zo_fused_update_flat(w, z, None, s),
+                      lambda: torch.add(w, z, alpha=s_host), 10),
         plain_ms=timed(lambda: ref.fused_update_ref(w, z, None, s), 10),
-        library_ms=timed(lambda: torch.add(w, z, alpha=s_host), 10),
         shape=f"[{n_slice}] f32, pre-masked z")
+    emit("kernels.fused_update_turns", ok=True,
+         ms=out["zo_fused_update_flat"]["ms"],
+         torch_add_ms=out["zo_fused_update_flat"]["library_ms"],
+         at_or_under_torch_add=out["zo_fused_update_flat"]["ms"]
+         <= out["zo_fused_update_flat"]["library_ms"],
+         ms_turns=out["zo_fused_update_flat"]["ms_turns"],
+         torch_add_ms_turns=out["zo_fused_update_flat"]["library_ms_turns"],
+         bytes_rate_tb_s=12.0 * n_slice / out["zo_fused_update_flat"]["ms"]
+         / 1e9)
     return out
 
 
@@ -522,11 +542,16 @@ def _attn(torch, dev, gen, B, S, KV, G, dh, dtype):
 
 
 def check_flash(torch, ops, ref, dev, cfg, batch: int):
+    """The forward kernel against its plain version over the variant grid
+    (bit-equal over two calls), then at the slice's shape: timed in turns
+    with SDPA's f32 forward against its 3xTF32 bound, with its record of
+    its blocks (heaviest query tiles first) and the one-pass TF32 control
+    (``ops.flash_attention_fwd_probe``)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(3)
     n_var = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for G, dh in ((1, 64), (4, 64), (1, 128), (4, 128), (2, 256)):
+        for G, dh in FLASH_LAYOUTS:
             for S, window, softcap, lens in FLASH_VARIANTS:
                 q, k, v = _attn(torch, dev, gen, 2, S, 2, G, dh, dtype)
                 L = torch.tensor(lens or (S, S), device=dev)
@@ -544,11 +569,18 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
                     fail(f"flash differs from plain: {dtype} G={G} dh={dh} "
                          f"S={S} window={window} softcap={softcap} "
                          f"lengths={lens}: O {e_o}, lse {e_l}")
+                o2, lse2 = ops.flash_attention(q, k, v, L, window=window,
+                                               softcap=softcap,
+                                               return_lse=True)
+                if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                    fail(f"flash forward is not bit-equal over two calls: "
+                         f"{dtype} G={G} dh={dh} S={S}")
                 n_var += 1
     emit("kernels.flash_variants", ok=True, checked=n_var,
-         grid="{f32,bf16} x (G,dh) in {(1,64),(4,64),(1,128),(4,128),"
-              "(2,256)} x {causal; ragged S with lengths; window; "
-              "window+softcap+lengths}")
+         repeat_bit_equal=True,
+         grid="{f32,bf16} x (G,dh) in {" + ",".join(
+             f"({G},{dh})" for G, dh in FLASH_LAYOUTS) + "} x {causal; "
+         "ragged S with lengths; window; window+softcap+lengths}")
 
     # the slice's shape: one attention layer of the ZO loss forward
     B, S = batch, SEQ_LEN
@@ -562,29 +594,100 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
     err = max(float((o - ro).abs().max()), float((lse - rlse).abs().max()))
     if err > 1e-4:
         fail(f"flash differs from plain at the slice shape: {err}")
+    blocks = fwd_blocks(torch, ops, (q, k, v, L), 0, 0.0, (o, lse),
+                        (ro, rlse))
+    if not blocks["heaviest_first"]:
+        fail("the flash forward does not launch its heaviest query tiles "
+             "first")
+    if blocks["one_pass_abs_err"] <= 1e-4:
+        fail(f"the forward's one-pass TF32 control is within 1e-4: "
+             f"{blocks['one_pass_abs_err']}, so the gate cannot tell the "
+             f"split's precision")
     live = int(ref.attention_valid(S, L, window=0, causal=True).sum()) \
         * KV * G                                   # live (query, key) pairs
     n_bytes = 4.0 * (q.numel() + k.numel() + v.numel() + o.numel()
                      + lse.numel() + L.numel())
-    b_ms, b_by = bound(n_bytes, 4.0 * dh * live)   # QK^T and PV: 2 FMA each
+    flop = 4.0 * dh * live                         # QK^T and PV: 2 FMA each
+    # the kernel runs both products as 3xTF32: three times the FLOP on the
+    # tensor cores is its bound, the f32 CUDA cores' a side figure
+    tf_ms, tf_by = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
+    f32_ms, f32_by = bound(n_bytes, flop)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    row = timed_turns(lambda: ops.flash_attention(q, k, v, L),
+                      lambda: F.scaled_dot_product_attention(
+                          qh, kh, vh, is_causal=True, enable_gqa=True), 10)
+    shape = f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}"
     out = {"flash_attention": dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        **kernel_times(lambda: ops.flash_attention(q, k, v, L), 10),
+        max_abs_err=err, bound_ms=tf_ms, bound_by=tf_by, **row,
         plain_ms=timed(lambda: ref.flash_attention_ref(
             q, k, v, L, window=0, softcap=0.0, causal=True), 5),
-        library_ms=timed(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, enable_gqa=True), 10),
-        shape=f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}",
-        gflop=4.0 * dh * live / 1e9, mbytes=n_bytes / 1e6)}
+        shape=shape, gflop=flop / 1e9, mbytes=n_bytes / 1e6)}
+    emit("kernels.flash_fwd_turns", ok=True, shape=shape, ms=row["ms"],
+         sdpa_ms=row["library_ms"],
+         at_or_under_sdpa=row["ms"] <= row["library_ms"],
+         ms_turns=row["ms_turns"], sdpa_ms_turns=row["library_ms_turns"],
+         turns=TURNS)
+    emit("kernels.flash_fwd_bounds", ok=True, shape=shape, ms=row["ms"],
+         bound_3xtf32_ms=tf_ms, bound_3xtf32_by=tf_by,
+         share_of_3xtf32_bound=tf_ms / row["ms"], bound_f32_ms=f32_ms,
+         bound_f32_by=f32_by, share_of_f32_bound=f32_ms / row["ms"],
+         gflop=flop / 1e9, mbytes=n_bytes / 1e6, tol=1e-4,
+         three_pass_abs_err=err, **blocks)
+    # the launcher sets the shared-memory attribute only through its
+    # high-water mark: at most once for each of the 6 instantiations
+    # (f32 and bf16, head_dim 64, 128, 256) in all the launches above
+    sets = attribute_sets("flash_attn_fwd_smem_state", 64, 0)
+    if sets > 6:
+        fail(f"the flash forward set its shared-memory attribute {sets} "
+             f"times")
+    emit("kernels.flash_fwd_attribute", ok=True, attribute_sets=sets,
+         instantiations=6)
     return out
+
+
+def fwd_blocks(torch, ops, args, window, softcap, got, want) -> dict:
+    """The forward kernel's record of its blocks on ``args`` (q, k, v, L;
+    causal, ``window``, ``softcap``) through
+    ``ops.flash_attention_fwd_probe`` (outputs bit-equal to the wrapped
+    launch's ``got``), held to ``plans.flash_fwd_tiles``: the key
+    tiles the blocks walked, max over mean of them and of their SM clocks,
+    and whether no block walks more than one launched before it; then the
+    one-pass TF32 control's error against the plain version's ``want``."""
+    from repro_torch.kernels import plans
+    q, k, v, L = args
+    B, S, H, dh = q.shape
+    KV = k.shape[2]
+    res, rec = ops.flash_attention_fwd_probe(q, k, v, L, window=window,
+                                             softcap=softcap)
+    if not all(torch.equal(a, b) for a, b in zip(res, got)):
+        fail("flash forward: the probe launch differs from the wrapped one")
+    tiles = rec[:, 0]
+    want_tiles = plans.flash_fwd_tiles(B, S, KV, H // KV, dh,
+                                       lengths=[int(x) for x in L],
+                                       window=window)
+    if tiles.tolist() != want_tiles:
+        fail("flash forward: the blocks walked other key tiles than "
+             "plans.flash_fwd_tiles")
+    clocks = rec[:, 1].double()
+    (o1, l1), _ = ops.flash_attention_fwd_probe(
+        q, k, v, L, one_pass=True, window=window, softcap=softcap)
+    one = max(float((o1 - want[0]).abs().max()),
+              float((l1 - want[1]).abs().max()))
+    return dict(blocks=rec.shape[0], tiles_max=int(tiles.max()),
+                tiles_mean=float(tiles.double().mean()),
+                tiles_max_over_mean=float(tiles.max() / tiles.double().mean()),
+                clocks_max_over_mean=float(clocks.max() / clocks.mean()),
+                heaviest_first=bool((tiles[1:] <= tiles[:-1]).all()),
+                one_pass_abs_err=one)
 
 
 def check_flash_prefill(torch, ops, ref, dev, cfg, lengths):
     """The forward kernel at the serve_gemma prefill wave's shape: right
     padded rows of ``lengths`` tokens (padded to the engine's bucket),
     head_dim 256, G 2, softcap, on the local (windowed) and the global
-    layers' masks; O and lse against the plain version, and timed."""
+    layers' masks; O and lse against the plain version, and timed against
+    the 3xTF32 bound; the kernel's record of its blocks and the one-pass
+    TF32 control on each mask."""
     gen = torch.Generator(device=dev).manual_seed(5)
     B = len(lengths)
     S = -(-max(lengths) // SERVE_BUCKET) * SERVE_BUCKET
@@ -599,21 +702,26 @@ def check_flash_prefill(torch, ops, ref, dev, cfg, lengths):
         ro, rlse = ref.flash_attention_ref(q, k, v, L, causal=True, **kw)
         err = max(float((o - ro).abs().max()),
                   float((lse - rlse).abs().max()))
-        del o, lse, ro, rlse
         if err > 1e-4:
             fail(f"flash differs from plain at the gemma prefill shape "
                  f"({name}): {err}")
+        blocks = fwd_blocks(torch, ops, (q, k, v, L), window,
+                            cfg.attn_softcap, (o, lse), (ro, rlse))
+        del o, lse, ro, rlse
         live = int(ref.attention_valid(S, L, window=window,
                                        causal=True).sum()) * KV * G
         n_bytes = 4.0 * (2 * q.numel() + k.numel() + v.numel()
                          + B * KV * S * G + B)
-        b_ms, b_by = bound(n_bytes, 4.0 * dh * live)
+        b_ms, b_by = bound(n_bytes, 3 * 4.0 * dh * live, TF32_FLOP_PER_S)
+        f32_ms, _ = bound(n_bytes, 4.0 * dh * live)
+        ms = timed(lambda: ops.flash_attention(q, k, v, L, **kw), 5)
         out[name] = dict(
             window=window, max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-            ms=timed(lambda: ops.flash_attention(q, k, v, L, **kw), 5),
+            ms=ms, share_of_3xtf32_bound=b_ms / ms, bound_f32_ms=f32_ms,
+            share_of_f32_bound=f32_ms / ms,
             plain_ms=timed(lambda: ref.flash_attention_ref(
                 q, k, v, L, causal=True, **kw), 2),
-            gflop=4.0 * dh * live / 1e9)
+            gflop=4.0 * dh * live / 1e9, **blocks)
     emit("kernels.flash_gemma_prefill", ok=True, tol=1e-4,
          shape=f"q [{B},{S},{KV * G},{dh}] f32, lengths {list(lengths)}, "
                f"softcap {cfg.attn_softcap}", **out)
@@ -728,7 +836,7 @@ def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int, gemma):
     # high-water mark: at most once for each of the 12 instantiations
     # (dQ and dK/dV, f32 and bf16, head_dim 64, 128, 256) in all the
     # launches above
-    sets = bwd_attribute_sets()
+    sets = attribute_sets("flash_attn_bwd_smem_state", 0, 64, 0)
     if sets > 12:
         fail(f"the flash backward set its shared-memory attribute {sets} "
              f"times")
@@ -805,15 +913,17 @@ def bwd_one_pass(ops, args, kw, want, rel_err) -> list:
     return rel_err((dq, dk, dv), want)
 
 
-def bwd_attribute_sets() -> int:
-    """cudaFuncSetAttribute calls the flash backward's launchers made in
-    this process (csrc/flash_attn_bwd.cu, flash_attn_bwd_smem_state)."""
+def attribute_sets(state: str, *args) -> int:
+    """cudaFuncSetAttribute calls a flash file's launchers made in this
+    process: ``state`` is its ``*_smem_state`` entry point
+    (csrc/flash_attn.cu, csrc/flash_attn_bwd.cu), ``args`` one
+    instantiation it takes."""
     import ctypes
     from repro_torch.kernels import build
     out = (ctypes.c_longlong * 2)()
-    rc = build.load().flash_attn_bwd_smem_state(0, 64, 0, out)
+    rc = getattr(build.load(), state)(*args, out)
     if rc:
-        fail(f"flash_attn_bwd_smem_state: CUDA error {rc}")
+        fail(f"{state}: CUDA error {rc}")
     return out[1]
 
 
@@ -1955,6 +2065,19 @@ def plan_cases(n_flat: int, n_mask: int):
                                       bf16=False)),        # Gemma prefill
               (P.flash_attn_fwd, dict(B=1, S=130, KVH=2, G=4, dh=128,
                                       bf16=True))]
+    # the forward's tilings: 32-key tiles with (f32) and without (bf16) the
+    # k, v lo planes, 16-key tiles at 256, one query a block at G 64
+    cases += [(P.flash_attn_fwd, dict(B=2, S=200, KVH=2, G=G, dh=dh,
+                                      bf16=b))
+              for G, dh, b in ((64, 64, False), (64, 256, True),
+                               (3, 128, False), (8, 64, True))]
+    # fused_update's chunks: below, at and above one, packed and not
+    ch = P.zo_update_chunk(True)
+    cases += [(P.zo_update, dict(n=n, bf16=b, has_m=m, vec=v, update=True))
+              for n, b, m, v in ((ch - 1, False, False, True),
+                                 (ch, True, True, True),
+                                 (ch + 4, False, True, True),
+                                 (ch + 1, True, False, False))]
     cases += [(P.flash_attn_bwd, dict(**a, bf16=False, dkv=d))
               for a in attn for d in (False, True)]
     cases += [(P.flash_attn_bwd, dict(B=1, S=GEMMA_GRAD_TOKENS, KVH=4, G=2,

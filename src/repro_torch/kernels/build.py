@@ -36,6 +36,8 @@ SIGNATURES = {
     "gradip_reduce": ([_P, _P, _F, _P, _P, _LL, _P], _I),
     "flash_attn_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                         _I, _F, _I, _P], _I),
+    "flash_attn_fwd_probe": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _F, _I, _F, _I, _P, _P], _I),
     "flash_attn_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _F, _I, _F, _I, _P], _I),
     "flash_attn_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -57,7 +59,8 @@ SIGNATURES = {
     "fixture_double_plan": ([_I, _I, _I, _I, _P], _I),
     # launcher state: granted shared bytes, attribute calls
     "fixture_double_smem_state": ([_P], _I),
-    # the flash backward's grant: one instantiation's bytes, attribute calls
+    # the flash kernels' grants: one instantiation's bytes, attribute calls
+    "flash_attn_fwd_smem_state": ([_I, _I, _P], _I),
     "flash_attn_bwd_smem_state": ([_I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }

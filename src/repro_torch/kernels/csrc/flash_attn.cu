@@ -1,49 +1,104 @@
 // Flash-attention forward: blockwise online-softmax GQA attention that
-// returns O and the per-row logsumexp.
+// returns O and the per-row logsumexp, on the tensor cores at f32 accuracy.
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py
-// (_fwd_call, _flash_attn_kernel).  There the grid is (B, KVH, S/bq, S/bk)
-// and the KV axis runs in order, carrying the running max, normalizer and
-// accumulator in VMEM scratch from one grid step to the next.
+// (_fwd_call :159, _flash_attn_kernel).  There the grid is (B, KVH, S/bq,
+// S/bk) and the KV axis runs in order, carrying the running max,
+// normalizer and accumulator in VMEM scratch from one grid step to the
+// next.
 //
 // What bounds it on an H100: operations.  At the slice's shape (B=16,
 // S=512, 32 query heads over 8 KV heads, head_dim 64, causal) one call does
-// about 17 GFLOP of score and value products against ~170 MB of q, k, v, O
-// and lse: ~100 FLOP per byte.  In f32 on the CUDA cores (67 TFLOP/s) that is
-// ~0.26 ms of arithmetic against ~0.05 ms of memory.
+// 4*dh FLOP per live (query, key) pair, 17.2 GFLOP, against ~170 MB of q,
+// k, v, O and lse (~0.05 ms).  On the CUDA cores in f32 (67 TFLOP/s) that
+// is 0.257 ms; as 3xTF32 on the tensor cores (three TF32 products for each
+// f32 one, 495 TFLOP/s), 0.104 ms.
 //
-// Design (simple and right first; wgmma and TMA come later):
-// * one block per (batch row, KV head, query block); the sequential KV grid
-//   axis of the TPU becomes a loop inside the block over 64-key tiles;
-// * the G query heads of a group are folded into the score rows: a block
-//   holds kRows = 64 rows, BQ = 64 / G queries times G heads, so K and V are
-//   loaded once per group and never repeated;
-// * q, k and v are read in the model's own layout ([B, S, H, dh] and
-//   [B, S, KVH, dh]; H = KVH * G with head h*G + g in group h), so no
-//   transpose or pad pass runs before the kernel; the ragged edge of S is
-//   masked here (keys at positions >= lengths[b] <= S are dead, query rows
-//   past S are not written);
-// * scores, the running max m, the normalizer l and the rescale factor live
-//   in shared memory, the output accumulator in registers, all in f32 (bf16
-//   operands are widened on load);
-// * the TPU kernel's block-pruning predicate (_block_needed) skips tiles
-//   with no live (query, key) pair, and masked lanes get an explicit p = 0,
-//   as there (a fully masked row keeps m = -1e30, where exp(s - m) is 1).
-// Scores use CUDA-core FMAs over a 4x4 register tile per thread.
-// head_dim 64, 128 and 256 (Gemma-2).  The tiles stay 64 x 64 at every
-// head_dim, so shared memory grows with it: 65.5, 113.5 and 209.5 KiB a
-// block, the last within the 227 KiB a Hopper block may opt into (one
-// block per SM at head_dim 256).
+// Design:
+// * precision, fixed here (torch.backends.cuda.matmul.allow_tf32 is not
+//   read): both products, q k^T and p v, run as mma.sync m16n8k8 tf32 in
+//   3xTF32 (tf32_mma.cuh), f32-accurate; bf16 operands are exact in TF32,
+//   so with bf16 inputs q k^T takes one pass and p v two (p is f32).  A
+//   tile's p v sum is taken on the tensor cores, the long sum over key
+//   tiles as O = O * alpha + tile in one IEEE fmaf;
+// * one block per (KV head, batch row, query tile), 4 warps, R = 64 score
+//   rows: BQ = 64 / G queries times the G heads of a group folded, so k
+//   and v are loaded once per group (G <= 64 at every head_dim); the TPU's
+//   sequential KV grid axis becomes a loop over key tiles of 32 keys (16 at
+//   head_dim 128 and 256), pruned by the TPU kernel's predicate
+//   (_block_needed);
+// * each warp owns an m16 strip of rows across every key of a tile: its
+//   scores stay in the mma accumulators and the online softmax (running max
+//   m, normalizer l, rescale alpha) runs in registers with quad shuffles,
+//   with no block barrier.  p goes to p v's A operand without leaving the
+//   registers: an accumulator holds keys 2c and 2c + 1 of each 8 where an
+//   A fragment wants c and c + 4, so the v tile lands with the even keys
+//   of each 8 in rows 0-3 and the odd in rows 4-7 (key_row), and a B
+//   fragment then holds the keys the thread's p has.  p is split once, in
+//   registers; masked lanes get an explicit p = 0, and a fully masked row
+//   keeps m = -1e30 and writes zeros;
+// * occupancy first: the kernel is bound by the latency of its dependent
+//   mma.sync chains more than by their issue, so the tiles are sized for
+//   blocks in flight (3 an SM at head_dim 64, 2 at 128, 1 at 256) and the
+//   f32 k and v tiles are split by the fragment loads, not once into lo
+//   planes, which would cost a block an SM; q stays resident for the
+//   block, split once into hi and lo planes in f32 when it lands; a bf16
+//   element is widened exactly;
+// * copies: k and v tiles are double-buffered with 16-byte cp.async.cg, the
+//   next tile's copy in flight while the current one computes; keys past S
+//   and rows past the folded R or S are zero-filled by the copy; the
+//   16-byte chunks of a tile row are permuted by the row (swz), so fragment
+//   loads hit 32 distinct banks;
+// * under causal masking the query tiles that walk the most key tiles
+//   launch first: the grid's slowest axis runs from the last query tile to
+//   the first, over every (KV head, batch row) of each;
+// * one block owns each output row: no split over keys and no atomics, so
+//   two calls give bit-equal O and lse;
+// * operands are read in the model layout ([B, S, H, dh], [B, S, KVH, dh])
+//   and must be 16-byte aligned; keys past lengths[b] are masked here;
+// * the dynamic shared memory (24-192 KB) is granted through the
+//   per-device high-water mark of common.cuh: one attribute call per
+//   instantiation and device, not one per launch;
+// * flash_attn_fwd_probe, a launch outside the wrapped path, has each block
+//   record the key tiles it walked and its clocks, and runs the one-pass
+//   TF32 control of the split.
+#include <cstdint>
+
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int kRows = 64;     // score rows per block: BQ queries x G heads
-constexpr int kBK = 64;       // keys per tile
-constexpr int kThreads = 256;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // score rows per block: BQ x G
 constexpr float kNegInf = -1e30f;
+
+// keys per tile
+template <int DH>
+constexpr int kBKOf = DH == 64 ? 32 : 16;
+// output n8 tiles per p v pass (its accumulators' count)
+template <int DH>
+constexpr int kUOf = DH == 256 ? 4 : 8;
+// blocks an SM is to hold: 3 at head_dim 64 (64 KB of shared memory each;
+// __launch_bounds__ then caps the registers at 170), 2 at 128 (96 KB), 1
+// at 256
+template <int DH>
+constexpr int kMinBlocks = DH == 64 ? 3 : DH == 128 ? 2 : 1;
+
+// q [R][DH] (f32: hi bits and a lo plane; bf16: as read); k and v
+// [2][BK][DH] (T).
+template <typename T, int DH>
+constexpr size_t kSmem =
+    (kExactTf32<T> ? sizeof(T) : 2 * sizeof(uint32_t)) * kRows * DH +
+    sizeof(T) * 4 * kBKOf<DH> * DH;
+
+constexpr size_t kSmemOptin = 232448;  // a Hopper block's opt-in limit
+static_assert(kSmem<float, 256> <= kSmemOptin, "tiles at head_dim 256");
+static_assert(2 * (kSmem<float, 128> + 1024) <= 233472, "two blocks an SM");
+static_assert(3 * (kSmem<float, 64> + 1024) <= 233472, "three blocks an SM");
 
 struct Params {
   const void* q;
@@ -51,213 +106,298 @@ struct Params {
   const void* v;
   const int* lengths;
   void* o;
-  float* lse;
+  float* lse;  // [B, KVH, S, G]
   int S, KVH, G, BQ, window, causal;
   float softcap, scale;
+  long long* blocks;  // per-block record (flash_attn_fwd_probe), or null
 };
 
-__device__ __forceinline__ bool live(int key, int pos, int L, int window,
-                                     int causal) {
-  bool ok = key < L;
-  if (causal) ok = ok && key <= pos;
-  if (window) ok = ok && key > pos - window;
-  return ok;
+// _block_needed: does the key tile at k0 hold a live pair for a row of the
+// query tile at q0?
+template <int BK>
+__device__ __forceinline__ bool tile_needed(const Params& p, int L, int q0,
+                                            int k0) {
+  bool needed = k0 < L;
+  if (p.causal) needed = needed && k0 <= q0 + p.BQ - 1;
+  if (p.window) needed = needed && k0 + BK - 1 > q0 - p.window;
+  return needed;
 }
 
-template <int DH>
-constexpr size_t smem_floats() {
-  return (size_t)kRows * (DH + 1) + (size_t)kBK * (DH + 1) +
-         (size_t)kBK * DH + (size_t)kRows * (kBK + 1) + 3 * kRows;
+// The first key tile from t (before end) the query tile at q0 needs.
+template <int BK>
+__device__ __forceinline__ int next_key_tile(const Params& p, int L, int q0,
+                                             int t, int end) {
+  while (t < end && !tile_needed<BK>(p, L, q0, t * BK)) ++t;
+  return t;
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
-  constexpr int DP = DH + 1;   // padded rows: column reads hit distinct banks
-  constexpr int SP = kBK + 1;
-  constexpr int DJ = DH / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;                 // [kRows][DP]
-  float* sK = sQ + kRows * DP;      // [kBK][DP]
-  float* sV = sK + kBK * DP;        // [kBK][DH]
-  float* sS = sV + kBK * DH;        // [kRows][SP]: scores, then p
-  float* sM = sS + kRows * SP;      // running max per row
-  float* sL = sM + kRows;           // normalizer per row
-  float* sA = sL + kRows;           // this tile's rescale factor per row
+__device__ __forceinline__ void store2(float* o, float x, float y) {
+  *reinterpret_cast<float2*>(o) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* o, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(x, y);
+}
 
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int S = p.S, KVH = p.KVH, G = p.G;
-  const int q0 = blockIdx.x * p.BQ;
-  const int R = p.BQ * G;           // live rows of this block
+// kOne (flash_attn_fwd_probe's precision control only): every product one
+// TF32 pass, hi*hi.
+template <typename T, int DH, bool kOne = false>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DH>)
+    flash_fwd(Params p) {
+  constexpr int BK = kBKOf<DH>;
+  constexpr int SN = BK / 8;          // score n8 tiles (p v k-steps) a tile
+  constexpr int ON = DH / 8;          // output n8 tiles
+  constexpr int U = kUOf<DH>;         // output n8 tiles per p v pass
+  constexpr int KS = SN < 4 ? 2 : 1;  // score accumulators per n8 tile
+  constexpr bool kQf = !kExactTf32<T>;          // q as hi and lo planes
+  constexpr bool kX = kExactTf32<T> || kOne;    // no operand lo terms
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [kRows][DH]
+  uint32_t* sQl = reinterpret_cast<uint32_t*>(sQ + kRows * DH);  // f32
+  T* sK = reinterpret_cast<T*>(sQl + (kQf ? kRows * DH : 0));  // [2][BK*DH]
+  T* sV = sK + 2 * BK * DH;  // [2][BK*DH], rows as key_row<true>
+  const Opnd<T, DH, kQf> oQ{sQ, sQl};
+
+  const long long c0 = p.blocks ? clock64() : 0;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * p.BQ;  // heaviest first
   const int L = p.lengths[b];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const long long head_stride = (long long)G * DH;  // q/o elements per (s, h)
-
-  // row r <-> query q0 + r / G, query head h * G + r % G
-  for (int i = tid; i < kRows * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
-    const int s = q0 + r / G;
-    float x = 0.f;
-    if (r < R && s < S) {
-      x = to_f(q[(((long long)b * S + s) * KVH + h) * head_stride +
-                 (r % G) * DH + d]);
-    }
-    sQ[r * DP + d] = x;
+  const float inv_g = 1.f / p.G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int m0 = 16 * warp;
+  const int n_k = (p.S + BK - 1) / BK;
+  const int rows = p.BQ * p.G;
+  // this thread's score rows m0 + g + 8 * hf: their query, or -1 past R or S
+  int pos[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = m0 + g + 8 * hf;
+    pos[hf] = q0 + div_g(r, inv_g);
+    if (r >= rows || pos[hf] >= p.S) pos[hf] = -1;
   }
-  for (int r = tid; r < kRows; r += kThreads) {
-    sM[r] = kNegInf;
-    sL[r] = 0.f;
+
+  copy_rows<T, DH, kRows, kThreads>(sQ, p.q, p, b, h, q0, inv_g);
+  int t = next_key_tile<BK>(p, L, q0, 0, n_k);
+  if (t < n_k) {
+    copy_keys<T, DH, BK, kThreads>(sK, p.k, p, b, h, t * BK);
+    copy_keys<T, DH, BK, kThreads, true>(sV, p.v, p, b, h, t * BK);
   }
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  __syncthreads();
+  cp_commit();
 
-  const int n_tiles = (S + kBK - 1) / kBK;
-  const int warp = tid / 32, lane = tid % 32;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    // _block_needed: does the tile hold a live pair for any row here?
-    bool needed = k0 < L;
-    if (p.causal) needed = needed && k0 <= q0 + p.BQ - 1;
-    if (p.window) needed = needed && k0 + kBK - 1 > q0 - p.window;
-    if (!needed) continue;  // uniform over the block
-
-    for (int i = tid; i < kBK * DH; i += kThreads) {
-      const int c = i / DH, d = i % DH;
-      const int key = k0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (key < S) {
-        const long long off = (((long long)b * S + key) * KVH + h) * DH + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
-      }
-      sK[c * DP + d] = kx;
-      sV[c * DH + d] = vx;
+  float acc[ON][4];  // O, unnormalized: rows m0 + g (+ 8), dims 8 * n + c2
+  zero(acc);
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.f, 0.f};  // this thread's columns' share of l
+  int walked = 0;
+  for (int buf = 0; t < n_k; buf ^= 1, ++walked) {  // uniform over the block
+    const int k0 = t * BK;
+    const int t_next = next_key_tile<BK>(p, L, q0, t + 1, n_k);
+    if (t_next < n_k) {
+      const int o = (buf ^ 1) * BK * DH;
+      copy_keys<T, DH, BK, kThreads>(sK + o, p.k, p, b, h, t_next * BK);
+      copy_keys<T, DH, BK, kThreads, true>(sV + o, p.v, p, b, h,
+                                           t_next * BK);
     }
-    __syncthreads();
-
-    // scores: thread (ty, tx) owns rows 4*ty + i and columns tx + 16*j
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    for (int d = 0; d < DH; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = sQ[(4 * ty + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = sK[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      const int pos = q0 + r / G;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float s = sc[i][j] * p.scale;
-        if (p.softcap != 0.f) s = tanhf(s / p.softcap) * p.softcap;
-        if (!live(k0 + c, pos, L, p.window, p.causal)) s = kNegInf;
-        sS[r * SP + c] = s;
+    cp_commit();
+    cp_wait<1>();  // this tile (and q) have landed
+    if constexpr (kQf) {
+      if (walked == 0) {
+        split_chunks<kRows, DH, kThreads>(reinterpret_cast<float*>(sQ), sQl);
       }
     }
     __syncthreads();
+    const int o = buf * BK * DH;
+    const Opnd<T, DH> cK{sK + o, nullptr}, cV{sV + o, nullptr};
 
-    // online-softmax statistics, one warp per row (two columns per lane)
-    for (int r = warp; r < kRows; r += kThreads / 32) {
-      const int pos = q0 + r / G;
-      const float s0 = sS[r * SP + lane], s1 = sS[r * SP + lane + 32];
-      float mx = fmaxf(s0, s1);
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 =
-          live(k0 + lane, pos, L, p.window, p.causal) ? expf(s0 - m_new) : 0.f;
-      const float p1 = live(k0 + lane + 32, pos, L, p.window, p.causal)
-                           ? expf(s1 - m_new) : 0.f;
-      float sum = p0 + p1;
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      sS[r * SP + lane] = p0;
-      sS[r * SP + lane + 32] = p1;
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sA[r] = alpha;
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
+    // s = q k^T: rows m0.., keys 8 * j + c2 (+ 1); k-steps alternate
+    // between KS accumulators where a tile has few n8 tiles
+    float s[KS][SN][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) zero(s[ks]);
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 8) {
+      float(&sa)[SN][4] = s[(kk / 8) % KS];
+      uint32_t qh[4], ql[4], kh[SN][2], kl[SN][2];
+      frag_a(oQ, m0, kk, lane, qh, ql);
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+        frag_b_nk(cK, kk, 8 * j, lane, kh[j], kl[j]);
       }
+      if (!kX) {
+        mma_row(sa, 0, ql, kh);
+        mma_row(sa, 0, qh, kl);
+      }
+      mma_row(sa, 0, qh, kh);
     }
-    __syncthreads();
+    if constexpr (KS == 2) add_into(s[0], s[1]);
 
-    // acc = acc * alpha + p @ v; thread owns rows 4*ty + i, dims tx + 16*j
+    // scale, cap and mask; the rows' max over the tile (quad shuffles)
+    const bool full = k0 + BK <= L && (!p.causal || k0 + BK - 1 <= q0) &&
+                      (!p.window || k0 > q0 + p.BQ - 1 - p.window);
+    unsigned ok_bits = 0;
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = sA[4 * ty + i];
+    for (int j = 0; j < SN; ++j)
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= a;
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        float x = s[0][j][e] * p.scale;
+        if (p.softcap != 0.f) x = tanhf(x / p.softcap) * p.softcap;
+        const bool ok = full || (pos[hf] >= 0 &&
+                                 live(k0 + 8 * j + c2 + (e & 1), pos[hf], L,
+                                      p.window, p.causal));
+        ok_bits |= (ok ? 1u : 0u) << (4 * j + e);
+        s[0][j][e] = ok ? x : kNegInf;
+        mx[hf] = fmaxf(mx[hf], s[0][j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+      const float m_new = fmaxf(m_run[hf], mx[hf]);
+      alpha[hf] = expf(m_run[hf] - m_new);
+      m_run[hf] = m_new;
     }
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sS[(4 * ty + i) * SP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = sV[c * DH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-    __syncthreads();  // sK, sV and sS are overwritten by the next tile
-  }
 
-  T* o = static_cast<T*>(p.o);
+    // p = exp(s - m), 0 on masked lanes, split once into the A fragments of
+    // p v: k-step j's a0..a3 are (row g, key 2c), (g + 8, 2c), (g, 2c + 1),
+    // (g + 8, 2c + 1) of n8 tile j, the accumulator's elements 0, 2, 1, 3
+    uint32_t ph[SN][4], pl[SN][4];
+    float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    const int s = q0 + r / G;
-    if (r >= R || s >= S) continue;
-    const float l = fmaxf(sL[r], 1e-30f);
-    const long long row = (((long long)b * S + s) * KVH + h) * head_stride +
-                          (r % G) * DH;
+    for (int j = 0; j < SN; ++j)
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) o[row + tx + 16 * j] = from_f<T>(acc[i][j] / l);
-    if (tx == 0) {
-      p.lse[(((long long)b * KVH + h) * S + s) * G + r % G] = sM[r] + logf(l);
+      for (int e = 0; e < 4; ++e) {
+        const float pr = (ok_bits >> (4 * j + e)) & 1u
+                             ? expf(s[0][j][e] - m_run[e >> 1])
+                             : 0.f;
+        sum[e >> 1] += pr;
+        const int a = 2 * (e & 1) + (e >> 1);
+        if (kOne) {
+          ph[j][a] = tf32_rna(pr);
+        } else {
+          split(pr, ph[j][a], pl[j][a]);
+        }
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) l_run[hf] = l_run[hf] * alpha[hf] + sum[hf];
+
+    // O = O * alpha + p v, U output n8 tiles at a time: the tile's sum on
+    // the tensor cores, the rescale and add in one IEEE fmaf
+#pragma unroll
+    for (int n = 0; n < ON; n += U) {
+      float part[U][4];
+      zero(part);
+#pragma unroll
+      for (int j = 0; j < SN; ++j) {
+        uint32_t vh[U][2], vl[U][2];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          frag_b_kn(cV, 8 * j, 8 * (n + u), lane, vh[u], vl[u]);
+        }
+        if (!kOne) mma_row(part, 0, pl[j], vh);
+        if (!kX) mma_row(part, 0, ph[j], vl);
+        mma_row(part, 0, ph[j], vh);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[n + u][i] = fmaf(acc[n + u][i], alpha[i >> 1], part[u][i]);
+        }
+    }
+    __syncthreads();  // this tile's k and v are overwritten next
+    t = t_next;
+  }
+  cp_wait<0>();
+
+  T* out = static_cast<T*>(p.o);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float l = l_run[hf];  // the row's l: its quad's four shares
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    if (pos[hf] < 0) continue;
+    const int gi = m0 + g + 8 * hf - (pos[hf] - q0) * p.G;  // head in group
+    const long long row = ((long long)b * p.S + pos[hf]) * p.KVH + h;
+    T* o = out + (row * p.G + gi) * DH;
+#pragma unroll
+    for (int n = 0; n < ON; ++n) {
+      store2(o + 8 * n + c2, acc[n][2 * hf] / l, acc[n][2 * hf + 1] / l);
+    }
+    if ((lane & 3) == 0) {
+      p.lse[(((long long)b * p.KVH + h) * p.S + pos[hf]) * p.G + gi] =
+          m_run[hf] + logf(l);
     }
   }
+  record(p.blocks, walked, c0);
 }
 
-static_assert(sizeof(float) * smem_floats<256>() <= 227 * 1024,
-              "head_dim 256 exceeds a Hopper block's shared memory");
-
-template <typename T, int DH>
+// ------------------------------------------------------------- launchers --
+template <typename T, int DH, bool kOne = false>
 LaunchPlan plan(const Params& p, int B) {
-  return {reinterpret_cast<const void*>(flash_fwd<T, DH>),
-          dim3((p.S + p.BQ - 1) / p.BQ, p.KVH, B), kThreads,
-          sizeof(float) * smem_floats<DH>()};
+  return {reinterpret_cast<const void*>(flash_fwd<T, DH, kOne>),
+          dim3(p.KVH, B, (p.S + p.BQ - 1) / p.BQ), kThreads, kSmem<T, DH>};
 }
 
-template <typename T, int DH>
+// Instantiations for the grant: f32 then bf16, head_dim 64, 128, 256.  The
+// probe's one-pass controls have grants of their own, so that the count of
+// attribute calls (flash_attn_fwd_smem_state) is the wrapped path's.
+constexpr int kInstances = 6;
+SmemGrants<kInstances> g_grants;
+SmemGrants<kInstances> g_one_pass_grants;
+
+int instance(int is_bf16, int dh) {
+  return 3 * (is_bf16 != 0) + (dh == 64 ? 0 : dh == 128 ? 1 : 2);
+}
+
+template <typename T, int DH, bool kOne = false>
 cudaError_t launch(const Params& p, int B, cudaStream_t st) {
-  const LaunchPlan lp = plan<T, DH>(p, B);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lp.smem);
+  const LaunchPlan lp = plan<T, DH, kOne>(p, B);
+  const cudaError_t e = (kOne ? g_one_pass_grants : g_grants)
+                            .grant(lp.fn, instance(kExactTf32<T>, DH),
+                                   lp.smem);
   if (e != cudaSuccess) return e;
-  flash_fwd<T, DH><<<lp.grid, lp.threads, lp.smem, st>>>(p);
+  flash_fwd<T, DH, kOne><<<lp.grid, lp.threads, lp.smem, st>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T_, int DH_>
+struct Inst {
+  using T = T_;
+  static constexpr int DH = DH_;
+};
+
+// f(Inst<T, DH>{}) for head dim dh (64, 128 or 256) and the operand type.
+template <typename F>
+auto visit(int dh, int is_bf16, F&& f) {
+  if (dh == 64) {
+    return is_bf16 ? f(Inst<__nv_bfloat16, 64>{}) : f(Inst<float, 64>{});
+  }
+  if (dh == 128) {
+    return is_bf16 ? f(Inst<__nv_bfloat16, 128>{}) : f(Inst<float, 128>{});
+  }
+  return is_bf16 ? f(Inst<__nv_bfloat16, 256>{}) : f(Inst<float, 256>{});
+}
+
+// head_dim 64, 128 or 256, 1 <= G <= 64, and a grid the card takes.
+int check_shape(int B, int S, int G, int dh) {
+  if (dh != 64 && dh != 128 && dh != 256) return cudaErrorInvalidValue;
+  if (G < 1 || G > kRows) return cudaErrorInvalidValue;
+  if (B == 0 || S == 0) return -1;  // nothing to launch
+  if (B > 65535 || (S + kRows / G - 1) / (kRows / G) > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+Params params(const void* q, const void* k, const void* v, const int* lengths,
+              void* o, float* lse, int S, int KVH, int G, int window,
+              float softcap, int causal, float scale, long long* blocks) {
+  return Params{q, k, v, lengths, o, lse, S, KVH, G, kRows / G, window,
+                causal, softcap, scale, blocks};
 }
 
 }  // namespace
@@ -265,49 +405,81 @@ cudaError_t launch(const Params& p, int B, cudaStream_t st) {
 // The launch flash_attn_fwd makes at these shapes (write_plans).
 extern "C" int flash_attn_fwd_plan(int B, int S, int KVH, int G, int dh,
                                    int is_bf16, long long* out) {
-  if (G < 1 || G > kRows) return cudaErrorInvalidValue;
-  if (B == 0 || S == 0) return write_plans(nullptr, 0, out);
-  Params p{};
-  p.S = S;
-  p.KVH = KVH;
-  p.G = G;
-  p.BQ = kRows / G;
-  LaunchPlan lp;
-  if (dh == 64) {
-    lp = is_bf16 ? plan<__nv_bfloat16, 64>(p, B) : plan<float, 64>(p, B);
-  } else if (dh == 128) {
-    lp = is_bf16 ? plan<__nv_bfloat16, 128>(p, B) : plan<float, 128>(p, B);
-  } else if (dh == 256) {
-    lp = is_bf16 ? plan<__nv_bfloat16, 256>(p, B) : plan<float, 256>(p, B);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  const int rc = check_shape(B, S, G, dh);
+  if (rc > 0) return rc;
+  if (rc < 0) return write_plans(nullptr, 0, out);
+  const Params p = params(nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, S, KVH, G, 0, 0.f, 1, 1.f, nullptr);
+  const LaunchPlan lp = visit(dh, is_bf16, [&](auto i) {
+    using I = decltype(i);
+    return plan<typename I::T, I::DH>(p, B);
+  });
   return write_plans(&lp, 1, out);
 }
 
-// q [B, S, KVH*G, dh], k and v [B, S, KVH, dh], contiguous, f32 or bf16;
-// lengths [B] int32 (<= S); o like q; lse [B, KVH, S, G] f32.
+// q [B, S, KVH*G, dh], k and v [B, S, KVH, dh], contiguous and 16-byte
+// aligned, all f32 or all bf16; lengths [B] int32 (<= S); o like q; lse
+// [B, KVH, S, G] f32.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const int* lengths, void* o, float* lse, int B,
                               int S, int KVH, int G, int dh, int window,
                               float softcap, int causal, float scale,
                               int is_bf16, void* stream) {
-  if (G < 1 || G > kRows) return cudaErrorInvalidValue;
-  if (B == 0 || S == 0) return 0;
-  const Params p{q, k, v, lengths, o, lse, S, KVH, G, kRows / G, window,
-                 causal, softcap, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dh == 64) {
-    return is_bf16 ? launch<__nv_bfloat16, 64>(p, B, st)
-                   : launch<float, 64>(p, B, st);
+  const int rc = check_shape(B, S, G, dh);
+  if (rc) return rc < 0 ? 0 : rc;
+  if (!(aligned(q, 16) && aligned(k, 16) && aligned(v, 16))) {
+    return cudaErrorMisalignedAddress;
   }
-  if (dh == 128) {
-    return is_bf16 ? launch<__nv_bfloat16, 128>(p, B, st)
-                   : launch<float, 128>(p, B, st);
+  const Params p = params(q, k, v, lengths, o, lse, S, KVH, G, window,
+                          softcap, causal, scale, nullptr);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return visit(dh, is_bf16, [&](auto i) {
+    using I = decltype(i);
+    return launch<typename I::T, I::DH>(p, B, st);
+  });
+}
+
+// A measurement launch beside the wrapped path, on flash_attn_fwd's
+// operands: each block writes the key tiles it walked and the SM clocks it
+// took into blocks[2 * i] and blocks[2 * i + 1], i its linear index
+// (blockIdx.x fastest; the grid of flash_attn_fwd_plan).  With one_pass
+// (f32 at head_dim 64 or 256 only) both products take one TF32 pass,
+// hi*hi: the precision control of the 3xTF32 split.
+extern "C" int flash_attn_fwd_probe(int one_pass, const void* q,
+                                    const void* k, const void* v,
+                                    const int* lengths, void* o, float* lse,
+                                    int B, int S, int KVH, int G, int dh,
+                                    int window, float softcap, int causal,
+                                    float scale, int is_bf16,
+                                    long long* blocks, void* stream) {
+  const int rc = check_shape(B, S, G, dh);
+  if (rc) return rc < 0 ? 0 : rc;
+  if (!(aligned(q, 16) && aligned(k, 16) && aligned(v, 16))) {
+    return cudaErrorMisalignedAddress;
   }
-  if (dh == 256) {
-    return is_bf16 ? launch<__nv_bfloat16, 256>(p, B, st)
-                   : launch<float, 256>(p, B, st);
+  if (one_pass && (is_bf16 || dh == 128)) return cudaErrorInvalidValue;
+  const Params p = params(q, k, v, lengths, o, lse, S, KVH, G, window,
+                          softcap, causal, scale, blocks);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (!one_pass) {
+    return visit(dh, is_bf16, [&](auto i) {
+      using I = decltype(i);
+      return launch<typename I::T, I::DH>(p, B, st);
+    });
   }
-  return cudaErrorInvalidValue;
+  return dh == 64 ? launch<float, 64, true>(p, B, st)
+                  : launch<float, 256, true>(p, B, st);
+}
+
+// The launcher's grant for one instantiation on the current device:
+// out[0] the dynamic shared bytes granted to the kernel of that head dim
+// and type (0: none yet), out[1] the cudaFuncSetAttribute calls the
+// forward's launches made in this process.
+extern "C" int flash_attn_fwd_smem_state(int dh, int is_bf16,
+                                         long long* out) {
+  if (dh != 64 && dh != 128 && dh != 256) return cudaErrorInvalidValue;
+  const cudaError_t e = g_grants.granted_here(instance(is_bf16, dh), out);
+  if (e != cudaSuccess) return e;
+  out[1] = g_grants.sets.load();
+  return 0;
 }

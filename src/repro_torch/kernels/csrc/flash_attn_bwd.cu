@@ -78,10 +78,12 @@
 // * flash_attn_bwd_probe, a launch outside the wrapped path, has each block
 //   record the tiles it walked and its clocks (the balance above, read on
 //   the card), and runs the one-pass TF32 control of the split.
+// The split, the fragment loaders, the tile layout and the copies are
+// shared with the forward (tf32_mma.cuh).
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 using namespace repro;
 
@@ -95,10 +97,6 @@ constexpr int kSmemSM = 233472;  // an H100 SM's shared memory, 1 KB/block
 // score rows per query tile (BQ queries x G heads folded)
 template <int DH>
 constexpr int kRowsOf = DH == 256 ? 32 : 64;
-
-// a bf16 operand widened to f32 is exact in TF32 (lo = 0)
-template <typename T>
-constexpr bool kExactTf32 = std::is_same<T, __nv_bfloat16>::value;
 
 // f32 key tiles are split once when they land, their lo planes beside
 // them, where the shared memory allows: in dQ (double-buffered k and v, 4
@@ -160,230 +158,6 @@ struct Params {
   long long* blocks;  // per-block record (flash_attn_bwd_probe), or null
 };
 
-// r / G for 0 <= r < 2^16 and G <= 64, from inv_g = 1 / G: (r + 0.5) / G
-// lies at least 0.5 / G from an integer, far beyond float's error here.
-__device__ __forceinline__ int div_g(int r, float inv_g) {
-  return __float2int_rd((static_cast<float>(r) + 0.5f) * inv_g);
-}
-
-// ------------------------------------------------------------ tensor cores --
-// cvt.rna.tf32.f32 for finite x: nearest, ties away from zero, on the 13
-// low mantissa bits (a carry into the exponent is the rounding up).  Two
-// integer operations; the cvt instruction itself lowers to a longer
-// sequence on sm_90.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d[j0 + u] += a b[u] for u < U: one term of the 3xTF32 product over U n8
-// tiles.  The callers issue the terms lo*hi, hi*lo (skipped where lo is 0
-// by type), then hi*hi, each across several accumulators, so that an
-// accumulator's next product is independent ones away.
-template <int U, int J>
-__device__ __forceinline__ void mma_row(float (&d)[J][4], int j0,
-                                        const uint32_t (&a)[4],
-                                        const uint32_t (&b)[U][2]) {
-#pragma unroll
-  for (int u = 0; u < U; ++u) mma_tf32(d[j0 + u], a, b[u]);
-}
-
-// ----------------------------------------------------------- tile layout --
-// The 16-byte chunk a row's chunk j lands in is j ^ swz(row).  With f32
-// (4 per chunk) the permutation flips column bits 2-4 by row bits 0-2 so
-// that the 32 lanes of a fragment load, 8 rows x 4 columns or 4 rows x 8
-// columns, hit 32 banks; with bf16 (8 per chunk, two per bank) the same
-// holds for the 16 words such a load touches.
-template <typename T>
-__device__ __forceinline__ int swz(int r);
-template <>
-__device__ __forceinline__ int swz<float>(int r) {
-  return ((r & 3) << 1) | ((r >> 2) & 1);
-}
-template <>
-__device__ __forceinline__ int swz<__nv_bfloat16>(int r) {
-  return r & 7;
-}
-
-// Offset of element (r, c) in a tile of W columns of T (W / (16 /
-// sizeof(T)) >= 8 chunks, so the permutation stays inside the row).
-template <typename T, int W>
-__device__ __forceinline__ int at(int r, int c) {
-  constexpr int E = 16 / sizeof(T);
-  static_assert(W % (8 * E) == 0, "a tile row holds a multiple of 8 chunks");
-  return r * W + ((c / E) ^ swz<T>(r)) * E + c % E;
-}
-
-// An operand tile in shared memory, [rows][W] of T.  Unless kPre, an
-// element is split when loaded: hi = cvt.rna.tf32(x), lo =
-// cvt.rna.tf32(x - hi), and a widened bf16 is hi alone.  With kPre (f32)
-// the tile was split once after it landed (split_tile): t holds the hi
-// bits in place and lo the lo plane, so a load is two reads.
-template <typename T, int W, bool kPre = false>
-struct Opnd {
-  const T* t;
-  const uint32_t* lo;
-
-  __device__ __forceinline__ void get(int r, int c, uint32_t& h,
-                                      uint32_t& l) const {
-    const int o = at<T, W>(r, c);
-    if constexpr (kPre) {
-      h = reinterpret_cast<const uint32_t*>(t)[o];
-      l = lo[o];
-    } else if constexpr (kExactTf32<T>) {
-      h = __float_as_uint(to_f(t[o]));
-      l = 0u;
-    } else {
-      split(to_f(t[o]), h, l);
-    }
-  }
-};
-
-// The A fragment (16 x 8, row-major) at rows m0.., columns k0.. of a tile.
-template <typename O>
-__device__ __forceinline__ void frag_a(const O& x, int m0, int k0, int lane,
-                                       uint32_t (&h)[4], uint32_t (&l)[4]) {
-  const int g = lane >> 2, c = lane & 3;
-  x.get(m0 + g, k0 + c, h[0], l[0]);
-  x.get(m0 + g + 8, k0 + c, h[1], l[1]);
-  x.get(m0 + g, k0 + c + 4, h[2], l[2]);
-  x.get(m0 + g + 8, k0 + c + 4, h[3], l[3]);
-}
-
-// The B fragment (8 x 8, k x n) of a tile stored [n][k]: k^T of q k^T.
-template <typename O>
-__device__ __forceinline__ void frag_b_nk(const O& x, int k0, int n0,
-                                          int lane, uint32_t (&h)[2],
-                                          uint32_t (&l)[2]) {
-  const int g = lane >> 2, c = lane & 3;
-  x.get(n0 + g, k0 + c, h[0], l[0]);
-  x.get(n0 + g, k0 + c + 4, h[1], l[1]);
-}
-
-// The B fragment of a tile stored [k][n]: k of ds k.
-template <typename O>
-__device__ __forceinline__ void frag_b_kn(const O& x, int k0, int n0,
-                                          int lane, uint32_t (&h)[2],
-                                          uint32_t (&l)[2]) {
-  const int g = lane >> 2, c = lane & 3;
-  x.get(k0 + c, n0 + g, h[0], l[0]);
-  x.get(k0 + c + 4, n0 + g, h[1], l[1]);
-}
-
-// Two neighbouring scores (r, c), (r, c + 1), c even, into the hi and lo
-// planes of a p or ds tile (split once, here).
-template <int W>
-__device__ __forceinline__ void st_split(uint32_t* hp, uint32_t* lp, int r,
-                                         int c, float x0, float x1) {
-  uint2 h, l;
-  split(x0, h.x, l.x);
-  split(x1, h.y, l.y);
-  const int o = at<float, W>(r, c);
-  *reinterpret_cast<uint2*>(hp + o) = h;
-  *reinterpret_cast<uint2*>(lp + o) = l;
-}
-
-// Split, in place, the 16-byte chunks of an f32 key tile ([kBK][DH]) that
-// this thread copied (copy_keys' assignment), once they have landed: the
-// hi bits over the elements, the lo plane into lo.  No other thread reads
-// them before the next barrier.
-template <int DH>
-__device__ __forceinline__ void split_keys(float* t, uint32_t* lo) {
-  constexpr int CPR = DH / 4;
-#pragma unroll
-  for (int n = 0; n < kBK * CPR / kThreads; ++n) {
-    const int i = threadIdx.x + n * kThreads;
-    const int c = i / CPR, j = i % CPR;
-    const int o = c * DH + (j ^ swz<float>(c)) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(t + o);
-    uint4 h, l;
-    split(x.x, h.x, l.x);
-    split(x.y, h.y, l.y);
-    split(x.z, h.z, l.z);
-    split(x.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(t + o) = h;
-    *reinterpret_cast<uint4*>(lo + o) = l;
-  }
-}
-
-// ---------------------------------------------------------------- copies --
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Folded rows q0.. of a [B, S, KVH*G, DH] tensor into a [R][DH] tile: row r
-// <-> query q0 + r / G, head h*G + r % G; rows past BQ*G or S: zeros.
-template <typename T, int DH, int R>
-__device__ void copy_rows(T* dst, const void* src_, const Params& p, int b,
-                          int h, int q0, float inv_g) {
-  constexpr int E = 16 / sizeof(T), CPR = DH / E;  // chunks per row
-  const T* src = static_cast<const T*>(src_);
-  static_assert(R * CPR % kThreads == 0, "whole rounds of chunks");
-  const int rows = p.BQ * p.G;
-#pragma unroll
-  for (int n = 0; n < R * CPR / kThreads; ++n) {
-    const int i = threadIdx.x + n * kThreads;
-    const int r = i / CPR, j = i % CPR;
-    const int rq = div_g(r, inv_g);
-    const int s = q0 + rq;
-    const bool ok = r < rows && s < p.S;
-    const T* g = ok ? src + ((((long long)b * p.S + s) * p.KVH + h) * p.G +
-                             (r - rq * p.G)) * DH + j * E
-                    : src;
-    cp16(dst + r * DH + (j ^ swz<T>(r)) * E, g, ok);
-  }
-}
-
-// Keys k0.. of a [B, S, KVH, DH] tensor into a [kBK][DH] tile; past S: 0.
-template <typename T, int DH>
-__device__ void copy_keys(T* dst, const void* src_, const Params& p, int b,
-                          int h, int k0) {
-  constexpr int E = 16 / sizeof(T), CPR = DH / E;
-  static_assert(kBK * CPR % kThreads == 0, "whole rounds of chunks");
-  const T* src = static_cast<const T*>(src_);
-#pragma unroll
-  for (int n = 0; n < kBK * CPR / kThreads; ++n) {
-    const int i = threadIdx.x + n * kThreads;
-    const int c = i / CPR, j = i % CPR;
-    const int key = k0 + c;
-    const bool ok = key < p.S;
-    const T* g =
-        ok ? src + (((long long)b * p.S + key) * p.KVH + h) * DH + j * E : src;
-    cp16(dst + c * DH + (j ^ swz<T>(c)) * E, g, ok);
-  }
-}
-
 // lse and delta of the folded rows q0.. into [R] each; past the rows: 0.
 template <int R>
 __device__ void copy_stats(float* sLse, float* sDelta, const Params& p,
@@ -397,15 +171,6 @@ __device__ void copy_stats(float* sLse, float* sDelta, const Params& p,
       ok ? (((long long)b * p.KVH + h) * p.S + s) * p.G + (r - rq * p.G) : 0;
   cp4(sLse + r, p.lse + i, ok);
   cp4(sDelta + r, p.delta + i, ok);
-}
-
-// ------------------------------------------------------------- the masks --
-__device__ __forceinline__ bool live(int key, int pos, int L, int window,
-                                     int causal) {
-  bool ok = key < L;
-  if (causal) ok = ok && key <= pos;
-  if (window) ok = ok && key > pos - window;
-  return ok;
 }
 
 // _block_needed: does the key tile at k0 hold a live pair for a row of the
@@ -448,39 +213,6 @@ __device__ __forceinline__ void p_ds(float acc_s, float acc_dp, float lse,
       ds *= 1.f - t * t;
     }
   }
-}
-
-template <int J>
-__device__ __forceinline__ void zero(float (&d)[J][4]) {
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) d[j][i] = 0.f;
-}
-
-// sum += part, in IEEE f32 adds: a tile's products accumulate on the
-// tensor cores (a few k-steps), the long sum over tiles here.
-template <int J>
-__device__ __forceinline__ void add_into(float (&sum)[J][4],
-                                         const float (&part)[J][4]) {
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) sum[j][i] += part[j][i];
-}
-
-// With p.blocks set (flash_attn_bwd_probe), once every thread is done:
-// the tiles this block walked and the SM clocks since c0, at 2 * (its
-// linear index, blockIdx.x fastest).  Uniform over the block.
-__device__ __forceinline__ void record(const Params& p, int tiles,
-                                       long long c0) {
-  if (p.blocks == nullptr) return;
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  const long long at = blockIdx.x + (long long)gridDim.x *
-                       (blockIdx.y + (long long)gridDim.y * blockIdx.z);
-  p.blocks[2 * at] = tiles;
-  p.blocks[2 * at + 1] = clock64() - c0;
 }
 
 // ----------------------------------------------------------------- dQ ----
@@ -530,13 +262,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDqSmem<T, DH>>)
     if (r >= rows || pos[hf] >= p.S) pos[hf] = -1;
   }
 
-  copy_rows<T, DH, R>(sQ, p.q, p, b, h, q0, inv_g);
-  copy_rows<T, DH, R>(sDO, p.dout, p, b, h, q0, inv_g);
+  copy_rows<T, DH, R, kThreads>(sQ, p.q, p, b, h, q0, inv_g);
+  copy_rows<T, DH, R, kThreads>(sDO, p.dout, p, b, h, q0, inv_g);
   copy_stats<R>(sLse, sDelta, p, b, h, q0, inv_g);
   int t = next_key_tile(p, L, q0, 0, n_k);
   if (t < n_k) {
-    copy_keys<T, DH>(sK, p.k, p, b, h, t * kBK);
-    copy_keys<T, DH>(sV, p.v, p, b, h, t * kBK);
+    copy_keys<T, DH, kBK, kThreads>(sK, p.k, p, b, h, t * kBK);
+    copy_keys<T, DH, kBK, kThreads>(sV, p.v, p, b, h, t * kBK);
   }
   cp_commit();
 
@@ -547,15 +279,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDqSmem<T, DH>>)
     const int k0 = t * kBK;
     const int t_next = next_key_tile(p, L, q0, t + 1, n_k);
     if (t_next < n_k) {
-      copy_keys<T, DH>(sK + (buf ^ 1) * kBK * DH, p.k, p, b, h, t_next * kBK);
-      copy_keys<T, DH>(sV + (buf ^ 1) * kBK * DH, p.v, p, b, h, t_next * kBK);
+      const int o = (buf ^ 1) * kBK * DH;
+      copy_keys<T, DH, kBK, kThreads>(sK + o, p.k, p, b, h, t_next * kBK);
+      copy_keys<T, DH, kBK, kThreads>(sV + o, p.v, p, b, h, t_next * kBK);
     }
     cp_commit();
     cp_wait<1>();  // this tile (and q, dO, the statistics) have landed
     const int o = buf * kBK * DH;
     if constexpr (kPre) {
-      split_keys<DH>(reinterpret_cast<float*>(sK + o), sKl + o);
-      split_keys<DH>(reinterpret_cast<float*>(sV + o), sVl + o);
+      split_chunks<kBK, DH, kThreads>(reinterpret_cast<float*>(sK + o),
+                                      sKl + o);
+      split_chunks<kBK, DH, kThreads>(reinterpret_cast<float*>(sV + o),
+                                      sVl + o);
     }
     __syncthreads();
     const Opnd<T, DH, kPre> cK{sK + o, sKl + o}, cV{sV + o, sVl + o};
@@ -642,7 +377,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDqSmem<T, DH>>)
           acc[j][2 * hf] * p.scale, acc[j][2 * hf + 1] * p.scale);
     }
   }
-  record(p, walked, c0);
+  record(p.blocks, walked, c0);
 }
 
 // -------------------------------------------------------------- dK/dV ----
@@ -709,12 +444,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDkvSmem<T, DH>>)
     }
 
     __syncthreads();  // the previous pass's readers of k and v are done
-    copy_keys<T, DH>(sK, p.k, p, b, h, k0);
-    copy_keys<T, DH>(sV, p.v, p, b, h, k0);
+    copy_keys<T, DH, kBK, kThreads>(sK, p.k, p, b, h, k0);
+    copy_keys<T, DH, kBK, kThreads>(sV, p.v, p, b, h, k0);
     int t = next_query_tile(p, L, k0, t_begin, t_end);
     if (t < t_end) {
-      copy_rows<T, DH, R>(sQ, p.q, p, b, h, t * p.BQ, inv_g);
-      copy_rows<T, DH, R>(sDO, p.dout, p, b, h, t * p.BQ, inv_g);
+      copy_rows<T, DH, R, kThreads>(sQ, p.q, p, b, h, t * p.BQ, inv_g);
+      copy_rows<T, DH, R, kThreads>(sDO, p.dout, p, b, h, t * p.BQ, inv_g);
       copy_stats<R>(sLse, sDelta, p, b, h, t * p.BQ, inv_g);
     }
     cp_commit();
@@ -727,8 +462,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDkvSmem<T, DH>>)
       const int t_next = next_query_tile(p, L, k0, t + 1, t_end);
       if (t_next < t_end) {
         const int o = (buf ^ 1) * R * DH;
-        copy_rows<T, DH, R>(sQ + o, p.q, p, b, h, t_next * p.BQ, inv_g);
-        copy_rows<T, DH, R>(sDO + o, p.dout, p, b, h, t_next * p.BQ, inv_g);
+        const int q1 = t_next * p.BQ;
+        copy_rows<T, DH, R, kThreads>(sQ + o, p.q, p, b, h, q1, inv_g);
+        copy_rows<T, DH, R, kThreads>(sDO + o, p.dout, p, b, h, q1, inv_g);
         copy_stats<R>(sLse + (buf ^ 1) * R, sDelta + (buf ^ 1) * R, p, b, h,
                       t_next * p.BQ, inv_g);
       }
@@ -736,8 +472,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDkvSmem<T, DH>>)
       cp_wait<1>();  // this query tile (and k, v) have landed
       if constexpr (kPre) {
         if (fresh) {
-          split_keys<DH>(reinterpret_cast<float*>(sK), sKl);
-          split_keys<DH>(reinterpret_cast<float*>(sV), sVl);
+          split_chunks<kBK, DH, kThreads>(reinterpret_cast<float*>(sK), sKl);
+          split_chunks<kBK, DH, kThreads>(reinterpret_cast<float*>(sV), sVl);
         }
       }
       __syncthreads();
@@ -846,7 +582,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDkvSmem<T, DH>>)
       }
     }
   }
-  record(p, walked, c0);
+  record(p.blocks, walked, c0);
 }
 
 // ------------------------------------------------------------- launchers --

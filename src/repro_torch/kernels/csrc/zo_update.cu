@@ -1,8 +1,8 @@
 // Fused sparse-ZO perturb and update on the flat parameter vector.
 //
 // Replaces the TPU kernels of src/repro/kernels/zo_update.py:
-//   dual_perturb  (_dual_perturb_kernel, _dual_perturb_premasked_kernel)
-//   fused_update  (_fused_update_kernel, _fused_update_premasked_kernel)
+//   dual_perturb  (:40, _dual_perturb_kernel, _dual_perturb_premasked_kernel)
+//   fused_update  (:90, _fused_update_kernel, _fused_update_premasked_kernel)
 //
 // What bounds them on an H100: bytes.  Each element is read once and written
 // once or twice around one or two multiplies and an add, about 0.2 FLOP per
@@ -11,13 +11,30 @@
 // z in, w+ and w- out), ~19.8 GB, 5.9 ms at 3.35 TB/s; fused_update moves
 // 12 B per element, 4.4 ms.
 //
-// Design: a grid-stride loop over packs of four elements (16 bytes of f32,
-// or 8 bytes of bf16 w beside 16 bytes of f32 z and m), with a few blocks
-// per SM, so that the only work is keeping loads in flight.  No shared
-// memory and no reduction.  The two roundings of the TPU kernel (the f32
-// product, then the add in w's dtype) are spelled __fmul_rn / __fadd_rn so
-// that nvcc cannot contract them into one FMA: the client's update, the
-// plain version and the server's replay then agree bit for bit.
+// dual_perturb: a grid-stride loop over packs of four elements (16 bytes of
+// f32, or 8 bytes of bf16 w beside 16 bytes of f32 z and m), with a few
+// blocks per SM, so that the only work is keeping loads in flight.
+//
+// fused_update is a stream that keeps more bytes in flight per thread and
+// touches the caches less:
+// * each block owns one chunk of kThreads x kUnroll packs (16,384 f32
+//   elements), and the grid covers n exactly: the chunk's offsets are
+//   computed once, in 32 bits inside the chunk;
+// * each thread issues its kUnroll = 16 loads of w, of z (and of m) before
+//   any arithmetic, 256 bytes of f32 per operand in flight (8 and 32 were
+//   no faster on the card), pack u of a thread at u * kThreads +
+//   threadIdx.x so that each round of loads is one coalesced sweep of the
+//   block;
+// * loads and stores are streaming (ld.global.cs / st.global.cs: evict
+//   first), as every byte is touched once;
+// * a ragged last chunk takes a guarded copy of the same loop, and the
+//   n % 4 tail one element a thread of the last block.
+// No shared memory and no reduction.  The two roundings of the TPU kernel
+// (the f32 product, then the add in w's dtype) are spelled __fmul_rn /
+// __fadd_rn so that nvcc cannot contract them into one FMA: the client's
+// update, the plain version and the server's replay then agree bit for bit.
+#include <cstring>
+
 #include "common.cuh"
 
 using namespace repro;
@@ -71,33 +88,114 @@ dual_perturb_kernel(const T* __restrict__ w, const float* __restrict__ z,
   }
 }
 
+// A pack read or written with the streaming cache hint (evict first).
+template <typename P>
+__device__ __forceinline__ P ld_cs(const P* a) {
+  static_assert(sizeof(P) == 16 || sizeof(P) == 8 || sizeof(P) == 4 ||
+                sizeof(P) == 2, "a 2, 4, 8 or 16-byte pack");
+  P x;
+  if constexpr (sizeof(P) == 16) {
+    const uint4 u = __ldcs(reinterpret_cast<const uint4*>(a));
+    memcpy(&x, &u, 16);
+  } else if constexpr (sizeof(P) == 8) {
+    const uint2 u = __ldcs(reinterpret_cast<const uint2*>(a));
+    memcpy(&x, &u, 8);
+  } else if constexpr (sizeof(P) == 4) {
+    const unsigned u = __ldcs(reinterpret_cast<const unsigned*>(a));
+    memcpy(&x, &u, 4);
+  } else {
+    const unsigned short u =
+        __ldcs(reinterpret_cast<const unsigned short*>(a));
+    memcpy(&x, &u, 2);
+  }
+  return x;
+}
+
+template <typename P>
+__device__ __forceinline__ void st_cs(P* a, const P& x) {
+  if constexpr (sizeof(P) == 16) {
+    uint4 u;
+    memcpy(&u, &x, 16);
+    __stcs(reinterpret_cast<uint4*>(a), u);
+  } else if constexpr (sizeof(P) == 8) {
+    uint2 u;
+    memcpy(&u, &x, 8);
+    __stcs(reinterpret_cast<uint2*>(a), u);
+  } else if constexpr (sizeof(P) == 4) {
+    unsigned u;
+    memcpy(&u, &x, 4);
+    __stcs(reinterpret_cast<unsigned*>(a), u);
+  } else {
+    unsigned short u;
+    memcpy(&u, &x, 2);
+    __stcs(reinterpret_cast<unsigned short*>(a), u);
+  }
+}
+
+constexpr int kUnroll = 16;  // packs a thread has in flight per operand
+
+// out = w + round_T(s z (m)) over packs [0, np) of the chunk at w, z, m,
+// out (np = kThreads * kUnroll but in the last chunk); GUARD: the ragged
+// last chunk.
+template <typename T, bool HAS_M, int V, bool GUARD>
+__device__ __forceinline__ void update_chunk(const Pack<T, V>* w,
+                                             const Pack<float, V>* z,
+                                             const Pack<float, V>* m,
+                                             Pack<T, V>* out, float sc,
+                                             int np) {
+  Pack<T, V> wv[kUnroll];
+  Pack<float, V> zv[kUnroll], mv[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int i = u * kThreads + threadIdx.x;
+    if (!GUARD || i < np) {
+      wv[u] = ld_cs(w + i);
+      zv[u] = ld_cs(z + i);
+      if constexpr (HAS_M) mv[u] = ld_cs(m + i);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const int i = u * kThreads + threadIdx.x;
+    if (GUARD && i >= np) continue;
+    Pack<T, V> ov;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float mj = 1.f;
+      if constexpr (HAS_M) mj = mv[u].v[j];
+      ov.v[j] = from_f<T>(
+          __fadd_rn(to_f(wv[u].v[j]), scaled<T, HAS_M>(sc, zv[u].v[j], mj)));
+    }
+    st_cs(out + i, ov);
+  }
+}
+
+// One block per chunk of kThreads * kUnroll packs of V elements; the last
+// block also takes the n % V elements past the packs.
 template <typename T, bool HAS_M, int V>
 __global__ void __launch_bounds__(kThreads)
 fused_update_kernel(const T* __restrict__ w, const float* __restrict__ z,
                     const float* __restrict__ m, const float* __restrict__ s,
                     T* __restrict__ out, long long n) {
+  constexpr int kChunk = kThreads * kUnroll;
   const float sc = *s;
-  const long long nv = n / V;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long i = tid; i < nv; i += stride) {
-    const Pack<T, V> wv = reinterpret_cast<const Pack<T, V>*>(w)[i];
-    const Pack<float, V> zv = reinterpret_cast<const Pack<float, V>*>(z)[i];
-    Pack<float, V> mv;
-    if constexpr (HAS_M) mv = reinterpret_cast<const Pack<float, V>*>(m)[i];
-    Pack<T, V> ov;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      float mj = 1.f;
-      if constexpr (HAS_M) mj = mv.v[j];
-      ov.v[j] = from_f<T>(
-          __fadd_rn(to_f(wv.v[j]), scaled<T, HAS_M>(sc, zv.v[j], mj)));
-    }
-    reinterpret_cast<Pack<T, V>*>(out)[i] = ov;
+  const long long np = n / V;
+  const long long p0 = (long long)blockIdx.x * kChunk;
+  const auto* wp = reinterpret_cast<const Pack<T, V>*>(w) + p0;
+  const auto* zp = reinterpret_cast<const Pack<float, V>*>(z) + p0;
+  const auto* mp =
+      HAS_M ? reinterpret_cast<const Pack<float, V>*>(m) + p0 : nullptr;
+  auto* op = reinterpret_cast<Pack<T, V>*>(out) + p0;
+  if (p0 + kChunk <= np) {
+    update_chunk<T, HAS_M, V, false>(wp, zp, mp, op, sc, kChunk);
+  } else if (p0 < np) {
+    update_chunk<T, HAS_M, V, true>(wp, zp, mp, op, sc, (int)(np - p0));
   }
-  for (long long i = nv * V + tid; i < n; i += stride) {
-    out[i] = from_f<T>(
-        __fadd_rn(to_f(w[i]), scaled<T, HAS_M>(sc, z[i], HAS_M ? m[i] : 1.f)));
+  if (blockIdx.x == gridDim.x - 1) {
+    for (long long i = np * V + threadIdx.x; i < n; i += kThreads) {
+      out[i] = from_f<T>(__fadd_rn(
+          to_f(w[i]), scaled<T, HAS_M>(sc, z[i], HAS_M ? m[i] : 1.f)));
+    }
   }
 }
 
@@ -115,10 +213,14 @@ LaunchPlan dual_plan(long long n) {
           dim3(grid_for(n, V)), kThreads, 0};
 }
 
+// fused_update: one block per chunk of kThreads * kUnroll packs (at least
+// one block, which takes an n below one pack).
 template <typename T, bool HAS_M, int V>
 LaunchPlan update_plan(long long n) {
+  const long long chunks = (n / V + kThreads * kUnroll - 1) /
+                           (kThreads * kUnroll);
   return {reinterpret_cast<const void*>(fused_update_kernel<T, HAS_M, V>),
-          dim3(grid_for(n, V)), kThreads, 0};
+          dim3(chunks < 1 ? 1 : (unsigned)chunks), kThreads, 0};
 }
 
 template <typename T, bool HAS_M, int V>

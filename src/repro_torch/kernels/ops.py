@@ -269,23 +269,66 @@ def _check_attn_kernel(q, k, v, G, hd, *, dims=KERNEL_HEAD_DIMS, max_g=64,
 def _flash_fwd(q, k, v, L, window, softcap, causal):
     """(O, lse) of the forward: the kernel on CUDA, its plain version on the
     CPU.  ``L`` is the [B] int32 lengths tensor."""
-    B, S, KV, G, hd = _attn_dims(q, k, v)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, L, window=window,
                                        softcap=softcap, causal=causal)
+    out, lse, _ = _fwd_launch(q, k, v, L, window, softcap, causal)
+    flash_attention.launches += 1
+    return out, lse
+
+
+def _aligned16(t):
+    """t, or where its data is off a 16-byte boundary a copy in fresh
+    memory (the caching allocator's blocks are aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _fwd_launch(q, k, v, L, window, softcap, causal, *, one_pass=False,
+                blocks=None):
+    """Launch the forward kernel on CUDA q, k, v (checked, contiguous; an
+    operand off the 16-byte alignment the kernel's copies read is copied
+    into fresh memory first): (O, lse, the probe's ``blocks`` record).
+    ``blocks`` None is the wrapped launch; a [blocks, 2] int64 tensor makes
+    it a probe launch (``flash_attn_fwd_probe``)."""
+    B, S, KV, G, hd = _attn_dims(q, k, v)
     _check_attn_kernel(q, k, v, G, hd)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned16(t.contiguous()) for t in (q, k, v))
     lib = build.load()
     out = torch.empty_like(q)
     lse = torch.empty((B, KV, S, G), dtype=torch.float32, device=q.device)
-    rc = lib.flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), L.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, S, KV, G, hd, int(window),
-        float(softcap), int(bool(causal)), float(hd ** -0.5),
-        int(q.dtype == torch.bfloat16), _stream(q))
-    build.check(lib, rc, "flash_attn_fwd")
-    flash_attention.launches += 1
-    return out, lse
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), L.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), B, S, KV, G, hd, int(window),
+            float(softcap), int(bool(causal)), float(hd ** -0.5),
+            int(q.dtype == torch.bfloat16))
+    if blocks is None:
+        rc = lib.flash_attn_fwd(*args, _stream(q))
+        build.check(lib, rc, "flash_attn_fwd")
+    else:
+        rc = lib.flash_attn_fwd_probe(int(one_pass), *args, blocks.data_ptr(),
+                                      _stream(q))
+        build.check(lib, rc, "flash_attn_fwd_probe")
+    return out, lse, blocks
+
+
+def flash_attention_fwd_probe(q, k, v, lengths=None, *,
+                              one_pass: bool = False, window: int = 0,
+                              softcap: float = 0.0, causal: bool = True):
+    """A measurement launch of the forward kernel on CUDA operands of
+    :func:`flash_attention`, outside the wrapped path (no launch is
+    counted): ((O, lse), a [blocks, 2] int64 record of the key tiles each
+    block walked and the SM clocks it took, in launch order).
+    ``one_pass`` (f32, head_dim 64 or 256) runs both products as one TF32
+    pass: the precision control of the kernel's 3xTF32 split."""
+    B, S, KV, G, hd = _attn_dims(q, k, v)
+    L = _lengths(lengths, B, S, q.device)
+    plan = plans.flash_attn_fwd(B, S, KV, G, hd, q.dtype == torch.bfloat16)
+    n_blocks = 0
+    if plan:
+        n_blocks = plan[0].grid[0] * plan[0].grid[1] * plan[0].grid[2]
+    blocks = torch.zeros((n_blocks, 2), dtype=torch.int64, device=q.device)
+    out, lse, blocks = _fwd_launch(q, k, v, L, window, softcap, causal,
+                                   one_pass=one_pass, blocks=blocks)
+    return (out, lse), blocks
 
 
 def _bwd_operands(q, k, v, do, lse, delta, B, S, KV, G, hd):

@@ -45,19 +45,30 @@ def _cdiv(a: int, b: int) -> int:
 
 
 # ------------------------------------------------------------ zo_update.cu --
-ZO_THREADS, ZO_BLOCKS_PER_SM = 256, 8
+ZO_THREADS, ZO_BLOCKS_PER_SM, ZO_UNROLL = 256, 8, 16
+
+
+def zo_update_chunk(vec: bool) -> int:
+    """Elements of one ``fused_update`` block: 256 threads x 16 packs of 4
+    (``vec``) or 1 element."""
+    return ZO_THREADS * ZO_UNROLL * (4 if vec else 1)
 
 
 def zo_update(n: int, bf16: bool, has_m: bool, vec: bool, update: bool,
               n_sms: int = H100_SMS):
-    """``zo_dual_perturb`` (update False) or ``zo_fused_update``: one
-    grid-stride launch of at most 8 blocks per SM; packs of 4 when every
-    operand is aligned (``vec``)."""
+    """``zo_dual_perturb`` (update False): one grid-stride launch of at most
+    8 blocks per SM.  ``zo_fused_update``: one block per chunk of
+    :func:`zo_update_chunk` elements, at least one (the last also takes the
+    n % 4 elements past the packs).  Packs of 4 when every operand is
+    aligned (``vec``)."""
     if n <= 0:
         return []
     v = 4 if vec else 1
-    blocks = _cdiv(n // v + n % v, ZO_THREADS)
-    blocks = max(1, min(blocks, n_sms * ZO_BLOCKS_PER_SM))
+    if update:
+        blocks = max(1, _cdiv(n // v, ZO_THREADS * ZO_UNROLL))
+    else:
+        blocks = _cdiv(n // v + n % v, ZO_THREADS)
+        blocks = max(1, min(blocks, n_sms * ZO_BLOCKS_PER_SM))
     name = "fused_update_kernel" if update else "dual_perturb_kernel"
     return [Launch(f"{name}<{'bf16' if bf16 else 'f32'},{int(has_m)},{v}>",
                    (blocks, 1, 1), ZO_THREADS, 0, 0)]
@@ -78,23 +89,55 @@ def gradip_reduce(n: int, vec: bool):
                    GRADIP_THREADS, 4 * (GRADIP_THREADS // 32), 0)]
 
 
-# ------------------------------------------------- flash_attn(_bwd).cu -----
-FLASH_ROWS, FLASH_BK, FLASH_THREADS = 64, 64, 256
+# ------------------------------------------------------------ flash_attn.cu --
+FLASH_ROWS, FLASH_THREADS = 64, 128  # the forward's score rows (BQ x G)
+
+
+def flash_fwd_bk(dh: int) -> int:
+    """Keys per tile of the forward: 32 at head_dim 64, else 16."""
+    return 32 if dh == 64 else 16
 
 
 def flash_attn_fwd(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool):
-    """One block per (BQ = 64 / G queries, KV head, row); q, k and v tiles,
-    the score tile and three row statistics in dynamic shared memory."""
+    """One block per (KV head, row, query tile of 64 / G queries), the query
+    tiles on the grid's slowest axis from the last to the first (heaviest
+    first under causal masking); q (f32: its hi bits and a lo plane) and
+    double-buffered k and v tiles in the operand type."""
     if B == 0 or S == 0:
         return []
-    bq = FLASH_ROWS // G
-    floats = (FLASH_ROWS * (dh + 1) + FLASH_BK * (dh + 1) + FLASH_BK * dh
-              + FLASH_ROWS * (FLASH_BK + 1) + 3 * FLASH_ROWS)
+    bq, bk = FLASH_ROWS // G, flash_fwd_bk(dh)
+    if bf16:
+        smem = 2 * (FLASH_ROWS * dh + 4 * bk * dh)
+    else:
+        smem = 8 * FLASH_ROWS * dh + 16 * bk * dh
     return [Launch(f"flash_fwd<{'bf16' if bf16 else 'f32'},{dh}>",
-                   (_cdiv(S, bq), KVH, B), FLASH_THREADS, 0, 4 * floats)]
+                   (KVH, B, _cdiv(S, bq)), FLASH_THREADS, 0, smem)]
 
 
-FLASH_BWD_BK = 32  # keys per tile of both backward kernels
+def flash_fwd_tiles(B: int, S: int, KVH: int, G: int, dh: int, *,
+                    lengths=None, window: int = 0, causal: bool = True):
+    """The key tiles each forward block walks, in launch order (the grid of
+    :func:`flash_attn_fwd`, blockIdx.x fastest): those the TPU kernel's
+    pruning predicate (``_block_needed``) keeps for the block's query tile.
+    ``lengths`` per row (None: S).  ``flash_attention_fwd_probe`` reads the
+    same counts back from the card."""
+    bq, bk = FLASH_ROWS // G, flash_fwd_bk(dh)
+    n_q, n_k = _cdiv(S, bq), _cdiv(S, bk)
+    out = []
+    for z in range(n_q):
+        q0 = (n_q - 1 - z) * bq
+        for b in range(B):
+            L = S if lengths is None else min(lengths[b], S)
+            walked = sum(1 for t in range(n_k)
+                         if t * bk < L
+                         and (not causal or t * bk <= q0 + bq - 1)
+                         and (not window or t * bk + bk - 1 > q0 - window))
+            out += [walked] * KVH
+    return out
+
+
+# ------------------------------------------------------- flash_attn_bwd.cu --
+FLASH_BWD_BK, FLASH_BWD_THREADS = 32, 256  # keys per tile of both kernels
 
 
 def flash_bwd_rows(dh: int) -> int:
@@ -123,13 +166,13 @@ def flash_attn_bwd(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool,
         smem = (ts * (2 * bk * dh + 4 * rows * dh)
                 + 4 * (4 * bk * rows + 4 * rows) + pre * 4 * 2 * bk * dh)
         return [Launch(f"flash_bwd_dkv<{t},{dh}>",
-                       (_cdiv(_cdiv(S, bk), 2), KVH, B), FLASH_THREADS, 0,
-                       smem)]
+                       (_cdiv(_cdiv(S, bk), 2), KVH, B), FLASH_BWD_THREADS,
+                       0, smem)]
     pre = not bf16 and dh <= 128  # ... and at 64 in dQ
     smem = (ts * (2 * rows * dh + 4 * bk * dh) + 4 * (2 * rows * bk + 2 * rows)
             + pre * 4 * 4 * bk * dh)
     return [Launch(f"flash_bwd_dq<{t},{dh}>",
-                   (_cdiv(S, rows // G), KVH, B), FLASH_THREADS, 0, smem)]
+                   (_cdiv(S, rows // G), KVH, B), FLASH_BWD_THREADS, 0, smem)]
 
 
 # ---------------------------------------------------------- decode_attn.cu --

@@ -248,10 +248,10 @@ def test_a_raising_kernel_is_recorded_and_reported():
 
 # ------------------------------------------------------------ plans --------
 def test_plans_match_the_launchers_arithmetic():
-    # the forward's head_dim-256 instance: 209.5 KiB (flash_attn.cu's
-    # static_assert against 227 KiB)
+    # the forward's head_dim-256 instance: 192 KiB (flash_attn.cu's
+    # static_assert against 227 KiB); query tiles on the slowest axis
     (l,) = plans.flash_attn_fwd(2, 4208, 4, 2, 256, False)
-    assert l.dynamic_smem == int(209.5 * 1024) and l.grid == (132, 4, 2)
+    assert l.dynamic_smem == 192 * 1024 and l.grid == (4, 2, 132)
     assert plans.mamba_scan(4, 512, 16384, 16)[0].static_smem == 8192
     assert plans.mamba_scan(4, 512, 16384, 16)[0].grid == (128, 4, 1)
     assert [x.kernel for x in plans.flash_decode(2, 0, 8, 4, 64, 256,
@@ -262,7 +262,7 @@ def test_plans_match_the_launchers_arithmetic():
     assert plans.zo_update(1_235_814_400, False, False, True, False)[0] \
         .grid == (132 * 8, 1, 1)
     assert plans.zo_update(1023, False, False, True, True)[0].grid == \
-        (2, 1, 1)
+        (1, 1, 1)  # fused_update: one block per 16,384-element chunk
     assert [x.grid for x in plans.gradip_reduce(1_235_814, True)] == \
         [(1024, 1, 1)]
     # the backward: dQ one block per 64 / G queries (32 / G at head_dim

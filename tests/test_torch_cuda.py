@@ -55,6 +55,29 @@ def test_elementwise_kernels_unaligned_views(dev):
     assert torch.equal(p, rp)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_fused_update_bit_equal_at_chunk_edges(dev, edge, dtype, masked):
+    """fused_update's blocks each take one chunk (plans.zo_update_chunk):
+    bit-equal to the plain version one element below, at and above a chunk
+    and two, packed and on views one element off the packs' alignment."""
+    from repro_torch.kernels import plans
+    for vec in (True, False):
+        n = plans.zo_update_chunk(vec) * (1 if vec else 2) + edge
+        w, z, m = _flat(n + 1, dtype, dev, n)
+        if not vec:  # off the 16-byte (8 for bf16 w) packs: the scalar path
+            w, z, m = w[1:], z[1:], m[1:]
+        else:
+            w, z, m = w[:n], z[:n], m[:n]
+        mm = m if masked else None
+        s = torch.tensor(-0.05, device=dev) * 0.731
+        before = ops.zo_fused_update_flat.launches
+        u = ops.zo_fused_update_flat(w, z, mm, s)
+        assert ops.zo_fused_update_flat.launches == before + 1
+        assert torch.equal(u, ref.fused_update_ref(w, z, mm, s))
+
+
 @pytest.mark.parametrize("n", [1, 777, 1_235_814, 10_000_000])
 def test_gradip_kernel_matches_plain(dev, n):
     gp, z, _ = _flat(n, torch.float32, dev, n + 1)
@@ -121,6 +144,101 @@ def test_flash_kernel_matches_plain(dev, dtype, G, dh, S, window, softcap,
     atol = 1e-4 if dtype == torch.float32 else 1.6e-2
     torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=0)
     torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,dh", [(8, 128), (64, 64), (64, 256), (3, 256)])
+@pytest.mark.parametrize("S,window,softcap,lengths", [
+    (200, 0, 0.0, (200, 77)), (130, 32, 30.0, (130, 1))])
+def test_flash_kernel_matches_plain_at_wide_groups(dev, dtype, G, dh, S,
+                                                   window, softcap, lengths):
+    """The forward at Jamba's G 8 and head_dim 128, at G 64 (one query of
+    64 heads a block) and at head_dim 256 with G 64 and an odd G: within
+    the tolerances above of the plain version, and two calls bit-equal
+    (one block owns each output row)."""
+    B, KV = 2, 1
+    g = torch.Generator(device=dev).manual_seed(S * G + dh)
+    q = torch.randn(B, S, KV * G, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, KV, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, KV, dh, generator=g, device=dev).to(dtype)
+    L = torch.tensor(lengths, device=dev)
+    kw = dict(window=window, softcap=softcap, return_lse=True)
+    before = ops.flash_attention.launches
+    o, lse = ops.flash_attention(q, k, v, L, **kw)
+    ro, rlse = ref.flash_attention_ref(q, k, v, L, window=window,
+                                       softcap=softcap, causal=True)
+    atol = 1e-4 if dtype == torch.float32 else 1.6e-2
+    torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    o2, lse2 = ops.flash_attention(q, k, v, L, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert ops.flash_attention.launches == before + 2
+
+
+def _fwd_smem_state(dh, bf16):
+    """(dynamic shared bytes granted to one forward instantiation on this
+    device, cudaFuncSetAttribute calls of the forward's launches so far)."""
+    from repro_torch.kernels import build
+    out = (ctypes.c_longlong * 2)()
+    assert build.load().flash_attn_fwd_smem_state(dh, int(bf16), out) == 0
+    return out[0], out[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_flash_fwd_sets_the_smem_attribute_once(dev, dh, dtype):
+    """The forward's launcher asks for its shared memory through the
+    per-device high-water mark (common.cuh): after a launch the mark holds
+    the plan's bytes, and launches at other shapes (the same bytes) make no
+    cudaFuncSetAttribute call."""
+    from repro_torch.kernels import plans
+    bf16 = dtype == torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(dh)
+
+    def call(B, S, KV, G):
+        q = torch.randn(B, S, KV * G, dh, generator=g, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, dh, generator=g, device=dev).to(dtype)
+        ops.flash_attention(q, k, k)
+
+    call(1, 96, 1, 2)
+    torch.cuda.synchronize()
+    (plan,) = plans.flash_attn_fwd(1, 96, 1, 2, dh, bf16)
+    granted, sets = _fwd_smem_state(dh, bf16)
+    assert granted == plan.dynamic_smem
+    for B, S, G in ((2, 64, 1), (2, 300, 2), (1, 700, 4)):
+        call(B, S, 2, G)
+    torch.cuda.synchronize()
+    assert _fwd_smem_state(dh, bf16)[1] == sets
+
+
+@pytest.mark.parametrize("dh", [64, 256])
+def test_flash_fwd_probe_records_blocks_and_one_pass_misses(dev, dh):
+    """flash_attention_fwd_probe launches the wrapped kernel (bit-equal
+    outputs, no launch counted), and each block records the key tiles it
+    walked: plans.flash_fwd_tiles' counts, never more than a block launched
+    before it under causal masking; its one-pass TF32 control misses the
+    1e-4 that the 3xTF32 split keeps."""
+    from repro_torch.kernels import plans
+    S, G = 512, 4 if dh == 64 else 2
+    g = torch.Generator(device=dev).manual_seed(dh)
+    q = torch.randn(2, S, 2 * G, dh, generator=g, device=dev)
+    k = torch.randn(2, S, 2, dh, generator=g, device=dev)
+    v = torch.randn(2, S, 2, dh, generator=g, device=dev)
+    L = torch.tensor([S, S], device=dev)
+    got = ops.flash_attention(q, k, v, L, return_lse=True)
+    want = ref.flash_attention_ref(q, k, v, L, window=0, softcap=0.0,
+                                   causal=True)
+    before = ops.launches()
+    res, rec = ops.flash_attention_fwd_probe(q, k, v, L)
+    assert ops.launches() == before
+    assert all(torch.equal(a, b) for a, b in zip(res, got))
+    tiles = rec[:, 0]
+    assert tiles.tolist() == plans.flash_fwd_tiles(2, S, 2, G, dh)
+    assert (tiles[1:] <= tiles[:-1]).all() and (rec[:, 1] > 0).all()
+    (o1, l1), _ = ops.flash_attention_fwd_probe(q, k, v, L, one_pass=True)
+    miss = max(float((o1 - want[0]).abs().max()),
+               float((l1 - want[1]).abs().max()))
+    assert miss > 1e-4
 
 
 def _bwd_inputs(dev, dtype, B, S, KV, G, dh, lengths, window, softcap, seed):

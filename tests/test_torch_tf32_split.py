@@ -1,5 +1,6 @@
-"""The precision claim of the flash backward kernels
-(``src/repro_torch/kernels/csrc/flash_attn_bwd.cu``), checked without a card.
+"""The precision claim of the flash kernels' 3xTF32 split
+(``src/repro_torch/kernels/csrc/flash_attn.cu``, ``flash_attn_bwd.cu``),
+checked without a card.
 
 The kernels run every product on the tensor cores as TF32 (10 mantissa
 bits) with f32 accumulation, splitting each f32 operand as ``hi =
@@ -10,7 +11,9 @@ values is exact in f32, and each ``mma.sync`` k-step of 8 adds its exact
 partial sum into an f32 accumulator.  Against the float64 product of the same
 f32 inputs, the 3-term split stays within 2e-6 of max|exact| on the kernels'
 tile shapes, where one TF32 pass misses by more than the 1e-4 the kernels
-are held to on the card.
+are held to on the card.  The forward's whole tile path (the online softmax
+over several key tiles, p split once, O rescaled and summed in f32) keeps
+that accuracy on O and the logsumexp.
 """
 import numpy as np
 import pytest
@@ -101,3 +104,65 @@ def test_bf16_operand_is_exact_in_tf32():
     y = (rng.normal(size=(64, 64)).astype(np.float32).view(np.uint32)
          & np.uint32(0xFFFF0000)).view(np.float32)
     assert rel_err(one_pass(bf, y), bf, y) <= 2e-6
+
+
+# ------------------------------------------------------------- the forward --
+def flash_forward(q, k, v, bk, product):
+    """One query tile of the forward kernel (``flash_attn.cu``) as it runs:
+    q [R, dh] against all keys of k, v [S, dh] (every pair live), key tile
+    by key tile of ``bk``: s = q k^T by ``product`` (the tensor cores), the
+    scale, the running max m and normalizer l and the rescale alpha in f32,
+    p = exp(s - m) in f32 (split once: ``product`` splits it), the tile's p
+    v by ``product``, and O = O * alpha + that tile in one f32 fma.
+    Returns (O, lse) in f32."""
+    R, dh = q.shape
+    scale = np.float32(dh ** -0.5)
+    m = np.full(R, -1e30, np.float32)
+    l = np.zeros(R, np.float32)
+    acc = np.zeros((R, dh), np.float32)
+    for k0 in range(0, k.shape[0], bk):
+        s = product(q, np.ascontiguousarray(k[k0:k0 + bk].T)) * scale
+        m_new = np.maximum(m, s.max(axis=1))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new[:, None])
+        l = l * alpha + p.sum(axis=1, dtype=np.float32)
+        part = product(p, v[k0:k0 + bk])
+        acc = (acc.astype(np.float64) * alpha[:, None] + part).astype(
+            np.float32)  # fmaf: one rounding (the product is exact in f64)
+        m = m_new
+    return acc / l[:, None], m + np.log(l)
+
+
+def attention_f64(q, k, v):
+    s = q.astype(np.float64) @ k.astype(np.float64).T * q.shape[1] ** -0.5
+    m = s.max(axis=1, keepdims=True)
+    p = np.exp(s - m)
+    l = p.sum(axis=1, keepdims=True)
+    return p @ v.astype(np.float64) / l, (m + np.log(l))[:, 0]
+
+
+# (R rows, S keys, dh, key tile): the slice's query tile (64 rows against
+# 512 keys, 16 tiles of 32) and Gemma-2's head_dim 256 (tiles of 16)
+FWD_SHAPES = [(64, 512, 64, 32), (64, 128, 256, 16)]
+
+
+@pytest.mark.parametrize("R,S,dh,bk", FWD_SHAPES)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_forward_tile_path_keeps_f32_accuracy(R, S, dh, bk, seed,
+                                              record_property):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(n, dh)).astype(np.float32)
+               for n in (R, S, S))
+    o64, lse64 = attention_f64(q, k, v)
+
+    def errs(product):
+        o, lse = flash_forward(q, k, v, bk, product)
+        return (float(np.abs(o - o64).max() / np.abs(o64).max()),
+                float(np.abs(lse - lse64).max() / np.abs(lse64).max()))
+
+    three, one = errs(three_pass), errs(one_pass)
+    record_property("three_pass_rel_err", three)
+    record_property("one_pass_rel_err", one)
+    assert max(three) <= 2e-6
+    # the one-pass control (flash_attention_fwd_probe's) is far off
+    assert min(one) > 10 * max(three)
