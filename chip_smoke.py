@@ -914,10 +914,10 @@ def bwd_one_pass(ops, args, kw, want, rel_err) -> list:
 
 
 def attribute_sets(state: str, *args) -> int:
-    """cudaFuncSetAttribute calls a flash file's launchers made in this
+    """cudaFuncSetAttribute calls a kernel file's launchers made in this
     process: ``state`` is its ``*_smem_state`` entry point
-    (csrc/flash_attn.cu, csrc/flash_attn_bwd.cu), ``args`` one
-    instantiation it takes."""
+    (csrc/flash_attn.cu, csrc/flash_attn_bwd.cu, csrc/decode_attn.cu),
+    ``args`` one instantiation it takes."""
     import ctypes
     from repro_torch.kernels import build
     out = (ctypes.c_longlong * 2)()
@@ -993,8 +993,10 @@ def check_flash_decode(torch, ops, ref, dev, cfg, slots: int, S: int,
     """The decode kernel against its plain version over the variant grid
     (two calls bit-equal, a length-0 row zeros) and at ``gemma``'s decode
     shapes in serve_gemma (a full rolling cache and the global one), then
-    timed at the serving shape: ``slots`` rows of a full ``S``-position f32
-    cache."""
+    at the serving shape (``slots`` rows of a full ``S``-position f32
+    cache): no attribute call in 100 steady calls, a CUDA graph's replay
+    equal to the eager call, timed in turns with SDPA, its device half
+    and its host split."""
     import torch.nn.functional as F
     gen = torch.Generator(device=dev).manual_seed(6)
 
@@ -1072,6 +1074,19 @@ def check_flash_decode(torch, ops, ref, dev, cfg, slots: int, S: int,
     err = float((out - want).abs().max())
     if err > DECODE_REL_TOL["f32"] * float(want.abs().max()):
         fail(f"flash_decode differs from plain at the serving shape: {err}")
+    # steady calls ask the runtime for no attribute; one call captured in a
+    # CUDA graph and replayed equals the eager call
+    sets = attribute_sets("flash_decode_smem_state", dh, 0, G)
+    for _ in range(100):
+        ops.flash_decode(q, k, v, L)
+    torch.cuda.synchronize()
+    steady_sets = attribute_sets("flash_decode_smem_state", dh, 0, G) - sets
+    if steady_sets:
+        fail(f"flash_decode set a kernel attribute {steady_sets} times in "
+             f"100 steady calls")
+    if not torch.equal(decode_graph_replay(torch, ops, q, k, v, L), out):
+        fail("flash_decode replayed from a CUDA graph differs from the "
+             "eager call")
     n_bytes = 2.0 * int(L.sum()) * KV * dh * 4 + 4.0 * (q.numel()
                                                          + out.numel())
     b_ms, b_by = bound(n_bytes, 4.0 * dh * G * KV * int(L.sum()))
@@ -1079,14 +1094,69 @@ def check_flash_decode(torch, ops, ref, dev, cfg, slots: int, S: int,
     qh = q.reshape(slots, KV * G, 1, dh)
     kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
     mask = (torch.arange(S, device=dev)[None, :] < L[:, None])[:, None, None]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              enable_gqa=True)
+
+    row = timed_turns(lambda: ops.flash_decode(q, k, v, L), sdpa, 50)
+    split = host_split_decode(torch, ops, q, k, v, L, sdpa)
+    shape = (f"q [{slots},{KV},{G},{dh}], cache [{slots},{S},{KV},{dh}] "
+             f"f32, lengths {S}")
+    emit("kernels.flash_decode_turns", ok=True, shape=shape, ms=row["ms"],
+         enqueue_ms=row["enqueue_ms"], sdpa_ms=row["library_ms"],
+         device_ms_queued=split["device_us_queued"] / 1e3, bound_ms=b_ms,
+         share_of_bound_device=b_ms / (split["device_us_queued"] / 1e3),
+         ms_turns=row["ms_turns"], sdpa_ms_turns=row["library_ms_turns"],
+         turns=TURNS, attribute_sets_in_100_steady_calls=steady_sets,
+         graph_replay_equal=True, host_us=split)
     return {"flash_decode": dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        **kernel_times(lambda: ops.flash_decode(q, k, v, L), 50),
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **row,
         plain_ms=timed(lambda: ref.decode_attention_ref(q, k, v, L), 20),
-        library_ms=timed(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=True), 50),
-        shape=f"q [{slots},{KV},{G},{dh}], cache [{slots},{S},{KV},{dh}] "
-              f"f32, lengths {S}", mbytes=n_bytes / 1e6)}
+        device_ms_queued=split["device_us_queued"] / 1e3, host_us=split,
+        shape=shape, mbytes=n_bytes / 1e6)}
+
+
+def decode_graph_replay(torch, ops, q, k, v, L):
+    """flash_decode(q, k, v, L) captured in a CUDA graph (after a warm call
+    on the capture's side stream), replayed once: its output."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.flash_decode(q, k, v, L)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.flash_decode(q, k, v, L)
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def host_split_decode(torch, ops, q, k, v, L, library):
+    """Host us per call of flash_decode and of its pieces at the serving
+    shape, and the device half: the kernel alone on preallocated operands,
+    queued behind a spin kernel (``queued_ms``)."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    B, KV, G, dh = q.shape
+    S = k.shape[1]
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), L.data_ptr(),
+            out.data_ptr(), B, S, KV, G, dh, 0.0, dh ** -0.5, 0)
+    st = ops._stream(q)
+    return dict(
+        device_us_queued=1e3 * queued_ms(
+            torch, lambda s: lib.flash_decode(*args, s)),
+        wrapper=host_us(lambda: ops.flash_decode(q, k, v, L)),
+        wrapper_unrecorded=host_us(
+            lambda: ops.flash_decode.__wrapped__(q, k, v, L)),
+        on_cpu=host_us(lambda: ops._on_cpu(q, k, v)),
+        lengths=host_us(lambda: ops._lengths(L, B, S, q)),
+        empty_like=host_us(lambda: torch.empty_like(q)),
+        ctypes_launch=host_us(lambda: lib.flash_decode(*args, st)),
+        library=host_us(library),
+        library_device_us_queued=1e3 * queued_ms(torch, lambda _: library()))
 
 
 def mamba_inputs(torch, dev, gen, B, S, E, N):
@@ -1142,9 +1212,25 @@ def check_mamba_scan(torch, ops, ref, dev):
         bound_by="bytes" if mem_ms >= exp_ms else "operations",
         bytes_bound_ms=mem_ms, exp_bound_ms=exp_ms, library_ms=None,
         **kernel_times(lambda: ops.mamba_scan(*args), 20),
+        device_ms_queued=mamba_device_ms(torch, args),
         plain_ms=timed(lambda: ref.mamba_scan_ref(*args), 3),
         shape=f"dt, x [{B},{S},{E}] f32, N {N}", mbytes=n_bytes / 1e6,
         g_exp=n_exp / 1e9)}
+
+
+def mamba_device_ms(torch, args) -> float:
+    """The scan kernel alone on preallocated operands (dt, B, C, x, A),
+    queued behind a spin kernel (``queued_ms``): its device half."""
+    from repro_torch.kernels import build
+    lib = build.load()
+    dt = args[0]
+    Bsz, S, E = dt.shape
+    y = torch.empty_like(dt)
+    h = torch.empty((Bsz, E, args[1].shape[-1]), dtype=torch.float32,
+                    device=dt.device)
+    ptrs = [t.data_ptr() for t in args] + [y.data_ptr(), h.data_ptr()]
+    return queued_ms(torch, lambda s: lib.mamba_scan(
+        *ptrs, Bsz, S, E, args[1].shape[-1], s), calls=10)
 
 
 def check_fixture_double(torch, ops, ref, dev):
@@ -2083,16 +2169,22 @@ def plan_cases(n_flat: int, n_mask: int):
     cases += [(P.flash_attn_bwd, dict(B=1, S=GEMMA_GRAD_TOKENS, KVH=4, G=2,
                                       dh=256, bf16=b, dkv=d))
               for b in (False, True) for d in (False, True)]  # grad_gemma
+    # decode: clusters of 8 (serving), 16 (Gemma), 2, 3 and 1 (S = 0)
     cases += [(P.flash_decode, dict(B=SERVE_SLOTS, S=SERVE_S_MAX, KVH=8, G=4,
-                                    dh=64, chunk=256, bf16=False)),
+                                    dh=64, bf16=False)),
               (P.flash_decode, dict(B=2, S=4096, KVH=4, G=2, dh=256,
-                                    chunk=256, bf16=False)),
+                                    bf16=False)),
               (P.flash_decode, dict(B=2, S=GEMMA_S_MAX, KVH=4, G=2, dh=256,
-                                    chunk=256, bf16=True)),
-              (P.flash_decode, dict(B=2, S=320, KVH=2, G=2, dh=64, chunk=256,
+                                    bf16=True)),
+              (P.flash_decode, dict(B=2, S=320, KVH=2, G=2, dh=64,
+                                    bf16=False)),
+              (P.flash_decode, dict(B=5, S=700, KVH=2, G=16, dh=128,
+                                    bf16=True)),
+              (P.flash_decode, dict(B=2, S=0, KVH=8, G=4, dh=64,
                                     bf16=False))]
     cases += [(P.mamba_scan, dict(B=4, S=SEQ_LEN, E=16384, N=16)),
-              (P.mamba_scan, dict(B=2, S=300, E=256, N=8))]
+              (P.mamba_scan, dict(B=2, S=300, E=256, N=8)),
+              (P.mamba_scan, dict(B=1, S=2048, E=129, N=16))]
     cases += [(P.fixture_double, dict(rows=r, cols=c, block_rows=r,
                                       aligned=True))
               for r, c in (FIXTURE_GOOD, FIXTURE_BAD)]
@@ -2460,8 +2552,8 @@ def profile_step(torch, name, step):
             if e.device_type == DeviceType.CUDA and dev_ms(e) > 0]
     kinds = {"gemm": 0.0, "ported_kernels": 0.0, "other": 0.0}
     ported = ("flash_fwd", "flash_bwd", "dual_perturb_kernel",
-              "fused_update_kernel", "gradip_", "decode_split",
-              "decode_combine", "mamba_scan_kernel")
+              "fused_update_kernel", "gradip_", "decode_attn",
+              "mamba_scan_kernel")
     by_ported = {}
     for e in kern:
         key = e.key.lower()

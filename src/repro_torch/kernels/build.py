@@ -45,8 +45,8 @@ SIGNATURES = {
     "flash_attn_bwd_probe": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P,
                               _P], _I),
-    "flash_decode": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                      _F, _I, _P], _I),
+    "flash_decode": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+                      _P], _I),
     "mamba_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "fixture_double": ([_P, _P, _I, _I, _I, _P], _I),
     # launch-plan queries (kernels/plans.py): shapes in, launches out
@@ -54,14 +54,16 @@ SIGNATURES = {
     "gradip_reduce_plan": ([_LL, _I, _P], _I),
     "flash_attn_fwd_plan": ([_I, _I, _I, _I, _I, _I, _P], _I),
     "flash_attn_bwd_plan": ([_I, _I, _I, _I, _I, _I, _I, _P], _I),
-    "flash_decode_plan": ([_I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "flash_decode_plan": ([_I, _I, _I, _I, _I, _I, _P], _I),
     "mamba_scan_plan": ([_I, _I, _I, _I, _P], _I),
     "fixture_double_plan": ([_I, _I, _I, _I, _P], _I),
     # launcher state: granted shared bytes, attribute calls
     "fixture_double_smem_state": ([_P], _I),
-    # the flash kernels' grants: one instantiation's bytes, attribute calls
+    # the flash and decode kernels' grants: one instantiation's bytes,
+    # attribute calls
     "flash_attn_fwd_smem_state": ([_I, _I, _P], _I),
     "flash_attn_bwd_smem_state": ([_I, _I, _I, _P], _I),
+    "flash_decode_smem_state": ([_I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

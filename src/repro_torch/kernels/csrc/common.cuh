@@ -1,5 +1,6 @@
 // Shared helpers of the port's kernels: element conversion, packed vector
-// access, launch plans and the dynamic shared-memory grant.  Compiled for
+// access, asynchronous copies, launch plans and the kernel-attribute
+// grant.  Compiled for
 // sm_90a; every entry point is extern "C" and returns the cudaError_t of
 // its launch (0 when the launch was accepted).
 #pragma once
@@ -33,6 +34,40 @@ struct alignas(sizeof(T) * V) Pack {
   T v[V];
 };
 
+// ---------------------------------------------------------------- copies --
+// cp.async of 16, 8 or 4 bytes from global to shared memory; with ok false
+// nothing is read and the destination is zero-filled (src must still be a
+// valid address).  16-byte copies bypass L1 (.cg), the smaller ones cannot.
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 inline int sm_count() {
   static int n = 0;
   if (n == 0) {
@@ -57,11 +92,15 @@ struct LaunchPlan {
   dim3 grid;
   int threads;
   size_t smem;      // dynamic shared bytes
+  int cluster = 1;  // blocks of a thread-block cluster along grid x
 };
 
-// Writes one launch as six values at out: grid x, y, z, threads per block,
-// the kernel's static shared bytes (cudaFuncGetAttributes) and the dynamic
-// shared bytes the launcher passes.
+// Values write_plan writes for one launch.
+constexpr int kPlanValues = 7;
+
+// Writes one launch as kPlanValues values at out: grid x, y, z, threads
+// per block, the kernel's static shared bytes (cudaFuncGetAttributes), the
+// dynamic shared bytes the launcher passes and the cluster size.
 inline int write_plan(const LaunchPlan& lp, long long* out) {
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, lp.fn);
@@ -75,15 +114,16 @@ inline int write_plan(const LaunchPlan& lp, long long* out) {
   out[3] = lp.threads;
   out[4] = (long long)a.sharedSizeBytes;
   out[5] = (long long)lp.smem;
+  out[6] = lp.cluster;
   return 0;
 }
 
-// A *_plan entry point's output: out[0] the number of launches, then six
-// values (write_plan) for each, in launch order.
+// A *_plan entry point's output: out[0] the number of launches, then
+// kPlanValues values (write_plan) for each, in launch order.
 inline int write_plans(const LaunchPlan* lps, int n, long long* out) {
   out[0] = n;
   for (int i = 0; i < n; ++i) {
-    const int e = write_plan(lps[i], out + 1 + 6 * i);
+    const int e = write_plan(lps[i], out + 1 + kPlanValues * i);
     if (e) return e;
   }
   return 0;
@@ -94,17 +134,21 @@ constexpr int kMaxDevices = 64;
 // Per device and kernel instantiation (0 .. N-1): the most dynamic shared
 // bytes the runtime has accepted for the kernel.  A launcher asks the
 // runtime (cudaFuncSetAttribute) only for a size past the mark, so a steady
-// caller pays no attribute call.  The mark is read without a lock on every
-// launch and raised under the lock after the runtime accepts, so it never
-// exceeds the attribute that is set.  One object per source file: its
-// kernels' instantiations are numbered by that file.
+// caller pays no attribute call.  A launcher of clusters past the portable
+// 8 blocks asks with nonportable_cluster, and the first grant of the
+// instantiation (the mark starts at 0) also allows those sizes.  The mark
+// is read without a lock on every launch and raised under the lock after
+// the runtime accepts, so it never exceeds the attribute that is set.  One
+// object per source file: its kernels' instantiations are numbered by that
+// file.
 template <int N>
 struct SmemGrants {
   std::atomic<long long> granted[kMaxDevices][N];
   std::atomic<long long> sets;  // cudaFuncSetAttribute calls, refused too
   std::mutex lock;
 
-  cudaError_t grant(const void* fn, int inst, size_t bytes) {
+  cudaError_t grant(const void* fn, int inst, size_t bytes,
+                    bool nonportable_cluster = false) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
@@ -121,6 +165,15 @@ struct SmemGrants {
     if (e != cudaSuccess) {
       cudaGetLastError();  // a refused size leaves no error behind
       return e;
+    }
+    if (nonportable_cluster) {
+      sets.fetch_add(1, std::memory_order_relaxed);
+      e = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) {
+        cudaGetLastError();
+        return e;
+      }
     }
     if (tracked) granted[dev][inst].store(want, std::memory_order_release);
     return cudaSuccess;

@@ -160,7 +160,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH>)
   const long long c0 = p.blocks ? clock64() : 0;
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * p.BQ;  // heaviest first
-  const int L = p.lengths[b];
+  const int L = min(max(p.lengths[b], 0), p.S);  // clamped here
   const float inv_g = 1.f / p.G;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, c2 = 2 * (lane & 3);
@@ -418,8 +418,8 @@ extern "C" int flash_attn_fwd_plan(int B, int S, int KVH, int G, int dh,
 }
 
 // q [B, S, KVH*G, dh], k and v [B, S, KVH, dh], contiguous and 16-byte
-// aligned, all f32 or all bf16; lengths [B] int32 (<= S); o like q; lse
-// [B, KVH, S, G] f32.
+// aligned, all f32 or all bf16; lengths [B] int32 (clamped to [0, S]
+// here); o like q; lse [B, KVH, S, G] f32.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const int* lengths, void* o, float* lse, int B,
                               int S, int KVH, int G, int dh, int window,

@@ -246,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDqSmem<T, DH>>)
   const long long c0 = p.blocks ? clock64() : 0;
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * p.BQ;  // heaviest first
-  const int L = p.lengths[b];
+  const int L = min(max(p.lengths[b], 0), p.S);  // clamped here
   const float inv_g = 1.f / p.G;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, c2 = 2 * (lane & 3);
@@ -410,7 +410,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDkvSmem<T, DH>>)
 
   const long long c0 = p.blocks ? clock64() : 0;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int L = p.lengths[b];
+  const int L = min(max(p.lengths[b], 0), p.S);
   const float inv_g = 1.f / p.G;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, c2 = 2 * (lane & 3);
@@ -683,8 +683,8 @@ bool operands_aligned(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, dout [B, S, KVH*G, dh] and k, v [B, S, KVH, dh], contiguous and
-// 16-byte aligned, all f32 or all bf16; lengths [B] int32 (<= S); lse,
-// delta [B, KVH, S, G] f32; dq [B, S, KVH*G, dh] f32.
+// 16-byte aligned, all f32 or all bf16; lengths [B] int32 (clamped to
+// [0, S] here); lse, delta [B, KVH, S, G] f32; dq [B, S, KVH*G, dh] f32.
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const int* lengths,
                                  const float* lse, const float* delta,

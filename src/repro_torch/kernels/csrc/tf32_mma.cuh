@@ -1,7 +1,8 @@
 // Tensor-core helpers shared by the flash-attention kernels (flash_attn.cu,
 // flash_attn_bwd.cu): f32 products at f32 accuracy on TF32 tensor cores
-// (3xTF32), the swizzled tile layout their fragment loads read, cp.async
-// copies of tiles in the model layout, and the attention masks.
+// (3xTF32), the swizzled tile layout their fragment loads read, copies of
+// tiles in the model layout (cp.async, common.cuh), and the attention
+// masks.
 //
 // 3xTF32: mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 on operands
 // split as hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi); a product is
@@ -178,30 +179,6 @@ __device__ __forceinline__ void split_chunks(float* t, uint32_t* lo) {
     *reinterpret_cast<uint4*>(t + o) = h;
     *reinterpret_cast<uint4*>(lo + o) = l;
   }
-}
-
-// ---------------------------------------------------------------- copies --
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Folded rows q0.. of a [B, S, KVH*G, DH] tensor into a [R][DH] tile: row r

@@ -34,7 +34,6 @@ KERNEL_HEAD_DIMS = (64, 128, 256)  # the flash forward
 BWD_HEAD_DIMS = (64, 128, 256)     # the flash backward
 DECODE_HEAD_DIMS = (64, 128, 256)
 DECODE_MAX_G = 16
-DECODE_CHUNK = 256  # cache positions per split of the decode kernel
 MAMBA_STATE_DIMS = (8, 16)  # the selective scan's d_state instances
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -230,11 +229,26 @@ def _new_gradip_scratch(key) -> tuple:
     return entry
 
 
-def _lengths(lengths, B: int, S: int, device) -> torch.Tensor:
+def _lengths(lengths, B: int, S: int, like) -> torch.Tensor:
+    """Per-row lengths as the kernels take them: [B] int32 on ``like``'s
+    device.  The kernels clamp each to [0, S] themselves (the plain
+    versions mask the same keys), so an int32 contiguous [B] tensor there
+    passes through untouched, and anything else costs one op: a fill for
+    None or a host integer, or one copy that casts and broadcasts."""
     if lengths is None:
-        return torch.full((B,), S, dtype=torch.int32, device=device)
-    L = torch.as_tensor(lengths, device=device).to(torch.int32).reshape(-1)
-    return torch.clamp(L.expand(B), max=S).contiguous()
+        lengths = S
+    if isinstance(lengths, torch.Tensor):
+        if (lengths.dtype is torch.int32 and lengths.dim() == 1
+                and lengths.shape[0] == B and lengths.is_contiguous()
+                and lengths.get_device() == like.get_device()):
+            return lengths
+    elif isinstance(lengths, int):
+        return torch.full((B,), min(max(lengths, 0), S), dtype=torch.int32,
+                          device=like.device)
+    else:
+        lengths = torch.as_tensor(lengths)
+    out = torch.empty(B, dtype=torch.int32, device=like.device)
+    return out.copy_(lengths.reshape(-1).expand(B))
 
 
 def _attn_dims(q, k, v):
@@ -320,7 +334,7 @@ def flash_attention_fwd_probe(q, k, v, lengths=None, *,
     ``one_pass`` (f32, head_dim 64 or 256) runs both products as one TF32
     pass: the precision control of the kernel's 3xTF32 split."""
     B, S, KV, G, hd = _attn_dims(q, k, v)
-    L = _lengths(lengths, B, S, q.device)
+    L = _lengths(lengths, B, S, q)
     plan = plans.flash_attn_fwd(B, S, KV, G, hd, q.dtype == torch.bfloat16)
     n_blocks = 0
     if plan:
@@ -350,7 +364,7 @@ def flash_attention_bwd_dq(q, k, v, lengths, lse, delta, do, *,
     forward's ``lse`` and ``delta = rowsum(dO * O)`` (both [B, KV, S, G]
     f32); q, dO [B, S, H, hd] and k, v [B, S, KV, hd] in one of f32/bf16."""
     B, S, KV, G, hd = _attn_dims(q, k, v)
-    L = _lengths(lengths, B, S, q.device)
+    L = _lengths(lengths, B, S, q)
     if _on_cpu(q, k, v, lse, delta, do):
         return ref.flash_attn_bwd_dq_ref(q, k, v, L, lse, delta, do,
                                          window=window, softcap=softcap,
@@ -376,7 +390,7 @@ def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
     """(dK, dV), each [B, S, KV, hd] f32; arguments as
     :func:`flash_attention_bwd_dq`."""
     B, S, KV, G, hd = _attn_dims(q, k, v)
-    L = _lengths(lengths, B, S, q.device)
+    L = _lengths(lengths, B, S, q)
     if _on_cpu(q, k, v, lse, delta, do):
         return ref.flash_attn_bwd_dkv_ref(q, k, v, L, lse, delta, do,
                                           window=window, softcap=softcap,
@@ -409,7 +423,7 @@ def flash_attention_bwd_probe(q, k, v, lengths, lse, delta, do, *,
     product as one TF32 pass: the precision control of the kernels'
     3xTF32 split."""
     B, S, KV, G, hd = _attn_dims(q, k, v)
-    L = _lengths(lengths, B, S, q.device)
+    L = _lengths(lengths, B, S, q)
     q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, B, S,
                                             KV, G, hd)
     bf16 = q.dtype == torch.bfloat16
@@ -478,7 +492,7 @@ def flash_attention(q, k, v, lengths=None, *, window: int = 0,
     :class:`FlashAttentionFn`, whose backward runs the recompute kernels;
     otherwise it is one forward launch."""
     B, S, _, _, _ = _attn_dims(q, k, v)
-    L = _lengths(lengths, B, S, q.device)
+    L = _lengths(lengths, B, S, q)
     args = (q, k, v, L, int(window), float(softcap), bool(causal))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out, lse = FlashAttentionFn.apply(*args)
@@ -488,7 +502,7 @@ def flash_attention(q, k, v, lengths=None, *, window: int = 0,
 
 
 @_recorded(lambda n_sms, q, k, v, length, softcap=0.0: plans.flash_decode(
-    q.shape[0], k.shape[1], q.shape[1], q.shape[2], q.shape[3], DECODE_CHUNK,
+    q.shape[0], k.shape[1], q.shape[1], q.shape[2], q.shape[3],
     q.dtype == torch.bfloat16))
 def flash_decode(q, k, v, length, softcap: float = 0.0):
     """One-token GQA decode attention (``repro.kernels.ops.flash_decode``):
@@ -497,9 +511,11 @@ def flash_decode(q, k, v, length, softcap: float = 0.0):
     (each row's live cache prefix, clamped to S).  Returns [B, KVH, G, dh]
     in q's dtype; a row of length 0 gets zeros.
 
-    On CUDA it launches ``csrc/decode_attn.cu`` (split-S pass, then a
-    fixed-order combine) on contiguous operands as they come from the model;
-    it copies nothing and pads nothing."""
+    On CUDA it launches ``csrc/decode_attn.cu`` once (a cluster of splits
+    per KV head and row, combined in the launch) on contiguous operands as
+    they come from the model; it copies nothing and pads nothing, and
+    allocates only the output.  Nothing is kept per stream, so a call can
+    be captured in a CUDA graph."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_decode takes q [B, KVH, G, dh] and k, v "
                          f"[B, S, KVH, dh], got {tuple(q.shape)}, "
@@ -521,22 +537,17 @@ def flash_decode(q, k, v, length, softcap: float = 0.0):
                          f"{dh}, {G}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_decode operands must be contiguous")
-    if any(t.data_ptr() % (4 * t.element_size()) for t in (k, v)):
+    align = 4 * k.element_size()
+    if k.data_ptr() % align or v.data_ptr() % align:
         raise ValueError("flash_decode reads the cache in 4-element vectors: "
                          "k and v must be aligned to 4 elements")
-    L = _lengths(length, B, S, q.device)
-    n_split = -(-S // DECODE_CHUNK)
+    L = _lengths(length, B, S, q)
     lib = build.load()
-    part_o = torch.empty((B, KV, n_split, G, dh), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((B, KV, n_split, G, 2), dtype=torch.float32,
-                          device=q.device)
     out = torch.empty_like(q)
     rc = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), L.data_ptr(),
-        part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, S, KV, G,
-        dh, DECODE_CHUNK, float(softcap), float(dh ** -0.5),
-        int(q.dtype == torch.bfloat16), _stream(q))
+        out.data_ptr(), B, S, KV, G, dh, float(softcap), dh ** -0.5,
+        int(q.dtype is torch.bfloat16), _stream(q))
     build.check(lib, rc, "flash_decode")
     flash_decode.launches += 1
     return out

@@ -7,8 +7,8 @@ so the static analyzer (``analysis/``) can hold every kernel record's
 shared bytes against a block's limit on the CPU as on the card, and
 ``chip_smoke.py`` holds these plans against the library's own answer
 (:func:`query`: ``cudaFuncGetAttributes`` for the static bytes, and the
-dynamic bytes and grid the launcher passes).  Pure arithmetic on shapes:
-nothing here allocates a tensor or needs a card.
+dynamic bytes, grid and cluster the launcher passes).  Pure arithmetic on
+shapes: nothing here allocates a tensor or needs a card.
 """
 from __future__ import annotations
 
@@ -25,19 +25,22 @@ H100_SMEM_OPTIN = 232_448
 @dataclass(frozen=True)
 class Launch:
     """One kernel launch: ``grid`` (x, y, z), ``threads`` per block, the
-    kernel's static shared bytes and the dynamic shared bytes passed."""
+    kernel's static shared bytes, the dynamic shared bytes passed and the
+    blocks of a thread-block cluster along grid x (1: no cluster)."""
     kernel: str
     grid: tuple
     threads: int
     static_smem: int
     dynamic_smem: int
+    cluster: int = 1
 
     @property
     def shared_bytes(self) -> int:
         return self.static_smem + self.dynamic_smem
 
     def numbers(self) -> tuple:
-        return (*self.grid, self.threads, self.static_smem, self.dynamic_smem)
+        return (*self.grid, self.threads, self.static_smem, self.dynamic_smem,
+                self.cluster)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -176,37 +179,61 @@ def flash_attn_bwd(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool,
 
 
 # ---------------------------------------------------------- decode_attn.cu --
-DECODE_THREADS = 128
+DECODE_THREADS, DECODE_MAX_CLUSTER, DECODE_SPLIT_KEYS = 128, 16, 256
+DECODE_STAGES = 2  # K/V tiles in flight or in use
 
 
-def flash_decode(B: int, S: int, KVH: int, G: int, dh: int, chunk: int,
-                 bf16: bool):
-    """The split pass (one block per ``chunk`` cache positions, KV head and
-    row; none when S = 0), then the combine pass (one block per KV head and
-    row)."""
+def decode_cluster(S: int) -> tuple:
+    """(cluster size, chunk) of the decode launch over an S-position cache:
+    min(16, ceil(S / 256)) splits of ceil(S / cluster) positions (S = 0:
+    one block, chunk 1)."""
+    if S <= 0:
+        return 1, 1
+    cs = min(DECODE_MAX_CLUSTER, _cdiv(S, DECODE_SPLIT_KEYS))
+    return cs, _cdiv(S, cs)
+
+
+def flash_decode(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool):
+    """One launch: a cluster of :func:`decode_cluster` blocks (the splits)
+    per KV head and row, the first block combining them; an instantiation
+    for groups of up to 4 heads and one for up to 16.  Each block holds q
+    (rows padded by 4 floats), four warps' partial scores, the
+    probabilities and three statistics per head, then ``DECODE_STAGES``
+    stages of K and V tiles of 2048 / dh keys (rows padded by 4 elements)
+    in the operand type, which the end of a split reuses for its key
+    groups' partial outputs (min(4, 512 / dh) x G x dh f32)."""
     if B == 0 or KVH == 0:
         return []
-    t = "bf16" if bf16 else "f32"
-    out = []
-    if S > 0:
-        bk = 4096 // dh
-        floats = G * dh + bk * (dh + 1) + bk * dh + G * (bk + 1) + 3 * G
-        out.append(Launch(f"decode_split<{t},{dh}>", (_cdiv(S, chunk), KVH, B),
-                          DECODE_THREADS, 0, 4 * floats))
-    out.append(Launch(f"decode_combine<{t},{dh}>", (KVH, B, 1),
-                      DECODE_THREADS, 0, 0))
-    return out
+    cs, _ = decode_cluster(S)
+    bk = 2048 // dh
+    head = G * (dh + 4) + 4 * G * bk + G * (bk + 1) + 3 * G
+    kv = (2 if bf16 else 4) * 2 * DECODE_STAGES * bk * (dh + 4)
+    red = 4 * min(4, 512 // dh) * G * dh
+    smem = 4 * _cdiv(head, 4) * 4 + max(kv, red)
+    gb = 4 if G <= 4 else 16
+    return [Launch(f"decode_attn<{'bf16' if bf16 else 'f32'},{dh},{gb}>",
+                   (cs, KVH, B), DECODE_THREADS, 0, smem, cs)]
 
 
 # ----------------------------------------------------------- mamba_scan.cu --
-MAMBA_THREADS, MAMBA_TILE = 128, 64
+MAMBA_THREADS, MAMBA_SEG, MAMBA_STEPS = 128, 4, 16
+MAMBA_CHANNELS = MAMBA_THREADS // MAMBA_SEG
 
 
 def mamba_scan(B: int, S: int, E: int, N: int):
-    """One block per 128 channels of a row, looping over S; 64 steps of B
-    and C staged in static shared memory."""
-    return [Launch(f"mamba_scan_kernel<{N}>", (_cdiv(E, MAMBA_THREADS), B, 1),
-                   MAMBA_THREADS, 2 * 4 * MAMBA_TILE * N, 0)]
+    """One block of 4 warps per 32 channels of a row (4 lanes a channel),
+    walking S in tiles of 4 segments x 16 steps; two tile buffers (dt and
+    x as [segment][16 x 32 channels], B and C as [segment][16 x N], each
+    segment padded by 32 / 4 floats), then A' and the carry [32][N]."""
+    if B == 0 or E == 0:
+        return []
+    pad = 32 // MAMBA_SEG
+    x_seg = MAMBA_STEPS * MAMBA_CHANNELS + pad
+    bc_seg = MAMBA_STEPS * N + pad
+    buf = 2 * MAMBA_SEG * (x_seg + bc_seg)
+    smem = 4 * (2 * buf + 2 * MAMBA_CHANNELS * N)
+    return [Launch(f"mamba_scan_kernel<{N}>",
+                   (_cdiv(E, MAMBA_CHANNELS), B, 1), MAMBA_THREADS, 0, smem)]
 
 
 # ------------------------------------------------------- fixture_double.cu --
@@ -235,14 +262,15 @@ _QUERIES = {
         lib.flash_attn_fwd_plan(B, S, KVH, G, dh, int(bf16), out)),
     flash_attn_bwd: lambda lib, out, B, S, KVH, G, dh, bf16, dkv: (
         lib.flash_attn_bwd_plan(int(dkv), B, S, KVH, G, dh, int(bf16), out)),
-    flash_decode: lambda lib, out, B, S, KVH, G, dh, chunk, bf16: (
-        lib.flash_decode_plan(B, S, KVH, G, dh, chunk, int(bf16), out)),
+    flash_decode: lambda lib, out, B, S, KVH, G, dh, bf16: (
+        lib.flash_decode_plan(B, S, KVH, G, dh, int(bf16), out)),
     mamba_scan: lambda lib, out, B, S, E, N: lib.mamba_scan_plan(
         B, S, E, N, out),
     fixture_double: lambda lib, out, rows, cols, block_rows, aligned: (
         lib.fixture_double_plan(rows, cols, block_rows, int(aligned), out)),
 }
-MAX_LAUNCHES = 2
+MAX_LAUNCHES = 1
+PLAN_VALUES = 7  # common.cuh kPlanValues: Launch.numbers() without the name
 
 
 def query(lib, plan_fn, **shape) -> list:
@@ -250,13 +278,13 @@ def query(lib, plan_fn, **shape) -> list:
     (its ``*_plan`` entry point), as :class:`Launch` records named as
     ``plan_fn`` names them; ``shape`` as ``plan_fn`` takes it, without
     ``n_sms`` (the library reads the device's)."""
-    out = (ctypes.c_longlong * (1 + 6 * MAX_LAUNCHES))()
+    out = (ctypes.c_longlong * (1 + PLAN_VALUES * MAX_LAUNCHES))()
     rc = _QUERIES[plan_fn](lib, out, **shape)
     if rc:
         raise RuntimeError(f"{plan_fn.__name__}_plan: CUDA error {rc} "
                            f"({lib.repro_cuda_error_string(rc).decode()})")
     names = [l.kernel for l in plan_fn(**shape)]
+    at = [1 + PLAN_VALUES * i for i in range(out[0])]
     return [Launch(names[i] if i < len(names) else "?",
-                   tuple(out[1 + 6 * i:4 + 6 * i]), out[4 + 6 * i],
-                   out[5 + 6 * i], out[6 + 6 * i])
-            for i in range(out[0])]
+                   tuple(out[a:a + 3]), *out[a + 3:a + PLAN_VALUES])
+            for i, a in enumerate(at)]

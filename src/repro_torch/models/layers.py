@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import plans, ref
 from repro_torch.kernels.ops import (BWD_HEAD_DIMS, DECODE_HEAD_DIMS,
-                                     DECODE_MAX_G, KERNEL_HEAD_DIMS)
+                                     DECODE_MAX_G, KERNEL_HEAD_DIMS,
+                                     flash_decode)
 
 NEG_INF = -1e9  # large-negative for masking (bf16-safe)
 
@@ -264,7 +265,6 @@ def decode_self_attention(x1, p, cfg, cache_k, cache_v, cur_pos, *,
     backend = resolve_decode_backend(getattr(ctx, "decode_backend", None),
                                      cfg)
     if backend == "kernel":
-        from repro_torch.kernels.ops import flash_decode
         out = flash_decode(qg, cache_k, cache_v, lengths,
                            softcap=cfg.attn_softcap)
     else:

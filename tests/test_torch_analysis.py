@@ -252,13 +252,21 @@ def test_plans_match_the_launchers_arithmetic():
     # static_assert against 227 KiB); query tiles on the slowest axis
     (l,) = plans.flash_attn_fwd(2, 4208, 4, 2, 256, False)
     assert l.dynamic_smem == 192 * 1024 and l.grid == (4, 2, 132)
-    assert plans.mamba_scan(4, 512, 16384, 16)[0].static_smem == 8192
-    assert plans.mamba_scan(4, 512, 16384, 16)[0].grid == (128, 4, 1)
-    assert [x.kernel for x in plans.flash_decode(2, 0, 8, 4, 64, 256,
-                                                 False)] == \
-        ["decode_combine<f32,64>"]
-    assert plans.flash_decode(8, 2048, 8, 4, 64, 256, False)[0].grid == \
-        (8, 8, 8)
+    # the scan: 4 warps per 32 channels, two tile buffers of 64 steps
+    # (dt, x [4 x (16 x 32 + 8)], B, C [4 x (16 x 16 + 8)]) and A', carry
+    (l,) = plans.mamba_scan(4, 512, 16384, 16)
+    assert (l.grid, l.threads, l.static_smem, l.dynamic_smem) == \
+        ((512, 4, 1), 128, 0, 54_272)
+    # decode: one launch, a cluster of min(16, ceil(S / 256)) splits per
+    # (KV head, row); at S = 0 one block writes the zeros
+    (l,) = plans.flash_decode(2, 0, 8, 4, 64, False)
+    assert (l.kernel, l.grid, l.cluster) == ("decode_attn<f32,64,4>",
+                                             (1, 8, 2), 1)
+    (l,) = plans.flash_decode(8, 2048, 8, 4, 64, False)
+    assert (l.grid, l.cluster, l.dynamic_smem) == ((8, 8, 8), 8, 38_528)
+    (l,) = plans.flash_decode(2, 4352, 4, 2, 256, False)  # Gemma's global
+    assert (l.grid, l.cluster) == ((16, 4, 2), 16)
+    assert plans.decode_cluster(4352) == (16, 272)
     assert plans.zo_update(1_235_814_400, False, False, True, False)[0] \
         .grid == (132 * 8, 1, 1)
     assert plans.zo_update(1023, False, False, True, True)[0].grid == \
@@ -282,7 +290,7 @@ def test_plans_match_the_launchers_arithmetic():
                      plans.flash_attn_fwd(2, 4208, 4, 2, 256, True),
                      plans.flash_attn_bwd(4, 512, 8, 4, 128, False, False),
                      plans.flash_attn_bwd(4, 512, 8, 4, 128, False, True),
-                     plans.flash_decode(2, 4352, 4, 2, 256, 256, False),
+                     plans.flash_decode(2, 4352, 4, 2, 256, False),
                      plans.mamba_scan(4, 512, 16384, 16),
                      plans.fixture_double(128, 128, 128, True)):
         assert all(x.shared_bytes <= plans.H100_SMEM_OPTIN for x in launches)

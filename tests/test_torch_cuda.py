@@ -456,6 +456,81 @@ def test_flash_bwd_probe_records_blocks_and_one_pass_misses(dev, dh):
     assert miss > 1e-4
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,G,dh", [(200, 4, 64), (2048, 4, 64),
+                                    (4096, 2, 256), (4352, 2, 256),
+                                    (3000, 8, 128), (700, 16, 256)])
+def test_flash_decode_cluster_edges(dev, dtype, S, G, dh):
+    """Clusters of 1 (S 200), 8 (2048), 16 (4096, and Gemma-2's 4352 in
+    chunks of 272), 12 (3000) and 3 (700, with the largest group and head
+    dim): rows whose live length ends inside the first split, just past
+    it, inside the last split, at S, at 1 and at 0; one launch a call,
+    two calls bit-equal."""
+    from repro_torch.kernels import plans
+    cs, chunk = plans.decode_cluster(S)
+    assert cs == {200: 1, 2048: 8, 4096: 16, 4352: 16, 3000: 12, 700: 3}[S]
+    lens = (S, 1, max(chunk - 5, 1), min(chunk + 1, S),
+            max(S - chunk // 2, 1), 0)
+    g = torch.Generator(device=dev).manual_seed(S)
+    q = torch.randn(len(lens), 2, G, dh, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(len(lens), S, 2, dh, generator=g, device=dev)
+            .to(dtype) for _ in range(2))
+    L = torch.tensor(lens, device=dev, dtype=torch.int32)
+    before = ops.flash_decode.launches
+    out = ops.flash_decode(q, k, v, L, softcap=50.0)
+    assert ops.flash_decode.launches == before + 1
+    want = ref.decode_attention_ref(q, k, v, L, 50.0)
+    frac = 1e-5 if dtype == torch.float32 else 8e-3
+    scale = float(want.float().abs().max())
+    assert float((out.float() - want.float()).abs().max()) <= frac * scale
+    assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+    assert torch.equal(ops.flash_decode(q, k, v, L, softcap=50.0), out)
+
+
+def _decode_smem_state(dh, bf16, G):
+    """(dynamic shared bytes granted to the decode kernel of head_dim dh
+    and group size G on this device, cudaFuncSetAttribute calls of decode
+    launches)."""
+    from repro_torch.kernels import build
+    out = (ctypes.c_longlong * 2)()
+    assert build.load().flash_decode_smem_state(dh, int(bf16), G, out) == 0
+    return out[0], out[1]
+
+
+def test_flash_decode_steady_calls_set_no_attribute(dev):
+    """The first launch of an instantiation grants its shared memory and
+    the non-portable cluster sizes; 100 steady calls ask the runtime for
+    nothing more."""
+    from repro_torch.kernels import plans
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(8, 8, 4, 64, generator=g, device=dev)
+    k, v = (torch.randn(8, 2048, 8, 64, generator=g, device=dev)
+            for _ in range(2))
+    L = torch.full((8,), 2048, device=dev, dtype=torch.int32)
+    ops.flash_decode(q, k, v, L)
+    torch.cuda.synchronize()
+    granted, sets = _decode_smem_state(64, False, 4)
+    (plan,) = plans.flash_decode(8, 2048, 8, 4, 64, False)
+    assert granted >= plan.dynamic_smem and sets >= 2
+    for _ in range(100):
+        ops.flash_decode(q, k, v, L)
+    torch.cuda.synchronize()
+    assert _decode_smem_state(64, False, 4) == (granted, sets)
+
+
+def test_flash_decode_captured_in_a_cuda_graph(dev):
+    """No scratch and no per-stream state: one call captured in a CUDA
+    graph and replayed equals the eager call."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(4, 2, 4, 64, generator=g, device=dev)
+    k, v = (torch.randn(4, 700, 2, 64, generator=g, device=dev)
+            for _ in range(2))
+    L = torch.tensor([700, 1, 300, 0], device=dev, dtype=torch.int32)
+    assert torch.equal(chip_smoke.decode_graph_replay(torch, ops, q, k, v,
+                                                      L),
+                       ops.flash_decode(q, k, v, L))
+
+
 def test_flash_decode_reads_only_the_live_prefix(dev):
     """Cache positions at or past a row's length never reach the result:
     NaNs there leave it finite and equal."""
@@ -514,9 +589,12 @@ def _mamba_args(dev, B, S, E, N, seed):
     return dt, Bi, Ci, x, A
 
 
+# (B, S, E, N): one step; ragged S and E (129: the 4-byte copies); S 2048:
+# 16 tiles of 128 steps, each entered from the last one's carry
 @pytest.mark.parametrize("B,S,E,N", [(1, 1, 128, 16), (3, 37, 200, 16),
                                      (2, 300, 256, 8), (2, 64, 129, 8),
-                                     (1, 513, 1024, 16)])
+                                     (1, 513, 1024, 16), (1, 2048, 256, 16),
+                                     (2, 2048, 129, 8), (1, 2047, 37, 16)])
 def test_mamba_scan_matches_plain(dev, B, S, E, N):
     """y and h_last within 1e-5 of the largest entry (f32 sums of the same
     terms, fused on the card), and two calls bit-equal."""
@@ -530,6 +608,22 @@ def test_mamba_scan_matches_plain(dev, B, S, E, N):
             1e-5 * float(want.abs().max())
     y2, h2 = ops.mamba_scan(*args)
     assert torch.equal(y, y2) and torch.equal(h, h2)
+
+
+def test_mamba_scan_off_the_16_byte_copies(dev):
+    """Operands off a 16-byte boundary (E % 4 == 0): the 4-byte copies,
+    equal to the aligned call bit for bit."""
+    args = _mamba_args(dev, 2, 300, 256, 16, 3)
+    want = ops.mamba_scan(*args)
+    moved = []
+    for t in args:
+        buf = torch.empty(t.numel() + 1, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        moved.append(view)
+    assert moved[0].data_ptr() % 16
+    got = ops.mamba_scan(*moved)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_mamba_scan_rejects_what_the_kernel_does_not_take(dev):

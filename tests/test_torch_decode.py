@@ -23,7 +23,7 @@ from repro.models import layers as JL
 from repro.models.transformer import ShardCtx
 from repro_torch.configs import get_config
 from repro_torch.convert import cache_from_numpy, params_from_numpy
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, plans, ref
 from repro_torch.models import Model, ModelCtx
 from repro_torch.models import decode as D
 from repro_torch.models import layers as L
@@ -100,6 +100,114 @@ def test_flash_decode_length_zero_row_is_zero():
     alone = ops.flash_decode(tq[1:], tk[1:], tv[1:], 24)
     np.testing.assert_allclose(out[1].numpy(), alone[0].numpy(), rtol=RTOL,
                                atol=RTOL)
+
+
+def _decode_in_cluster_order(q, k, v, lengths, softcap):
+    """flash_decode in ``csrc/decode_attn.cu``'s order, in f32 torch ops:
+    the cache cut into ``plans.decode_cluster(S)`` splits of ``chunk``
+    positions (the blocks of one cluster); each split walks its live keys
+    in tiles of 2048 // dh with the online softmax (running max, sum and
+    unnormalised accumulator); the first block combines the live splits in
+    split order; a row of length 0 is zeros."""
+    B, KV, G, dh = q.shape
+    S = k.shape[1]
+    _, chunk = plans.decode_cluster(S)
+    bk = 2048 // dh
+    out = torch.zeros(B, KV, G, dh)
+    for b in range(B):
+        L = min(max(int(lengths[b]), 0), S)
+        parts = []
+        for k_begin in range(0, L, chunk):
+            k_end = min(k_begin + chunk, L)
+            m = torch.full((KV, G), -1e30)
+            l = torch.zeros(KV, G)
+            acc = torch.zeros(KV, G, dh)
+            for k0 in range(k_begin, k_end, bk):
+                kt, vt = k[b, k0:min(k0 + bk, k_end)], v[b, k0:min(k0 + bk,
+                                                                    k_end)]
+                s = torch.einsum("hgd,nhd->hgn", q[b], kt) * dh ** -0.5
+                if softcap:
+                    s = torch.tanh(s / softcap) * softcap
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum("hgn,nhd->hgd",
+                                                            p, vt)
+                m = m_new
+            parts.append((m, l, acc))
+        if parts:
+            M = torch.stack([m for m, _, _ in parts]).amax(0)
+            num, den = torch.zeros(KV, G, dh), torch.zeros(KV, G)
+            for m, l, acc in parts:
+                w = torch.exp(m - M)
+                den = den + l * w
+                num = num + acc * w[..., None]
+            out[b] = num / den[..., None]
+    return out
+
+
+# (S, lengths): 2 splits of 150 (lengths ending inside the first and the
+# last); 3 of 234; 16 of 272 (Gemma-2's global cache, a full cluster)
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("S,lengths", [(300, (0, 1, 151, 300)),
+                                       (700, (700, 233, 0, 469)),
+                                       (4352, (4352, 4333, 1, 0))])
+def test_cluster_split_order_matches_pallas(S, lengths, softcap):
+    """The decode kernel's order (``_decode_in_cluster_order``: the cluster
+    split and the first block's combine) against the Pallas kernel
+    (interpret mode) on every row with a live key, and zeros on a row of
+    length 0 (the port's rule)."""
+    G, dh = (4, 64) if S < 4000 else (2, 256)
+    q, k, v = _decode_inputs(len(lengths), S, 2, G, dh, seed=S)
+    L_np = np.asarray(lengths, np.int32)
+    want = np.asarray(jops.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(L_np),
+        softcap=softcap, interpret=True))
+    got = _decode_in_cluster_order(*(torch.tensor(a) for a in (q, k, v)),
+                                   lengths, softcap).numpy()
+    live = L_np > 0
+    np.testing.assert_allclose(got[live], want[live], rtol=RTOL,
+                               atol=RTOL * np.abs(want[live]).max())
+    assert not got[~live].any()
+    assert plans.decode_cluster(S)[0] == {300: 2, 700: 3, 4352: 16}[S]
+
+
+def test_lengths_pass_through_or_one_op():
+    """The kernels' lengths: an int32 contiguous [B] tensor on the
+    operands' device passes through untouched (the kernels clamp); other
+    forms become [B] int32, host integers clamped to [0, S]."""
+    q = torch.zeros(3, 2, 4, 64)
+    L32 = torch.tensor([5, 0, 9], dtype=torch.int32)
+    assert ops._lengths(L32, 3, 8, q) is L32
+    for raw, want in ((None, [8, 8, 8]), (5, [5, 5, 5]), (-3, [0, 0, 0]),
+                      (12, [8, 8, 8]), (torch.tensor(4), [4, 4, 4]),
+                      (torch.tensor([1, 20, -2]), [1, 20, -2]),
+                      (torch.tensor([[6]]), [6, 6, 6]), ([1, 2, 3], [1, 2, 3]),
+                      (np.int64(7), [7, 7, 7]), (L32[::1].clone()[None],
+                                                 [5, 0, 9])):
+        got = ops._lengths(raw, 3, 8, q)
+        assert got.dtype == torch.int32 and got.shape == (3,)
+        assert got.tolist() == want
+
+
+@pytest.mark.parametrize("length", [torch.tensor([40, -2, 77]), 100, -1,
+                                    torch.tensor(55, dtype=torch.int64)])
+def test_flash_decode_lengths_outside_the_cache_on_cpu(length):
+    """int64, scalar, negative and > S lengths on the CPU route give the
+    output of the lengths clamped to [0, S] (a row of length <= 0 is
+    zeros), as before the kernels took the clamp over."""
+    q, k, v = _decode_inputs(3, 40, 2, 4, 64, seed=11)
+    tq, tk, tv = (torch.tensor(a) for a in (q, k, v))
+    clamped = torch.as_tensor(length).reshape(-1).expand(3).clamp(0, 40)
+    got = ops.flash_decode(tq, tk, tv, length)
+    assert torch.equal(got, ops.flash_decode(tq, tk, tv, clamped))
+    assert torch.equal(got, ref.decode_attention_ref(tq, tk, tv, clamped))
+    # the flash forward's lengths past S mask nothing, as S does
+    qf, kf = torch.tensor(q[:2].reshape(2, 1, 8, 64)), \
+        torch.tensor(k[:2, :1])
+    assert torch.equal(ops.flash_attention(qf, kf, kf, 9),
+                       ops.flash_attention(qf, kf, kf, None))
 
 
 def test_flash_decode_rejects_bad_shapes():

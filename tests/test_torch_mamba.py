@@ -17,7 +17,7 @@ from repro.models.init import init_params as j_init
 from repro.models.ssm import mamba_forward as j_mamba_forward
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, plans, ref
 from repro_torch.models import ssm
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
@@ -78,6 +78,82 @@ def test_scan_matches_pallas_and_oracle(B, S, E, N):
     for want_y, want_h in ((jy, jh), (oy, oh)):
         assert _rel(ry, want_y) <= SCAN_REL
         assert _rel(rh, want_h) <= SCAN_REL
+
+
+def _scan_in_kernel_order(dt, B_in, C_in, x, A):
+    """The selective scan in ``csrc/mamba_scan.cu``'s order, in f32 torch
+    ops: S in tiles of ``MAMBA_SEG`` segments x ``MAMBA_STEPS`` steps
+    (zeros past S); per segment a_t = exp2(dt_t * A log2 e), the running
+    decay P_j = a_0 ... a_j and the state from zero h0_j; a Kogge-Stone
+    prefix of the segments' maps h -> P h + h0 (the warp's shuffle scan,
+    earlier maps first); each segment's entering state from the tile's
+    carry; h_j = P_j h_in + h0_j and y_t summed over n in order; the last
+    state is the next tile's carry and, after the last tile, h_last."""
+    seg, k = plans.MAMBA_SEG, plans.MAMBA_STEPS
+    Bsz, S, E = dt.shape
+    N = A.shape[1]
+    T = seg * k
+    n_tiles = -(-S // T)
+    pad = (0, 0, 0, n_tiles * T - S)
+    dt, x = (torch.nn.functional.pad(t, pad) for t in (dt, x))
+    B_in, C_in = (torch.nn.functional.pad(t, pad) for t in (B_in, C_in))
+    A2 = A * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    s_idx = torch.arange(seg)[None, :, None, None]
+    carry = torch.zeros(Bsz, E, N)
+    ys = []
+    for i in range(n_tiles):
+        t = slice(i * T, (i + 1) * T)
+        dts = dt[:, t].reshape(Bsz, seg, k, E, 1)
+        dtx = dts * x[:, t].reshape(Bsz, seg, k, E, 1)
+        Bt = B_in[:, t].reshape(Bsz, seg, k, 1, N)
+        Ct = C_in[:, t].reshape(Bsz, seg, k, 1, N)
+        a = torch.exp2(dts * A2)                    # [B, seg, k, E, N]
+        b = dtx * Bt
+        P, h0 = [a[:, :, 0]], [b[:, :, 0]]
+        for j in range(1, k):
+            P.append(P[-1] * a[:, :, j])
+            h0.append(a[:, :, j] * h0[-1] + b[:, :, j])
+        P, h0 = torch.stack(P, 2), torch.stack(h0, 2)
+        Ps, Qs = P[:, :, -1], h0[:, :, -1]          # [B, seg, E, N]
+        d = 1
+        while d < seg:
+            Pu = torch.roll(Ps, d, 1)
+            Qu = torch.roll(Qs, d, 1)
+            on = s_idx >= d
+            Qs = torch.where(on, Ps * Qu + Qs, Qs)
+            Ps = torch.where(on, Ps * Pu, Ps)
+            d *= 2
+        h_in = torch.where(s_idx == 0, carry[:, None],
+                           torch.roll(Ps, 1, 1) * carry[:, None]
+                           + torch.roll(Qs, 1, 1))
+        h = P * h_in[:, :, None] + h0               # [B, seg, k, E, N]
+        y = torch.zeros(Bsz, seg, k, E)
+        for n in range(N):
+            y = y + h[..., n] * Ct[..., n]
+        ys.append(y.reshape(Bsz, T, E))
+        carry = h[:, -1, -1]
+    return torch.cat(ys, 1)[:, :S], carry
+
+
+# (B, S, E, N): many tiles (S 2048: 16 carries), ragged S and E, N 8 and 16
+# and one step
+@pytest.mark.parametrize("B,S,E,N", [(1, 2048, 64, 16), (2, 300, 40, 8),
+                                     (3, 37, 33, 16), (1, 129, 16, 8),
+                                     (2, 1, 8, 16)])
+def test_scan_kernel_order_matches_pallas_and_oracle(B, S, E, N):
+    """The CUDA kernel's order of operations (``_scan_in_kernel_order``)
+    against the Pallas kernel (interpret mode) and the JAX oracle: the
+    warp scan's re-association and exp2 of A log2 e stay within
+    SCAN_REL."""
+    args = _scan_inputs(B, S, E, N, 7 * S + E)
+    jy, jh = j_mamba_scan(*map(jnp.asarray, args), e_block=_fit(E, 128),
+                          s_block=_fit(S, 256), interpret=True)
+    oy, oh = jref.mamba_scan_ref(*map(jnp.asarray, args))
+    ey, eh = _scan_in_kernel_order(*map(torch.tensor, args))
+    assert ey.shape == (B, S, E) and eh.shape == (B, E, N)
+    for want_y, want_h in ((jy, jh), (oy, oh)):
+        assert _rel(ey, want_y) <= SCAN_REL
+        assert _rel(eh, want_h) <= SCAN_REL
 
 
 def test_scan_wrapper_rejects_bad_shapes_and_autograd():
