@@ -29,6 +29,18 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 clients, evaluation before and after, and one client's
                 trajectory against the server's replay; then one more ZO
                 step under torch.profiler;
+4b. fleet       fleet rounds with faults and checkpoint/resume on the same
+                model: the sensitivity mask and pre-training gradient,
+                then 16 Dirichlet clients (batch 16, T=2), a cohort of 8 a
+                round (ClientSampler), the int8 uplink, a FaultPlan of
+                drops and stragglers and GradIP every round; the server
+                runs 2 rounds, checkpoints (4.94 GB, the port's own
+                MessagePack codec), runs 2 more; a fresh server restores
+                the file and runs the last 2: parameters, GradIP log,
+                bytes, straggler queue, sampler, pointers and round info
+                bit-equal; every upload billed at the int8 wire size; one
+                client's applied scalars equal the server's decoded wire
+                and its delta the wire replay;
 5. first_order  the backprop baseline on the same model: two Adam steps
                 (``make_train_step``) and one FedAvg round of eight
                 Dirichlet clients (``fedavg_round``); then one more Adam
@@ -81,8 +93,8 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 time with and without the recorder, and sample_z's time
                 against erfinv's float64 Horner form.
 
-Phases 4 to 10 each count every kernel's launches from zero, and each count
-must be the count its run implies.
+Phases 4 to 10 (4b too) each count every kernel's launches from zero, and
+each count must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
 last.  Any failed check raises and the script exits non-zero; without a
@@ -113,6 +125,19 @@ T_CALI = 4
 ROUNDS = 3
 EVAL_EXAMPLES = 32
 PRETRAIN_BATCHES, PRETRAIN_BATCH = 2, 4
+# the fleet: 16 Dirichlet clients, a cohort of half each round, the int8
+# uplink (stochastic, exact replay), faults; FLEET_ROUNDS rounds with a
+# checkpoint after FLEET_ROUNDS // 2 and a resumed twin for the rest
+FLEET_CLIENTS = 16
+FLEET_FRAC = 0.5
+FLEET_T = 2
+FLEET_ROUNDS = 4
+FLEET_QUANTIZE = "int8"
+FLEET_DROP, FLEET_LATE, FLEET_STALENESS = 0.2, 0.2, 2
+# chosen once (the first seed that qualifies): with the sampler's cohorts
+# it gives in-cohort drops and a straggler of round 1 still in flight at
+# the round-2 checkpoint, landing in round 3, so the restored queue is used
+FLEET_FAULT_SEED = 0
 # the first-order baseline: Adam steps and one FedAvg round, batch 4 x 512
 FO_BATCH = 4
 FO_ADAM_STEPS = 2
@@ -1523,6 +1548,249 @@ def run_slice(torch, dev, cfg):
     return counts, expected
 
 
+# ------------------------------------------------------------------- fleet --
+def same_round_info(a, b) -> bool:
+    """``last_round_info`` of two servers equal, the arrived scalars bit
+    for bit."""
+    import numpy as np
+    if {k: v for k, v in a.items() if k != "arrived"} != \
+            {k: v for k, v in b.items() if k != "arrived"}:
+        return False
+    return len(a["arrived"]) == len(b["arrived"]) and all(
+        x[:2] == y[:2] and np.array_equal(x[2], y[2])
+        for x, y in zip(a["arrived"], b["arrived"]))
+
+
+def same_server_state(torch, a, b) -> dict:
+    """Bit-equality of two servers' state, field by field."""
+    import numpy as np
+
+    from repro_torch.utils.tree import tree_leaves
+
+    def same_log(x, y):
+        return len(x) == len(y) and all(
+            (u is None) == (v is None)
+            and (u is None or np.array_equal(u, v)) for u, v in zip(x, y))
+
+    return dict(
+        params=all(torch.equal(x, y) for x, y in
+                   zip(tree_leaves(a.params), tree_leaves(b.params))),
+        gradip_log=all(same_log(a.gradip_log[c], b.gradip_log[c])
+                       for c in a.gradip_log),
+        comm=(a.comm.up_bytes, a.comm.down_bytes)
+        == (b.comm.up_bytes, b.comm.down_bytes),
+        pending=len(a._pending) == len(b._pending) and all(
+            all(p[k] == q[k] for k in ("arrive", "cid", "src_round",
+                                       "gip_idx"))
+            and np.array_equal(p["gs"], q["gs"])
+            for p, q in zip(a._pending, b._pending)),
+        sampler=a.sampler.state_dict() == b.sampler.state_dict(),
+        pointers=[c.ptr for c in a.clients] == [c.ptr for c in b.clients],
+        round=a.round == b.round,
+        last_round_info=same_round_info(a.last_round_info,
+                                        b.last_round_info))
+
+
+def run_fleet(torch, dev, cfg):
+    """Phase 4b (module docstring) through ``FederatedZO.run``; returns
+    (launch counts over the run, the counts its realized schedule
+    implies)."""
+    import os
+
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.quantize import QuantSpec, wire_nbytes
+    from repro_torch.data import (TaskSpec, dirichlet_partition,
+                                  make_task_fns, pretrain_batches,
+                                  sample_dataset, subset)
+    from repro_torch.fault import FaultPlan
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ModelCtx
+
+    on_card = dev.type == "cuda"
+    phase_done, times, peaks, resident = phase_clock(torch, on_card)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    model = Model(cfg, ModelCtx(attn_backend="kernel"), device=dev)
+    params = model.init(seed=SEED)
+    spec = TaskSpec(vocab=512, seq_len=SEQ_LEN)
+    loss, _, _ = make_task_fns(model, spec)
+    train = sample_dataset(spec, 1024, seed=1)
+    parts = dirichlet_partition(train["label"], n_clients=FLEET_CLIENTS,
+                                alpha=0.5)
+    pre = pretrain_batches(spec, n_batches=PRETRAIN_BATCHES,
+                           batch_size=PRETRAIN_BATCH)
+    fl = FLConfig(n_clients=FLEET_CLIENTS, local_steps=FLEET_T, eps=1e-3,
+                  density=DENSITY, zo_backend="kernel", seed=SEED,
+                  batch_size=CLIENT_BATCH, sample_frac=FLEET_FRAC,
+                  quantize=FLEET_QUANTIZE)
+
+    def plan():
+        return FaultPlan(FLEET_CLIENTS, FLEET_ROUNDS, drop_rate=FLEET_DROP,
+                         late_rate=FLEET_LATE, max_staleness=FLEET_STALENESS,
+                         seed=FLEET_FAULT_SEED)
+
+    def server(space, p):
+        clients = [C.Client(k, subset(train, q), batch_size=CLIENT_BATCH)
+                   for k, q in enumerate(parts)]
+        return C.FederatedZO(loss, p, space, fl, clients, device=dev)
+
+    phase_done("setup", t0)
+
+    ops.reset_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    space = C.sensitivity_mask(lambda p, b: model.loss(p, b), params, pre,
+                               density=DENSITY, device=dev)
+    gp = C.pretrain_gradient_vec(lambda p, b: model.loss(p, b), params,
+                                 space, pre)
+    phase_done("mask_and_gradient", t0)
+
+    srv = server(space, params)
+    fault_plan = plan()
+    # one prompt client of round 0, run on its own from the same start: the
+    # scalars it applies must be the server's decoded wire
+    first = C.ClientSampler([c.cid for c in srv.clients], frac=FLEET_FRAC,
+                            seed=SEED).cohort(0)
+    f0 = fault_plan.round_faults(0).restrict(first)
+    probe = next(c for c in first if c not in f0.drops and c not in f0.late)
+    t0 = time.perf_counter()
+    run = C.make_local_run(loss, space, fl.eps, fl.lr, backend="kernel",
+                           quantize=QuantSpec(8))
+    keys0 = C.round_keys(fl.seed, 0, FLEET_T)
+    client = srv.clients[probe]
+    batches = {k: torch.as_tensor(v, device=dev)
+               for k, v in client.next_batches(FLEET_T).items()}
+    client.ptr = 0
+    probe_delta, applied = run(params, keys0, batches,
+                               torch.zeros(space.n, device=dev))
+    applied = applied.cpu().numpy()
+    del batches, run
+    phase_done("probe_client", t0)
+
+    # the server: round 0 through run_round (its decoded uploads come back),
+    # then FederatedZO.run a round at a time, the snapshot after round 2
+    ckpt = ROOT / "build" / "fleet_ckpt" / "ckpt_fleet.msgpack"
+    round_s, infos = [], []
+    t_rounds = time.perf_counter()
+    for r in range(FLEET_ROUNDS):
+        if r == FLEET_ROUNDS // 2:
+            phase_done("rounds_before_checkpoint", t_rounds)
+            t0 = time.perf_counter()
+            srv.save_checkpoint(str(ckpt))
+            phase_done("checkpoint_write", t0)
+            ckpt_bytes = ckpt.stat().st_size
+            in_flight = [(p["cid"], p["src_round"], p["arrive"])
+                         for p in srv._pending]
+            t_rounds = time.perf_counter()
+        t0 = time.perf_counter()
+        if r == 0:
+            gs0 = srv.run_round(gp_vec=gp,
+                                faults=fault_plan.round_faults(0))
+        else:
+            srv.run(1, gp_vec=gp, fault_plan=fault_plan)
+        sync()
+        round_s.append(time.perf_counter() - t0)
+        infos.append(srv.last_round_info)
+    phase_done("rounds_after_checkpoint", t_rounds)
+
+    # a fresh server from the same seed restores the snapshot and runs the
+    # last rounds
+    fresh = server(space, params)
+    del params
+    t0 = time.perf_counter()
+    meta = fresh.load_checkpoint(str(ckpt))
+    sync()
+    phase_done("checkpoint_read", t0)
+    restored_pending = len(fresh._pending)
+    resumed_s = []
+    t_rounds = time.perf_counter()
+    for _ in range(FLEET_ROUNDS - FLEET_ROUNDS // 2):
+        t0 = time.perf_counter()
+        fresh.run(1, gp_vec=gp, fault_plan=plan())
+        sync()
+        resumed_s.append(time.perf_counter() - t0)
+    phase_done("resumed_rounds", t_rounds)
+    counts = ops.launches()  # the main path ends here
+    os.remove(ckpt)
+
+    same = same_server_state(torch, srv, fresh)
+    wire = srv.codec.encode(gs0[probe])
+    replay = C.reconstruct_from_wire(space, keys0, wire, srv.codec, fl.lr)
+    rel = float((probe_delta - replay).abs().max() / replay.abs().max())
+    replay_ok = bool(torch.allclose(probe_delta, replay, rtol=1e-6,
+                                    atol=1e-6 * float(replay.abs().max())))
+    applied_ok = np.array_equal(applied.view(np.int32),
+                                gs0[probe].view(np.int32))
+    del probe_delta, replay
+
+    # the realized schedule: client runs, uploads landed, trajectories
+    ran = ([len(i["cohort"]) - len(i["drops"]) for i in infos]
+           + [len(i["cohort"]) - len(i["drops"]) for i in infos[2:]])
+    reported = ([i["n_reporting"] for i in infos]
+                + [i["n_reporting"] for i in infos[2:]])
+    runs = sum(ran) + 1  # the probe client
+    n_grads = 2 * PRETRAIN_BATCHES  # mask and pre-training gradient
+    expected = {name: 0 for name in counts}
+    expected.update({
+        "zo_dual_perturb_flat": FLEET_T * runs,
+        "zo_fused_update_flat": FLEET_T * runs,
+        "gradip_flat": FLEET_T * sum(reported),
+        "flash_attention": cfg.n_layers * (2 * FLEET_T * runs + n_grads),
+        "flash_attention_bwd_dq": cfg.n_layers * n_grads,
+        "flash_attention_bwd_dkv": cfg.n_layers * n_grads})
+    up_wire = wire_nbytes(FLEET_T, 8)
+    n_uploads = sum(i["n_reporting"] for i in infos)
+    drops = sum(len(i["drops"]) for i in infos)
+    lates = sum(len(i["late"]) for i in infos)
+    finite = (all(np.all(np.isfinite(e)) for h in srv.gradip_log.values()
+                  for e in h if e is not None)
+              and bool(torch.isfinite(gp).all()))
+    emit("fleet", model=cfg.name, n_params=model.n_params,
+         mask_coords=space.n, clients=FLEET_CLIENTS, cohort=srv.sampler.m,
+         T=FLEET_T, client_batch=CLIENT_BATCH, seq_len=SEQ_LEN,
+         rounds=FLEET_ROUNDS, quantize=FLEET_QUANTIZE,
+         fault_seed=FLEET_FAULT_SEED, drops=drops, lates=lates,
+         unsampled=sum(i["n_unsampled"] for i in infos),
+         cohorts=[i["cohort"] for i in infos],
+         in_flight_at_checkpoint=in_flight,
+         restored_pending=restored_pending, checkpoint_round=meta["round"],
+         checkpoint_bytes=ckpt_bytes,
+         checkpoint_write_s=times["checkpoint_write"],
+         checkpoint_read_s=times["checkpoint_read"],
+         round_s=round_s, resumed_round_s=resumed_s,
+         up_bytes=srv.comm.up_bytes, uploads=n_uploads,
+         up_bytes_per_upload=up_wire, raw_bytes_per_upload=4 * FLEET_T,
+         down_bytes=srv.comm.down_bytes, bitequal=same,
+         probe_client=probe, probe_applied_is_wire=applied_ok,
+         probe_replay_max_rel_err=rel, probe_replay_ok=replay_ok,
+         finite=finite, launches=counts, expected_launches=expected,
+         times_s=times, peak_gb=peaks, resident_gb=resident,
+         max_memory_allocated_gb=max(peaks.values(), default=None))
+    if not all(same.values()):
+        fail(f"resumed server differs from the uninterrupted one: {same}")
+    if drops < 1 or not any(a >= FLEET_ROUNDS // 2 and a < FLEET_ROUNDS
+                            for _, _, a in in_flight):
+        fail(f"fleet schedule lacks a drop ({drops}) or a straggler landing "
+             f"after the checkpoint ({in_flight})")
+    if srv.comm.up_bytes != up_wire * n_uploads:
+        fail(f"uplink billed {srv.comm.up_bytes} bytes for {n_uploads} "
+             f"uploads of {up_wire}")
+    if not applied_ok:
+        fail(f"client {probe} applied {applied}, the server decoded "
+             f"{gs0[probe]}")
+    if not replay_ok:
+        fail(f"client delta and wire replay differ (max rel {rel})")
+    if not finite:
+        fail("non-finite GradIP or pre-training gradient in the fleet")
+    return counts, expected
+
+
 # ------------------------------------------------------------- first order --
 def run_first_order(torch, dev, cfg):
     """The backprop baseline on ``cfg``: Adam steps through
@@ -2319,9 +2587,8 @@ def run_analysis_phase(torch, dev, cfg):
         try:
             built = prog.build(dev)
         except AC.ProgramSkip as e:
-            # only these two skip, each naming the item it waits for
-            want = {"fl_round_sharded": "A12",
-                    "ckpt_roundtrip": "A8"}.get(prog.name)
+            # only this one skips, naming the item it waits for
+            want = {"fl_round_sharded": "A12"}.get(prog.name)
             if want is None or want not in str(e):
                 problems.append(f"{prog.name} skipped: {e}")
             reg.append(dict(program=prog.name, skipped=str(e)))
@@ -2633,6 +2900,7 @@ def main() -> int:
                                         layer_pattern=(("mamba", "moe"),))
     launches = {name: 0 for name in KERNEL_SOURCES}
     for phase, run, cfg in (("slice", run_slice, LLAMA32_1B),
+                            ("fleet", run_fleet, LLAMA32_1B),
                             ("first_order", run_first_order, LLAMA32_1B),
                             ("serve", run_serve_llama, LLAMA32_1B),
                             ("serve_gemma", run_serve_gemma, gemma),

@@ -117,10 +117,48 @@ def build_fl_round_sharded(dev) -> Built:
 
 
 def build_ckpt_roundtrip(dev) -> Built:
-    raise ProgramSkip(
-        "needs checkpoint/ (save/restore of a FederatedZO server), not "
-        "ported yet (ROADMAP A8); its msgpack v2 format then needs a codec "
-        "of the port's own, since the card's machine has no msgpack")
+    """The fault-tolerance save/restore round trip (``checkpoint/state.py``):
+    a live ``FederatedZO`` server runs a round, snapshots, and restores into
+    a fresh twin; the analyzed program is the round group *as driven by the
+    restored parameters*, so the rule sweep covers the resume path.
+    Restore fidelity is asserted here at build time: a checkpoint that loses
+    bits fails the sweep."""
+    import os
+    import tempfile
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import Client, FederatedZO, prng
+    from repro_torch.data import (TaskSpec, dirichlet_partition,
+                                  sample_dataset, subset)
+    from repro_torch.utils.tree import tree_leaves
+    model, params, loss, space = _round_problem(dev)
+    K, T, b = 4, 2, 8
+    fl = FLConfig(n_clients=K, local_steps=T, lr=5e-2, eps=1e-3, seed=0,
+                  zo_backend="ref")
+    train = sample_dataset(TaskSpec(), 256, seed=1)
+    parts = dirichlet_partition(train["label"], K, 0.5, seed=0)
+
+    def mk():
+        clients = [Client(k, subset(train, p), b)
+                   for k, p in enumerate(parts)]
+        return FederatedZO(loss, params, space, fl, clients, device=dev)
+
+    srv = mk()
+    srv.run_round()
+    twin = mk()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ckpt.msgpack")
+        srv.save_checkpoint(path)
+        twin.load_checkpoint(path)
+    for a, c in zip(tree_leaves(srv.params), tree_leaves(twin.params)):
+        if not torch.equal(a, c):
+            raise AssertionError("checkpoint round trip lost parameter bits")
+
+    batches = {"tokens": _tokens(dev, K, T, b, 16, high=512),
+               "label": _tokens(dev, K, T, b, high=4)}
+    return Built(_group_fn(loss, space),
+                 (twin.params, prng.split(prng.key(2), T), batches),
+                 meta=dict(peak_bytes_budget=2 * MiB))  # same body as fl_round
 
 
 def build_prefill(dev) -> Built:
@@ -183,7 +221,8 @@ HOT_PATHS = (
             "FederatedZO round group under FLShardPlan (not ported: A12)",
             build_fl_round_sharded),
     Program("ckpt_roundtrip",
-            "checkpoint save/restore round trip (not ported: A8)",
+            "checkpoint save/restore round trip, then the round group on "
+            "the restored parameters",
             build_ckpt_roundtrip),
     Program("prefill",
             "models/decode.prefill: right-padded serving admission",

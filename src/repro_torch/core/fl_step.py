@@ -14,9 +14,12 @@ Every factory dispatches between the flat kernel route and the tree route
 ``zo_dual_perturb_flat`` launch producing both perturbed copies and the
 weight update one ``zo_fused_update_flat`` launch.
 
+``quantize`` (a :class:`repro_torch.core.quantize.QuantSpec`) rounds the
+per-client scalars to the uplink wire grid under each step's key before
+the masked mean, as the JAX package does.
+
 Left out against the JAX package: ``constrain_params`` (a mesh's weight
-shardings; the port runs on one device until ROADMAP A12), the
-``quantize`` uplink grid (raises until A8 ports ``core/quantize.py``), and
+shardings; the port runs on one device until ROADMAP A12) and
 ``stack_forwards=True`` (``jax.vmap`` over the (w+, w-) pair; the
 ctypes-bound kernels cannot be vmapped, so the two forwards always run in
 sequence, ROADMAP C).
@@ -45,45 +48,41 @@ def _masked_mean(g_clients, report_mask):
     return (g_clients * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
-def _no_quantize(quantize) -> None:
-    if quantize is not None:
-        raise NotImplementedError(
-            "the uplink quantizer (core/quantize.py) is not ported yet "
-            "(ROADMAP A8)")
-
-
 def _g_clients(l_plus, l_minus, n_clients: int, eps: float):
     return (l_plus - l_minus).reshape(n_clients, -1).mean(-1) / (2.0 * eps)
 
 
 def _step_bodies(per_example_loss: Callable, space, eps: float, lr: float,
-                 n_clients: int):
+                 n_clients: int, quantize=None):
     """The T=1 step on each route, shared by the step and the loop:
-    ``ref(p, z, batch, mask)`` over the parameter tree and ``flat(backing,
-    w_flat, z_flat, batch, mask)`` over the flat vector; each returns
-    (the new params or flat vector, g_clients [K], g, loss)."""
+    ``ref(p, z, batch, mask, key)`` over the parameter tree and
+    ``flat(backing, w_flat, z_flat, batch, mask, key)`` over the flat
+    vector; each returns (the new params or flat vector, g_clients [K], g,
+    loss).  ``key`` is the step's, for the quantizer's rounding draw."""
 
-    def finish(l_plus, l_minus, mask):
+    def finish(l_plus, l_minus, mask, key):
         g_clients = _g_clients(l_plus, l_minus, n_clients, eps)
+        if quantize is not None:
+            g_clients = quantize.apply(g_clients, key)
         return (g_clients, _masked_mean(g_clients, mask),
                 (l_plus + l_minus).mean() / 2.0)
 
-    def ref(p, z, batch, mask):
+    def ref(p, z, batch, mask, key):
         w_plus = space.add(p, eps * z)
         l_plus = per_example_loss(w_plus, batch)
         w_minus = space.add(w_plus, (-2.0 * eps) * z)
         del w_plus
         l_minus = per_example_loss(w_minus, batch)
-        g_clients, g, loss = finish(l_plus, l_minus, mask)
+        g_clients, g, loss = finish(l_plus, l_minus, mask, key)
         return space.add(w_minus, (eps - lr * g) * z), g_clients, g, loss
 
-    def flat(backing, w_flat, z_flat, batch, mask):
+    def flat(backing, w_flat, z_flat, batch, mask, key):
         wp, wm = zo_dual_perturb_flat(w_flat, z_flat, None, eps)
         l_plus = per_example_loss(backing.unflatten(wp), batch)
         del wp
         l_minus = per_example_loss(backing.unflatten(wm), batch)
         del wm
-        g_clients, g, loss = finish(l_plus, l_minus, mask)
+        g_clients, g, loss = finish(l_plus, l_minus, mask, key)
         return (zo_fused_update_flat(w_flat, z_flat, None, -lr * g),
                 g_clients, g, loss)
 
@@ -97,9 +96,10 @@ def make_fl_train_step(per_example_loss: Callable, space, *, eps: float,
     ``step(params, key, batch, report_mask=None) -> (params', g_clients [K],
     metrics)``; ``per_example_loss(params, batch)`` gives the [B] losses of
     a batch whose rows are the K clients' in order.  ``report_mask`` ([K]
-    0/1) leaves the clients whose upload was lost out of the mean."""
-    _no_quantize(quantize)
-    ref, flat = _step_bodies(per_example_loss, space, eps, lr, n_clients)
+    0/1) leaves the clients whose upload was lost out of the mean;
+    ``quantize`` rounds the K scalars to the wire grid first."""
+    ref, flat = _step_bodies(per_example_loss, space, eps, lr, n_clients,
+                             quantize)
 
     @torch.no_grad()
     def step(params, key, batch, report_mask=None):
@@ -107,11 +107,11 @@ def make_fl_train_step(per_example_loss: Callable, space, *, eps: float,
         z = space.sample_z(key)
         if resolve_backend(backend, backing) == "ref":
             new_params, g_clients, g, loss = ref(params, z, batch,
-                                                 report_mask)
+                                                 report_mask, key)
         else:
             w_flat, g_clients, g, loss = flat(
                 backing, backing.flatten(params), backing.expand(z), batch,
-                report_mask)
+                report_mask, key)
             new_params = backing.unflatten(w_flat)
         return new_params, g_clients, {"loss": loss, "g": g}
 
@@ -135,14 +135,15 @@ def make_fl_train_loop(per_example_loss: Callable, space, *, eps: float,
     coordinates each step overwrites in place: each step is one
     ``zo_dual_perturb_flat``, the two forwards and one
     ``zo_fused_update_flat``.  ``stack_forwards`` may be None or False (two
-    forwards in sequence, see the module docstring)."""
-    _no_quantize(quantize)
+    forwards in sequence, see the module docstring).  ``quantize`` mirrors
+    :func:`make_fl_train_step`, under each step's key."""
     if stack_forwards:
         raise NotImplementedError(
             "stack_forwards=True vmaps the (w+, w-) forwards in the JAX "
             "package; the port's ctypes-bound kernels cannot be vmapped, so "
             "it always runs the two forwards in sequence")
-    ref, flat = _step_bodies(per_example_loss, space, eps, lr, n_clients)
+    ref, flat = _step_bodies(per_example_loss, space, eps, lr, n_clients,
+                             quantize)
 
     @torch.no_grad()
     def loop(params, key, batches, report_masks=None):
@@ -156,7 +157,7 @@ def make_fl_train_loop(per_example_loss: Callable, space, *, eps: float,
         if resolve_backend(backend, backing) == "ref":
             p = params
             for b, k, mask in steps:
-                p, g_cl, _, loss = ref(p, space.sample_z(k), b, mask)
+                p, g_cl, _, loss = ref(p, space.sample_z(k), b, mask, k)
                 gs.append(g_cl)
                 losses.append(loss)
         else:
@@ -165,7 +166,8 @@ def make_fl_train_loop(per_example_loss: Callable, space, *, eps: float,
                                 device=backing.device)
             for b, k, mask in steps:
                 z_flat = backing.scatter_into(z_buf, space.sample_z(k))
-                w_flat, g_cl, _, loss = flat(backing, w_flat, z_flat, b, mask)
+                w_flat, g_cl, _, loss = flat(backing, w_flat, z_flat, b, mask,
+                                             k)
                 gs.append(g_cl)
                 losses.append(loss)
             p = backing.unflatten(w_flat)

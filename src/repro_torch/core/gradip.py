@@ -13,6 +13,9 @@ and mesh-sharded vectors, which the port does not have.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from repro_torch.kernels.ops import gradip_flat
@@ -47,6 +50,33 @@ def gradip_trajectory(space, keys, gs, gp_vec):
         norms.append(gnorm)
         coss.append(ip / (gp_norm * gnorm + 1e-12))
     return torch.stack(ips), torch.stack(norms), torch.stack(coss)
+
+
+def gradip_matrix(entries, T: Optional[int] = None):
+    """Stack one client's per-round GradIP log into a dense matrix with
+    explicit gaps.
+
+    ``entries`` is ``FederatedZO.gradip_log[cid]``: one [T_r] array per
+    round the client reported, ``None`` for rounds it was dropped,
+    straggling (until arrival) or unsampled.  Returns ``(mat [R, T] f32,
+    present [R] bool)``: gap rounds are NaN rows; shorter entries (an
+    early-stopped client's T=1 rounds) are NaN-padded on the right.  ``T``
+    defaults to the longest present entry and must be given when the log
+    is all gaps."""
+    entries = list(entries)
+    present = np.array([e is not None for e in entries], bool)
+    lens = [int(np.asarray(e).reshape(-1).shape[0])
+            for e in entries if e is not None]
+    if T is None:
+        if not lens:
+            raise ValueError("gradip_matrix: all-gap log needs explicit T")
+        T = max(lens)
+    mat = np.full((len(entries), int(T)), np.nan, np.float32)
+    for i, e in enumerate(entries):
+        if e is not None:
+            row = np.asarray(e, np.float32).reshape(-1)
+            mat[i, :row.shape[0]] = row
+    return mat, present
 
 
 def value_and_grad_tree(loss_fn, params, batch):

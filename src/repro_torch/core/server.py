@@ -7,9 +7,21 @@ one after another on the server's device (the JAX package maps over them);
 the aggregated update is always computed from the server-side virtual-path
 reconstruction of the uploaded scalars.
 
-Not ported yet (``ROADMAP.md``): the mesh route (``plan``), client sampling,
-the quantized uplink codec, fault injection and checkpointing.  A config
-asking for sampling or a codec raises.
+**Fault tolerance**: ``run_round(faults=)`` tolerates clients dropping
+(aggregate over survivors) and straggling (bounded staleness, seed-replayed
+exactly at arrival), and ``save_checkpoint``/``load_checkpoint`` snapshot
+and restore the complete server state for bit-exact resume after a kill
+(``checkpoint/state.py``; the files are the JAX package's, byte for byte).
+Deterministic fault schedules come from ``repro_torch.fault.FaultPlan``.
+
+**Fleet scale**: with ``fl.sample_frac < 1`` each round runs a seeded
+fixed-size cohort (``core/sampling.ClientSampler``; fault events restrict to
+the cohort, unsampled clients get explicit GradIP gaps), and ``fl.quantize``
+routes the scalar uplink through the ``core/quantize`` codec: clients apply
+the wire-grid values in-loop (exact replay), so the server reconstructs
+virtual paths from the *decoded* upload bit for bit.
+
+Not ported yet (``ROADMAP.md``): the mesh route (``plan``, A12).
 """
 from __future__ import annotations
 
@@ -25,6 +37,9 @@ from repro_torch.core import virtual_path as VP
 from repro_torch.core import vpcs as VPCS
 from repro_torch.core import zo as ZO
 from repro_torch.core.gradip import gradip_trajectory
+from repro_torch.core.quantize import make_codec
+from repro_torch.core.sampling import ClientSampler
+from repro_torch import fault
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves
 
@@ -62,8 +77,9 @@ def _per_step(g: np.ndarray) -> np.ndarray:
 
 @dataclass
 class CommLog:
-    """Cumulative FL protocol traffic in **bytes** (f32 scalars = 4 B each;
-    seeds = 8 B): the paper's client<->server payloads only."""
+    """Cumulative FL protocol traffic in **bytes** (f32 scalars = 4 B each,
+    or the codec's wire size; seeds = 8 B): the paper's client<->server
+    payloads only."""
     up_bytes: int = 0
     down_bytes: int = 0
 
@@ -85,6 +101,13 @@ class FederatedZO:
       eval_fn: optional ``(params, batch) -> {metric: tensor}``.
       device: where the rounds run; the CUDA card unless ``"cpu"`` is
         asked for.
+      sampler: optional :class:`repro_torch.core.sampling.ClientSampler`
+        override; by default one is built from ``fl.sample_frac < 1``
+        (seeded with ``fl.seed``, weighted by client data size when
+        ``fl.sample_weighted``).  None with ``sample_frac == 1`` runs the
+        whole fleet every round.
+      codec: optional uplink codec override (``core/quantize.py``); by
+        default built from ``fl.quantize`` (``"none"`` = raw f32).
 
     The client loops dispatch through ``fl.zo_backend`` ("auto" routes the
     per-step perturb/update through the fused flat kernels when the layout
@@ -92,15 +115,12 @@ class FederatedZO:
 
     def __init__(self, loss_fn: Callable, params, space, fl: FLConfig,
                  clients: Sequence[Client], eval_fn: Optional[Callable] = None,
-                 device=None):
+                 device=None, sampler=None, codec=None):
         self.device = resolve_device(device)
         for p in tree_leaves(params):
             if p.device.type != self.device.type:
                 raise ValueError(f"params live on {p.device}, not "
                                  f"{self.device}")
-        if fl.sample_frac < 1.0 or fl.quantize != "none":
-            raise NotImplementedError(
-                "client sampling and the quantized uplink are not ported yet")
         self.loss_fn = loss_fn
         self.params = params
         self.space = space
@@ -109,14 +129,27 @@ class FederatedZO:
         self.clients = list(clients)
         self.eval_fn = eval_fn
         self.high_freq = fl.local_steps == 1  # Alg. 3 downlink accounting
+        self.codec = codec if codec is not None else make_codec(fl.quantize)
+        if sampler is None and fl.sample_frac < 1.0:
+            weights = ([c.n for c in self.clients] if fl.sample_weighted
+                       else None)
+            sampler = ClientSampler([c.cid for c in self.clients],
+                                    frac=fl.sample_frac, weights=weights,
+                                    seed=fl.seed)
+        self.sampler = sampler
         self.comm = CommLog()
         self.round = 0
         self.history: List[Dict[str, Any]] = []
         self.early_stopped: set = set()
         self.velocity = None  # FedAvgM server momentum state (beyond-paper)
         self.gradip_log: Dict[int, list] = {c.cid: [] for c in self.clients}
+        # straggler uploads in flight: dicts of (arrive, cid, src_round,
+        # gip_idx, gs), part of the checkpointed state
+        self._pending: List[dict] = []
+        self.last_round_info: Optional[dict] = None
         self._run = ZO.make_local_run(self.loss_fn, self.space, fl.eps, fl.lr,
-                                      n_dirs=fl.n_dirs, backend=self.backend)
+                                      n_dirs=fl.n_dirs, backend=self.backend,
+                                      quantize=self.codec.jax_spec())
 
     def _client_T(self, cid: int) -> int:
         return 1 if cid in self.early_stopped else self.fl.local_steps
@@ -134,37 +167,124 @@ class FederatedZO:
     def _recon(self, keys, gs: np.ndarray):
         return VP.reconstruct_delta(self.space, keys, gs, self.fl.lr)
 
-    # -- one federated round (Alg. 2) ----------------------------------------
-    def run_round(self, gp_vec=None):
-        """Execute one round: group clients by local-step count T, run each
-        client's local ZO loop, account the scalar uploads, reconstruct every
-        client's virtual path from (seed list, scalars), aggregate, and apply
-        the update.
+    def _cohort(self, r: int) -> tuple:
+        """Participating client ids for round ``r``: the whole fleet
+        without a sampler, else the sampler's seeded draw (sorted, of fixed
+        size)."""
+        if self.sampler is None:
+            return tuple(c.cid for c in self.clients)
+        return self.sampler.cohort(r)
 
-        ``gp_vec`` ([n] pre-training gradient): also log each client's GradIP
-        trajectory for this round.  Returns {cid: gs [T] or [T, n_dirs]} —
-        the scalars each client uploaded this round."""
+    def _gradip(self, keys, g: np.ndarray, gp_vec) -> np.ndarray:
+        ips, _, _ = gradip_trajectory(self.space, keys, _per_step(g), gp_vec)
+        return ips.cpu().numpy()
+
+    # -- one federated round (Alg. 2 + the failure model) --------------------
+    def run_round(self, gp_vec=None, faults=None):
+        """Execute one round: group the cohort's clients by local-step count
+        T, run each client's local ZO loop, send every upload through the
+        codec, reconstruct every reporting client's virtual path from (seed
+        list, decoded scalars), aggregate, and apply the update.
+
+        ``gp_vec`` ([n] pre-training gradient): also log each client's
+        GradIP trajectory for this round.  Returns {cid: gs [T] or
+        [T, n_dirs]}: the decoded scalars each client uploaded *this round*.
+
+        ``faults`` (a :class:`repro_torch.fault.RoundFaults`) injects the
+        failure model:
+
+        * ``drops``: offline clients run no local steps, move no bytes,
+          keep their data pointer and get an explicit ``None`` GradIP gap.
+        * ``late`` (cid -> delay): stragglers run this round's local steps
+          on its seeds and data, but their upload lands ``delay`` rounds
+          later; the server replays it with the *source* round's keys and
+          bills the uplink at arrival.
+        * ``kill``: ``fault.plan.kill_now()`` mid-round (after client
+          compute, before the update applies).
+
+        With a sampler only the round's cohort participates (fault events
+        restrict to it; unsampled clients get a ``None`` GradIP gap).  The
+        server bills the *encoded* byte count and stores and replays the
+        *decoded* scalars, bit for bit the ones the client applied.  The
+        round aggregates over whoever reported (prompt survivors by sorted
+        T in cohort order, then arrivals sorted by (source round, cid));
+        a round where nobody reports applies a zero update.  Diagnostics
+        land in ``self.last_round_info``."""
+        f = faults if faults is not None else fault.NO_FAULTS
         r = self.round
+        cohort = self._cohort(r)
+        in_cohort = set(cohort)
+        f = f.restrict(in_cohort)
+        if gp_vec is not None:
+            for c in self.clients:
+                if c.cid not in in_cohort:
+                    self.gradip_log[c.cid].append(None)  # unsampled gap
         groups: Dict[int, List[Client]] = {}
         for c in self.clients:
-            groups.setdefault(self._client_T(c.cid), []).append(c)
-        deltas, gs_by_cid = [], {}
+            if c.cid in in_cohort:
+                groups.setdefault(self._client_T(c.cid), []).append(c)
+        deltas, gs_by_cid, arrived = [], {}, []
         for T in sorted(groups):
+            if gp_vec is not None:
+                for c in groups[T]:
+                    if c.cid in f.drops:
+                        self.gradip_log[c.cid].append(None)  # explicit gap
+            cs = [c for c in groups[T] if c.cid not in f.drops]
+            if not cs:
+                continue
             keys = S.round_keys(self.fl.seed, r, T)
-            for c in groups[T]:
-                # (1) the client runs T local ZO steps and uploads g^{1..T}
-                g = self._run_client(c, keys, T)
+            for c in cs:
+                # (1) the client runs T local ZO steps; its scalars cross
+                # the wire through the codec, and the server keeps the
+                # decoded values (the ones the client applied)
+                wire = self.codec.encode(self._run_client(c, keys, T))
+                g = self.codec.decode(wire)
+                if c.cid in f.late:
+                    # straggler: the downlink happened, the upload is in
+                    # flight until its arrival round
+                    self.comm.add(up=0, down=self._down_bytes(T))
+                    gip_idx = -1
+                    if gp_vec is not None:
+                        self.gradip_log[c.cid].append(None)
+                        gip_idx = len(self.gradip_log[c.cid]) - 1
+                    self._pending.append(dict(
+                        arrive=r + int(f.late[c.cid]), cid=c.cid,
+                        src_round=r, gip_idx=gip_idx, gs=g))
+                    continue
                 # (2) the server replays its virtual path from (seeds, g)
                 deltas.append(self._recon(keys, g))
                 gs_by_cid[c.cid] = g
-                self.comm.add(up=4 * g.size, down=self._down_bytes(T))
+                self.comm.add(up=wire.nbytes, down=self._down_bytes(T))
                 if gp_vec is not None:
-                    ips, _, _ = gradip_trajectory(self.space, keys,
-                                                  _per_step(g), gp_vec)
-                    self.gradip_log[c.cid].append(ips.cpu().numpy())
-        # (3) aggregate the reconstructed sparse updates (+ optional FedAvgM
-        # server momentum — beyond-paper)
-        agg = VP.aggregate(torch.stack(deltas))
+                    self.gradip_log[c.cid].append(
+                        self._gradip(keys, g, gp_vec))
+        # (2b) stragglers landing this round: replayed with the *source*
+        # round's keys (the seed ladder is a pure function of (fl.seed,
+        # round, T)); fill the GradIP gap logged at the source round
+        due = sorted((p for p in self._pending if p["arrive"] <= r),
+                     key=lambda p: (p["src_round"], p["cid"]))
+        self._pending = [p for p in self._pending if p["arrive"] > r]
+        for p in due:
+            gs_l = np.asarray(p["gs"])
+            src_keys = S.round_keys(self.fl.seed, p["src_round"],
+                                    gs_l.shape[0])
+            deltas.append(self._recon(src_keys, gs_l))
+            self.comm.add(up=self.codec.nbytes(gs_l.size), down=0)
+            if gp_vec is not None and p["gip_idx"] >= 0:
+                self.gradip_log[p["cid"]][p["gip_idx"]] = self._gradip(
+                    src_keys, gs_l, gp_vec)
+            arrived.append((p["cid"], p["src_round"], gs_l))
+        if f.kill:
+            fault.plan.kill_now()  # mid-round: work done, update not applied
+        # (3) aggregate the reconstructed sparse updates of whoever reported
+        # (+ optional FedAvgM server momentum — beyond-paper)
+        n_report = len(deltas)
+        if n_report:
+            agg = VP.aggregate(torch.stack(deltas), n_report)
+        else:  # zero-survivor round: well-defined no-op update
+            agg = torch.zeros(self.space.n, dtype=torch.float32,
+                              device=self.space.device)
+        del deltas
         if self.fl.server_momentum > 0.0:
             self.velocity = (agg if self.velocity is None
                              else self.fl.server_momentum * self.velocity
@@ -172,6 +292,11 @@ class FederatedZO:
             agg = self.velocity
         self.params = self.space.add(self.params, agg)
         self.round += 1
+        self.last_round_info = dict(
+            round=r, n_reporting=n_report, drops=sorted(f.drops),
+            late=dict(f.late), arrived=arrived,
+            pending=len(self._pending), cohort=list(cohort),
+            n_unsampled=len(self.clients) - len(cohort))
         return gs_by_cid
 
     def _down_bytes(self, T: int) -> int:
@@ -192,23 +317,50 @@ class FederatedZO:
         keys = S.round_keys(self.fl.seed, -1, T)
         trajs = []
         for c in self.clients:
-            g = self._run_client(c, keys, T)
-            ips, _, _ = gradip_trajectory(self.space, keys, _per_step(g),
-                                          gp_vec)
-            trajs.append(ips.cpu().numpy())
+            trajs.append(self._gradip(keys, self._run_client(c, keys, T),
+                                      gp_vec))
             c.ptr = 0  # calibration does not consume training order
         results, flagged = VPCS.select_clients(trajs, self.fl)
         self.early_stopped = set(flagged)
         return results, flagged, trajs
 
+    # -- fault tolerance: snapshot / restore ---------------------------------
+    def save_checkpoint(self, path: str) -> str:
+        """Atomically snapshot the full server state (params, velocity,
+        round, CommLog, GradIP trajectories + gaps, VPCS flags, client
+        data pointers, straggler queue, sampler state, history) to
+        ``path`` (``checkpoint/state.py``; bit-exact resume)."""
+        from repro_torch.checkpoint.state import save_server_state
+        return save_server_state(path, self)
+
+    def load_checkpoint(self, path: str) -> dict:
+        """Restore a :meth:`save_checkpoint` snapshot (this package's or
+        the JAX package's) into this server, config-fingerprint checked;
+        parameters land on this server's device.  Returns the meta dict."""
+        from repro_torch.checkpoint.state import restore_server_state
+        return restore_server_state(path, self)
+
     # -- training loop -------------------------------------------------------
     def run(self, rounds: int, eval_every: int = 0, eval_batch=None,
-            gp_vec=None, verbose: bool = False):
+            gp_vec=None, verbose: bool = False, fault_plan=None,
+            checkpoint_dir=None, checkpoint_every: int = 0):
         """Run ``rounds`` federated rounds; evaluate every ``eval_every``
         rounds with ``eval_fn(params, eval_batch)``.  Returns the history
-        list of metric dicts (each tagged with its round index)."""
+        list of metric dicts (each tagged with its round index).
+
+        ``fault_plan`` (a :class:`repro_torch.fault.FaultPlan`) injects that
+        plan's per-round drop/late/kill events.  With ``checkpoint_dir``
+        set, the snapshot is written to ``<dir>/ckpt_latest.msgpack``
+        every ``checkpoint_every`` rounds (after eval, so the history is
+        captured); cadence and eval use the *global* round index, so a
+        resumed run checkpoints and evaluates on the schedule of an
+        uninterrupted one."""
+        import os
+        from repro_torch.checkpoint.state import LATEST_NAME
         for _ in range(rounds):
-            self.run_round(gp_vec=gp_vec)
+            faults = (fault_plan.round_faults(self.round)
+                      if fault_plan is not None else None)
+            self.run_round(gp_vec=gp_vec, faults=faults)
             if eval_every and self.round % eval_every == 0 \
                     and self.eval_fn is not None:
                 m = self.eval_fn(self.params, eval_batch)
@@ -219,4 +371,8 @@ class FederatedZO:
                     print(f"  round {self.round}: " +
                           " ".join(f"{k}={v:.4f}" for k, v in m.items()
                                    if k != "round"))
+            if checkpoint_dir and checkpoint_every \
+                    and self.round % checkpoint_every == 0:
+                self.save_checkpoint(os.path.join(checkpoint_dir,
+                                                  LATEST_NAME))
         return self.history

@@ -30,6 +30,18 @@ from repro_torch.core.dispatch import get_backing, resolve_backend
 from repro_torch.kernels.ops import zo_dual_perturb_flat, zo_fused_update_flat
 
 
+def _maybe_quantize(g, key, quantize):
+    """Exact-replay quantization hook (``core/quantize.py``): the client
+    rounds each projected-gradient scalar to the wire grid *before*
+    applying it, so the value it uploads (and the server decodes) is bit
+    for bit the value its local trajectory used.  The rounding key is the
+    step or direction key folded with ``QUANT_FOLD``, derivable from the
+    seed ladder.  The same on both routes."""
+    if quantize is None:
+        return g
+    return quantize.apply(g, key)
+
+
 def _dual_losses(loss_fn, backing, base_flat, z_flat, eps, batch):
     """Fused perturb + the two loss evaluations; returns (l+, l-).
 
@@ -43,7 +55,7 @@ def _dual_losses(loss_fn, backing, base_flat, z_flat, eps, batch):
 
 
 def _multi_dir_update(loss_fn, backing, space, base_flat, key, eps: float,
-                      n_dirs: int, batch):
+                      n_dirs: int, batch, quantize=None):
     """K-direction fused estimator at ``base_flat``: splits the step key
     into K direction keys (matching ``reconstruct_delta``'s [T, K] replay)
     and returns (mean_k g_k * z_k as a dense flat vector, gs [K])."""
@@ -53,7 +65,7 @@ def _multi_dir_update(loss_fn, backing, space, base_flat, key, eps: float,
     for k in prng.split(key, n_dirs):
         z_flat = backing.expand(space.sample_z(k))
         lp, lm = _dual_losses(loss_fn, backing, base_flat, z_flat, eps, batch)
-        g = (lp - lm) / (2.0 * eps)
+        g = _maybe_quantize((lp - lm) / (2.0 * eps), k, quantize)
         acc = acc + g * z_flat
         gs.append(g)
     return acc / n_dirs, torch.stack(gs)
@@ -77,51 +89,59 @@ def projected_gradient(loss_fn: Callable, params, space, delta, z, eps: float,
 @torch.no_grad()
 def local_step(loss_fn: Callable, params, space, delta, key, eps: float,
                lr: float, batch, n_dirs: int = 1,
-               backend: Optional[str] = None):
+               backend: Optional[str] = None, quantize=None):
     """One client-side ZO step on the sparse delta. Returns (delta', g).
 
     ``n_dirs > 1`` (beyond-paper) averages the estimator over K directions
-    per step, whose keys derive from the step key."""
+    per step, whose keys derive from the step key.  ``quantize`` (a
+    :class:`repro_torch.core.quantize.QuantSpec`) rounds each g to the
+    uplink wire grid before the update (exact-replay mode)."""
     backing = get_backing(space, params)
     if resolve_backend(backend, backing) == "ref":
         return _local_step_ref(loss_fn, params, space, delta, key, eps, lr,
-                               batch, n_dirs)
+                               batch, n_dirs, quantize)
     base = backing.flatten(params) + backing.expand(delta)
     if n_dirs == 1:
         z = space.sample_z(key)
         lp, lm = _dual_losses(loss_fn, backing, base, backing.expand(z), eps,
                               batch)
-        g = (lp - lm) / (2.0 * eps)
+        g = _maybe_quantize((lp - lm) / (2.0 * eps), key, quantize)
         return delta - lr * g * z, g
     upd, gs = _multi_dir_update(loss_fn, backing, space, base, key, eps,
-                                n_dirs, batch)
+                                n_dirs, batch, quantize)
     return delta - lr * backing.restrict(upd), gs
 
 
 def _local_step_ref(loss_fn, params, space, delta, key, eps, lr, batch,
-                    n_dirs):
+                    n_dirs, quantize=None):
     if n_dirs == 1:
         z = space.sample_z(key)
         g = projected_gradient(loss_fn, params, space, delta, z, eps, batch,
                                backend="ref")
+        g = _maybe_quantize(g, key, quantize)
         return delta - lr * g * z, g
     gz, gs = [], []
     for k in prng.split(key, n_dirs):
         z = space.sample_z(k)
         g = projected_gradient(loss_fn, params, space, delta, z, eps, batch,
                                backend="ref")
+        g = _maybe_quantize(g, k, quantize)
         gz.append(g * z)
         gs.append(g)
     return delta - lr * torch.stack(gz).mean(0), torch.stack(gs)
 
 
 def make_local_run(loss_fn: Callable, space, eps: float, lr: float,
-                   n_dirs: int = 1, backend: Optional[str] = None):
+                   n_dirs: int = 1, backend: Optional[str] = None,
+                   quantize=None):
     """T-step client loop.
 
     ``run(params, keys [T, 2], batches, delta0)``: ``batches`` is a dict of
     arrays with a leading [T, ...] axis.  Returns (delta_T [n], gs [T])
-    (gs: [T, K] when n_dirs > 1).
+    (gs: [T, K] when n_dirs > 1).  ``quantize`` (a
+    :class:`repro_torch.core.quantize.QuantSpec`) turns on exact-replay
+    uplink quantization: each step's g (each direction's, when n_dirs > 1)
+    is rounded to the wire grid before it is applied and returned.
 
     On the kernel route the flat parameter vector is built once and the loop
     carries the *dense* flat delta, so every local step is one fused
@@ -138,7 +158,8 @@ def make_local_run(loss_fn: Callable, space, eps: float, lr: float,
             delta, gs = delta0, []
             for key, batch in zip(keys, step_batches):
                 delta, g = _local_step_ref(loss_fn, params, space, delta,
-                                           key, eps, lr, batch, n_dirs)
+                                           key, eps, lr, batch, n_dirs,
+                                           quantize)
                 gs.append(g)
             return delta, torch.stack(gs)
 
@@ -156,12 +177,12 @@ def make_local_run(loss_fn: Callable, space, eps: float, lr: float,
                 lp, lm = _dual_losses(loss_fn, backing, base, z_flat, eps,
                                       batch)
                 del base
-                g = (lp - lm) / (2.0 * eps)
+                g = _maybe_quantize((lp - lm) / (2.0 * eps), key, quantize)
                 delta_dense = zo_fused_update_flat(delta_dense, z_flat, None,
                                                    -lr * g)
             else:
                 upd, g = _multi_dir_update(loss_fn, backing, space, base,
-                                           key, eps, n_dirs, batch)
+                                           key, eps, n_dirs, batch, quantize)
                 del base
                 delta_dense = zo_fused_update_flat(delta_dense, upd, None,
                                                    -lr)

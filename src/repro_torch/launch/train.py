@@ -1,0 +1,237 @@
+"""Federated MEERKAT training entry point (``repro.launch.train``).
+
+Runs sparse-ZO federated fine-tuning of the tiny model or any registered
+architecture's *reduced* variant on the synthetic classification-LM task
+family with Dirichlet Non-IID clients: Algorithm 2 end to end (mask
+calibration from the C4-proxy corpus, per-round seed ladders, client local
+ZO steps, server virtual-path reconstruction and aggregation), optional
+MEERKAT-VP calibration and early stopping, fault injection, fleet sampling
+with a quantized uplink, and checkpoint/resume.  Runs on the CUDA card
+unless ``--device`` says otherwise.
+
+Not ported yet: ``--method lora`` (ROADMAP A item 2: ``LoRASpace`` and the
+LoRA layers) and ``--mesh`` (ROADMAP A12); both raise.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --checkpoint-dir runs/ckpt_torch --checkpoint-every 1 --rounds 8
+      # then the same command + --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --drop-rate 0.2 --late-rate 0.1 --sample-frac 0.5 --quantize int8
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+
+from repro_torch.checkpoint.state import FINAL_NAME, LATEST_NAME
+from repro_torch.configs import TINY, get_config
+from repro_torch.configs.base import FLConfig
+from repro_torch.core import (Client, DenseSpace, FederatedZO, magnitude_mask,
+                              pretrain_gradient_vec, random_mask,
+                              sensitivity_mask)
+from repro_torch.data import (TaskSpec, dirichlet_partition, iid_partition,
+                              make_task_fns, pretrain_batches, sample_dataset,
+                              single_label_partition, subset)
+from repro_torch.fault import FaultPlan
+from repro_torch.models import Model, ModelCtx
+
+
+def build_space(method, loss_fn, params, pre, density, seed, device):
+    if method == "meerkat":
+        return sensitivity_mask(loss_fn, params, pre, density, device=device)
+    if method == "magnitude":
+        return magnitude_mask(params, density)
+    if method == "random":
+        return random_mask(params, density, seed=seed, balanced=False)
+    if method == "full":
+        return DenseSpace(params)
+    raise ValueError(method)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tiny",
+                    help="tiny or any registered arch (reduced variant used)")
+    ap.add_argument("--method", default="meerkat",
+                    choices=["meerkat", "magnitude", "random", "full", "lora"])
+    ap.add_argument("--partition", default="dirichlet",
+                    choices=["iid", "dirichlet", "single_label", "mixed"])
+    ap.add_argument("--alpha", type=float, default=0.5)
+    ap.add_argument("--clients", type=int, default=8)
+    ap.add_argument("--rounds", type=int, default=40)
+    ap.add_argument("--T", type=int, default=10)
+    ap.add_argument("--lr", type=float, default=5e-2)
+    ap.add_argument("--eps", type=float, default=1e-3)
+    ap.add_argument("--density", type=float, default=1e-2)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--zo-backend", default="auto",
+                    choices=["auto", "kernel", "ref"],
+                    help="ZO perturb/update route (core/dispatch.py)")
+    ap.add_argument("--attn-backend", default="auto",
+                    choices=["auto", "kernel", "dense"],
+                    help="forward-attention route for the ZO loss forwards")
+    ap.add_argument("--mesh", default=None,
+                    help="sharded rounds on a device mesh: not ported yet "
+                         "(ROADMAP A12); raises")
+    ap.add_argument("--vp", action="store_true",
+                    help="MEERKAT-VP: calibrate GradIP + early-stop")
+    ap.add_argument("--eval-every", type=int, default=5)
+    ap.add_argument("--out", default=None, help="write history json here")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="write server snapshots here (ckpt_latest every "
+                         "--checkpoint-every rounds, ckpt_final at the end)")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="rounds between snapshots under --checkpoint-dir")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore ckpt_latest from --checkpoint-dir and "
+                         "continue to --rounds (bit-exact vs uninterrupted)")
+    ap.add_argument("--drop-rate", type=float, default=0.0,
+                    help="per-(round, client) offline probability "
+                         "(repro_torch.fault.FaultPlan)")
+    ap.add_argument("--late-rate", type=float, default=0.0,
+                    help="per-(round, client) straggler probability; "
+                         "uploads land 1..--max-staleness rounds late")
+    ap.add_argument("--max-staleness", type=int, default=2,
+                    help="straggler staleness bound in rounds")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the deterministic fault schedule")
+    ap.add_argument("--kill-at-round", type=int, default=None,
+                    help="SIGKILL this process mid-round r (the unclean "
+                         "death that --resume recovers from)")
+    ap.add_argument("--sample-frac", type=float, default=1.0,
+                    help="per-round participation fraction; < 1 enables the "
+                         "seeded ClientSampler (cohort size "
+                         "max(1, round(frac*K)))")
+    ap.add_argument("--sample-weighted", action="store_true",
+                    help="weight cohort draws by client dataset size "
+                         "(uniform otherwise)")
+    ap.add_argument("--quantize", default="none",
+                    choices=["none", "int8", "int4", "int8-nearest",
+                             "int4-nearest"],
+                    help="uplink codec for the ZO scalars "
+                         "(core/quantize.py exact-replay quantizer)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    a = ap.parse_args(argv)
+    if a.method == "lora":
+        raise NotImplementedError(
+            "--method lora needs LoRASpace and the LoRA layers, not ported "
+            "yet (ROADMAP A item 2)")
+    if a.mesh:
+        raise NotImplementedError(
+            "--mesh needs the sharded round (FLShardPlan), not ported yet "
+            "(ROADMAP A12)")
+
+    cfg = TINY if a.arch == "tiny" else get_config(a.arch).reduced()
+    spec = TaskSpec(vocab=min(cfg.vocab, 512), seq_len=16)
+    model = Model(cfg, ctx=ModelCtx(attn_backend=a.attn_backend),
+                  device=a.device)
+    print(f"arch={cfg.name} params={model.n_params:,} method={a.method} "
+          f"device={model.device}")
+
+    params = model.init(seed=a.seed)
+    loss, _, evaluate = make_task_fns(model, spec)
+
+    def lm_loss_fn(p, b):
+        return model.loss(p, b)
+
+    pre = pretrain_batches(spec, n_batches=8, batch_size=32, seed=a.seed + 3)
+
+    t0 = time.time()
+    space = build_space(a.method, lm_loss_fn, params, pre, a.density, a.seed,
+                        model.device)
+    print(f"space: n={space.n:,} coords ({time.time() - t0:.1f}s)")
+
+    train = sample_dataset(spec, 2048, seed=a.seed + 1)
+    ev = sample_dataset(spec, 512, seed=a.seed + 2)
+    eval_batch = {k: np.asarray(v) for k, v in ev.items()}
+    labels = train["label"]
+    if a.partition == "iid":
+        parts = iid_partition(len(labels), a.clients, seed=a.seed)
+    elif a.partition == "dirichlet":
+        parts = dirichlet_partition(labels, a.clients, a.alpha, seed=a.seed)
+    elif a.partition == "single_label":
+        parts = single_label_partition(labels, a.clients, seed=a.seed)
+    else:  # mixed: 3/4 mildly heterogeneous + 1/4 single-label extremes
+        nb = max(1, a.clients * 3 // 4)
+        parts = (dirichlet_partition(labels, nb, 5.0, seed=a.seed)
+                 + single_label_partition(labels, a.clients - nb,
+                                          seed=a.seed + 1))
+    clients = [Client(k, subset(train, p), a.batch)
+               for k, p in enumerate(parts)]
+
+    fl = FLConfig(n_clients=a.clients, rounds=a.rounds, local_steps=a.T,
+                  lr=a.lr, eps=a.eps, density=a.density, seed=a.seed,
+                  zo_backend=a.zo_backend,
+                  batch_size=a.batch, vp_calibration_steps=100,
+                  vp_init_steps=20, vp_later_steps=20, vp_rho_later=2.0,
+                  vp_sigma=0.25, vp_sigma_relative=True,
+                  sample_frac=a.sample_frac,
+                  sample_weighted=a.sample_weighted, quantize=a.quantize)
+    server = FederatedZO(loss, params, space, fl, clients, eval_fn=evaluate,
+                         device=model.device)
+    if server.sampler is not None or server.codec.spec != "none":
+        m = "full" if server.sampler is None else server.sampler.m
+        print(f"fleet: cohort {m}/{a.clients} per round"
+              + (" (weighted)" if a.sample_weighted else "")
+              + f", uplink codec {server.codec.spec}")
+
+    fault_plan = None
+    if a.drop_rate or a.late_rate or a.kill_at_round is not None:
+        kills = (a.kill_at_round,) if a.kill_at_round is not None else ()
+        fault_plan = FaultPlan(a.clients, a.rounds, drop_rate=a.drop_rate,
+                               late_rate=a.late_rate,
+                               max_staleness=a.max_staleness,
+                               seed=a.fault_seed, kill_rounds=kills)
+        print("faults:", fault_plan.summary())
+
+    resumed = False
+    if a.resume:
+        if not a.checkpoint_dir:
+            ap.error("--resume requires --checkpoint-dir")
+        latest = os.path.join(a.checkpoint_dir, LATEST_NAME)
+        server.load_checkpoint(latest)
+        resumed = True
+        print(f"resumed from {latest} at round {server.round}")
+
+    if a.vp and not resumed:
+        # (resume restores the calibrated VPCS flags and the consumed data
+        # pointers; recalibrating would reset both and break bit-exactness)
+        gp = pretrain_gradient_vec(lm_loss_fn, params, space, pre)
+        results, flagged, _ = server.calibrate_vp(gp)
+        print(f"VPCS flagged clients {flagged} "
+              f"(rho_later={[round(r.rho_later, 2) for r in results]})")
+
+    m0 = evaluate(server.params, eval_batch)
+    print(f"round {server.round}: acc={float(m0['acc']):.4f} "
+          f"loss={float(m0['loss']):.4f}")
+    server.run(max(0, a.rounds - server.round), eval_every=a.eval_every,
+               eval_batch=eval_batch, verbose=True, fault_plan=fault_plan,
+               checkpoint_dir=a.checkpoint_dir,
+               checkpoint_every=a.checkpoint_every)
+    if a.checkpoint_dir:
+        final = server.save_checkpoint(os.path.join(a.checkpoint_dir,
+                                                    FINAL_NAME))
+        print("wrote", final)
+    m = evaluate(server.params, eval_batch)
+    print(f"final: acc={float(m['acc']):.4f} loss={float(m['loss']):.4f} "
+          f"({time.time() - t0:.0f}s total)  comm: up={server.comm.up_bytes}B "
+          f"down={server.comm.down_bytes}B")
+    if a.out:
+        os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
+        with open(a.out, "w") as f:
+            json.dump({"history": server.history,
+                       "final": {k: float(v) for k, v in m.items()},
+                       "args": vars(a)}, f, indent=1)
+        print("wrote", a.out)
+
+
+if __name__ == "__main__":
+    main()

@@ -15,13 +15,19 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 
-def _walk(t, leaves: list):
+def _walk(t, leaves: list, path=None):
+    """Append the leaves to ``leaves`` (as ``(keystr, leaf)`` pairs when a
+    ``path`` prefix is given) and return the treedef."""
     if isinstance(t, dict):
         keys = sorted(t)
-        return ("dict", keys, [_walk(t[k], leaves) for k in keys])
+        return ("dict", keys, [
+            _walk(t[k], leaves, None if path is None else f"{path}[{k!r}]")
+            for k in keys])
     if isinstance(t, (list, tuple)):
-        return (type(t).__name__, None, [_walk(c, leaves) for c in t])
-    leaves.append(t)
+        return (type(t).__name__, None, [
+            _walk(c, leaves, None if path is None else f"{path}[{i}]")
+            for i, c in enumerate(t)])
+    leaves.append(t if path is None else (path, t))
     return None
 
 
@@ -39,6 +45,15 @@ def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
     """(leaves, treedef); ``treedef`` rebuilds the tree in tree_unflatten."""
     leaves: List[Any] = []
     return leaves, _walk(tree, leaves)
+
+
+def tree_flatten_with_keys(tree: Any, prefix: str = ""
+                           ) -> Tuple[List[Tuple[str, Any]], Any]:
+    """``([(keystr, leaf)], treedef)``: each leaf's path as
+    ``jax.tree_util.keystr`` writes it (``['params']['layers'][0]``), after
+    ``prefix``, in the same order as :func:`tree_flatten`."""
+    leaves: List[Tuple[str, Any]] = []
+    return leaves, _walk(tree, leaves, prefix)
 
 
 def tree_unflatten(treedef: Any, leaves) -> Any:

@@ -35,8 +35,8 @@ from repro_torch.kernels import ops, plans, ref
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 CPU = torch.device("cpu")
-RUNS = ("zo_train_loop", "fl_round", "prefill", "decode_burst",
-        "first_order")
+RUNS = ("zo_train_loop", "fl_round", "ckpt_roundtrip", "prefill",
+        "decode_burst", "first_order")
 
 
 def _errors(rows):
@@ -397,9 +397,6 @@ def test_registry_program_runs_clean_on_the_cpu(name):
     assert not _errors(rows), _errors(rows)
     if name == "fl_round_sharded":
         assert all("A12" in r["skipped"] for r in rows)
-    elif name == "ckpt_roundtrip":
-        assert all("A8" in r["skipped"] and "msgpack" in r["skipped"]
-                   for r in rows)
     else:
         assert not [r for r in rows if r.get("skipped")
                     and r["skipped"] != "not applicable"]

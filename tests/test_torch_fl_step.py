@@ -17,6 +17,7 @@ from repro.models import Model as JModel
 from repro_torch.configs.tiny import TINY
 from repro_torch.convert import params_from_numpy, space_from_numpy
 from repro_torch.core import fl_step as TF
+from repro_torch.core.quantize import QuantSpec
 from repro_torch.core import prng
 from repro_torch.models import Model
 from repro_torch.models.transformer import lm_loss
@@ -193,9 +194,9 @@ def test_round_step_matches_jax(setup, jbe, tbe):
 def test_unported_options_raise(setup):
     s = setup
     kw = dict(eps=EPS, lr=LR, n_clients=K)
-    with pytest.raises(NotImplementedError, match="A8"):
-        TF.make_fl_train_step(_t_loss(s["tm"]), s["tspace"], quantize=object(),
-                              **kw)
+    # the uplink quantizer is ported (core/quantize.py): it builds
+    TF.make_fl_train_step(_t_loss(s["tm"]), s["tspace"],
+                          quantize=QuantSpec(8), **kw)
     with pytest.raises(NotImplementedError, match="vmap"):
         TF.make_fl_train_loop(_t_loss(s["tm"]), s["tspace"], n_steps=2,
                               stack_forwards=True, **kw)

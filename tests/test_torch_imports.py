@@ -1,5 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the JAX package."""
+``chip_smoke.py`` imports JAX, the JAX package, or ``msgpack`` and
+``ml_dtypes`` (neither is on the card's machine; the checkpoint codec is
+the port's own)."""
 import ast
 from pathlib import Path
 
@@ -10,7 +12,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
