@@ -20,7 +20,10 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 SDPA's f32 forward and the flash backward pair (dQ +
                 dK/dV) with SDPA's f32 backward, the flash kernels against
                 both their f32 and their 3xTF32 bound, with their record
-                of their blocks and their one-pass TF32 control;
+                of their blocks and their one-pass TF32 control; rows 3,
+                5-6 and 7 also at Qwen3-4B's and ChatGLM3-6B's shapes,
+                rows 1 and 2 also at phases lora's and slice_qwen3's flat
+                sizes, and row 4 at their GradIP sizes;
 4. slice        MEERKAT-VP on full-size Llama-3.2-1B (random weights from a
                 seed): sensitivity mask and pre-training gradient through
                 the flash kernels' backward, held against the dense
@@ -41,6 +44,32 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 bit-equal; every upload billed at the int8 wire size; one
                 client's applied scalars equal the server's decoded wire
                 and its delta the wire replay;
+4c. lora        LoRA-FedZO on the same model with rank-4 adapters on q and
+                v (alpha 16; 425,984 coordinates, LoRASpace on the flat
+                kernel route over all 1,236,240,384 parameters): the fresh
+                LoRA model's loss bit-equal to the base model's, the
+                pre-training gradient at the adapters through the flash
+                backward, two clients early-stopped by early_stop_random,
+                two rounds of eight Dirichlet clients at T=2 with GradIP;
+                every base weight bit-equal after them, the flagged
+                clients at one step, bytes, evaluation, one client's
+                trajectory against the server's replay;
+4d. slice_qwen3 MEERKAT on Qwen3-4B at full width (qk-norm, head_dim 128,
+                G 4), 8 of 36 layers (1.59 B parameters): the slice's mask
+                and pre-training gradient with their dense-route checks,
+                two rounds of eight clients with GradIP (no VP
+                calibration), evaluation, the replay; one ZO step under
+                torch.profiler;
+4e. options     ChatGLM3-6B (partial RoPE, QKV bias, G 16; 2 of 28 layers)
+                and Phi-3.5-MoE (LayerNorm, 16 experts top-2; 1 of 32
+                layers) at full width: the logits and the LM loss of
+                2 x 1024 on the kernel, online and dense (q-block 256)
+                routes, within their bounds of the kernel route's, the
+                launches counted across the three (the online and dense
+                routes launch none); ChatGLM3 behind the engine (prompts of 1024 and 300,
+                16 greedy tokens on the flash-decode kernel at G 16) with
+                the serve checks, and every token the argmax of the
+                teacher-forced training forward;
 5. first_order  the backprop baseline on the same model: two Adam steps
                 (``make_train_step``) and one FedAvg round of eight
                 Dirichlet clients (``fedavg_round``); then one more Adam
@@ -93,8 +122,8 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 time with and without the recorder, and sample_z's time
                 against erfinv's float64 Horner form.
 
-Phases 4 to 10 (4b too) each count every kernel's launches from zero, and
-each count must be the count its run implies.
+Phases 4 to 10 (4b-4e too) each count every kernel's launches from zero,
+and each count must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
 last.  Any failed check raises and the script exits non-zero; without a
@@ -138,6 +167,27 @@ FLEET_DROP, FLEET_LATE, FLEET_STALENESS = 0.2, 0.2, 2
 # it gives in-cohort drops and a straggler of round 1 still in flight at
 # the round-2 checkpoint, landing in round 3, so the restored queue is used
 FLEET_FAULT_SEED = 0
+# LoRA-FedZO on Llama-3.2-1B (phase lora): rank 4, alpha 16 on q and v;
+# T=2 at Table 1's LoRA rate, two clients early-stopped at random
+LORA_RANK, LORA_T, LORA_ROUNDS, LORA_LR = 4, 2, 2, 2e-2
+LORA_EARLY_STOP, LORA_STOP_SEED = 2, 7
+# MEERKAT on Qwen3-4B at full width, 8 of 36 layers (phase slice_qwen3):
+# the six flat f32 vectors of the ZO route stay within half of the card
+QWEN3_LAYERS, QWEN3_ROUNDS = 8, 2
+# the other options (phase options): ChatGLM3-6B (partial RoPE, QKV bias,
+# G 16) and Phi-3.5-MoE (LayerNorm, 16 experts top-2), full width, a few
+# layers; the logits and LM loss of B x S on the kernel, online and dense
+# routes, the dense route chunked: the losses within OPTIONS_ROUTE_REL of
+# the kernel route's, the logits' max abs gap within OPTIONS_LOGIT_REL of
+# the kernel route's max |logit| (the routes' gap measured 6.8e-6 on an
+# H100 at these shapes: the bound is three times it)
+CHATGLM_LAYERS, PHI_LAYERS = 2, 1
+OPTIONS_B, OPTIONS_S, OPTIONS_Q_BLOCK = 2, 1024, 256
+OPTIONS_ROUTE_REL = 1e-4
+OPTIONS_LOGIT_REL = 2e-5
+# ChatGLM3 behind the engine: prompts of 1024 and 300, 16 greedy tokens,
+# on the flash-decode kernel at G 16 (its largest group)
+CHATGLM_PROMPTS, CHATGLM_NEW = (1024, 300), 16
 # the first-order baseline: Adam steps and one FedAvg round, batch 4 x 512
 FO_BATCH = 4
 FO_ADAM_STEPS = 2
@@ -254,8 +304,12 @@ KERNEL_SOURCES = {
 }
 # fields a kernel row carries into the kernels line beside the required
 # ones, all measured in the run but bounds: the flash backward's pair timed
-# in turns with SDPA, and its Gemma-2 (head_dim 256) instance
-KERNEL_LINE_EXTRAS = ("pair_ms_in_turns", "gemma")
+# in turns with SDPA, its Gemma-2 (head_dim 256) instance, rows 3, 5-6 and 7
+# at Qwen3-4B's and ChatGLM3-6B's shapes (check_new_shapes), and rows 1, 2
+# and 4 at the flat and GradIP sizes of phases lora and slice_qwen3
+# (check_elementwise, check_gradip)
+KERNEL_LINE_EXTRAS = ("pair_ms_in_turns", "gemma", "qwen3", "chatglm3",
+                      "lora")
 # the forward's (G, head_dim) layouts: Llama's and Gemma's, Jamba's G 8 at
 # 128, and G 64 (one query a block) at 64 and at 256
 FLASH_LAYOUTS = ((1, 64), (4, 64), (1, 128), (4, 128), (2, 256), (8, 128),
@@ -367,9 +421,11 @@ def bound(n_bytes: float, n_ops: float, flop_per_s: float = F32_FLOP_PER_S):
 
 
 # ----------------------------------------------------------------- kernels --
-def check_elementwise(torch, ops, ref, dev, n_slice: int):
+def check_elementwise(torch, ops, ref, dev, n_slice: int, extra: dict):
     """dual_perturb and fused_update: bit-equal to the plain version (both
-    round the f32 product, then add in w's dtype)."""
+    round the f32 product, then add in w's dtype), on a grid of sizes, at
+    the slice's flat vector and at the other phases' (``extra``: {config:
+    n_pad}, each a row of the config's name beside the slice's)."""
     from repro_torch.kernels import plans
     gen = torch.Generator(device=dev).manual_seed(1)
     ch = plans.zo_update_chunk(True)  # fused_update's block: 16,384
@@ -433,7 +489,47 @@ def check_elementwise(torch, ops, ref, dev, n_slice: int):
          torch_add_ms_turns=out["zo_fused_update_flat"]["library_ms_turns"],
          bytes_rate_tb_s=12.0 * n_slice / out["zo_fused_update_flat"]["ms"]
          / 1e9)
+    del w, z
+    for tag, n in extra.items():
+        for name, row in flat_rows(torch, ops, ref, dev, gen, n).items():
+            out[name][tag] = row
     return out
+
+
+def flat_rows(torch, ops, ref, dev, gen, n: int) -> dict:
+    """dual_perturb and fused_update at one more flat size (f32, pre-masked
+    z, as the phases run them): each bit-equal to its plain version, timed
+    beside it, its library call (fused_update: torch.add) and its bound."""
+    w = torch.randn(n, generator=gen, device=dev)
+    z = torch.randn(n, generator=gen, device=dev)
+    shape = f"[{n}] f32, pre-masked z"
+    p, q = ops.zo_dual_perturb_flat(w, z, None, 1e-3)
+    rp, rq = ref.dual_perturb_ref(w, z, None, 1e-3)
+    err = max(float((p - rp).abs().max()), float((q - rq).abs().max()))
+    del p, q, rp, rq
+    if err != 0.0:
+        fail(f"dual_perturb differs from plain at n={n}: {err}")
+    b_ms, b_by = bound(16.0 * n, 3.0 * n)
+    dual = dict(
+        shape=shape, max_abs_err=err,
+        ms=timed(lambda: ops.zo_dual_perturb_flat(w, z, None, 1e-3), 10),
+        plain_ms=timed(lambda: ref.dual_perturb_ref(w, z, None, 1e-3), 3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    s = torch.tensor(-1e-3 * 0.731, device=dev)
+    u = ops.zo_fused_update_flat(w, z, None, s)
+    err = float((u - ref.fused_update_ref(w, z, None, s)).abs().max())
+    del u
+    if err != 0.0:
+        fail(f"fused_update differs from plain at n={n}: {err}")
+    b_ms, b_by = bound(12.0 * n, 2.0 * n)
+    s_host = float(s)
+    fused = dict(
+        shape=shape, max_abs_err=err,
+        ms=timed(lambda: ops.zo_fused_update_flat(w, z, None, s), 10),
+        plain_ms=timed(lambda: ref.fused_update_ref(w, z, None, s), 3),
+        library_ms=timed(lambda: torch.add(w, z, alpha=s_host), 10),
+        library="torch.add(w, z, alpha=s)", bound_ms=b_ms, bound_by=b_by)
+    return {"zo_dual_perturb_flat": dual, "zo_fused_update_flat": fused}
 
 
 def gradip_two_streams(torch, ops, gp, z, g, calls: int = 4):
@@ -480,15 +576,19 @@ def gradip_capture_refusals(torch, ops, gp, z) -> list:
     return refusals
 
 
-def check_gradip(torch, ops, ref, dev, n_slice: int):
+def check_gradip(torch, ops, ref, dev, n_slice: int, extra: dict):
     """gradip_flat against its plain version at n in {1, 777, 1e7, the
-    slice's}; bit-equal over 3 repeats and from two streams at once; one
-    launch a call; refused under CUDA graph capture.  At the slice's n
-    (where MEERKAT-VP runs it) timed in turns against torch.dot, and
-    device time alone at n = 1e7."""
+    other phases' (``extra``: {config: n}), the slice's}; bit-equal over 3
+    repeats and from two streams at once; one launch a call; refused under
+    CUDA graph capture.  At the slice's n (where MEERKAT-VP runs it) timed
+    in turns against torch.dot, at each ``extra`` n timed beside its plain
+    version and torch.dot (a row of the config's name), and device time
+    alone at n = 1e7."""
     gen = torch.Generator(device=dev).manual_seed(2)
     out = {}
-    for n in (1, 777, 10_000_000, n_slice):
+    tags = {n: tag for tag, n in extra.items()}
+    rows = {}
+    for n in (1, 777, 10_000_000, *extra.values(), n_slice):
         gp = torch.randn(n, generator=gen, device=dev)
         z = torch.randn(n, generator=gen, device=dev)
         before = ops.gradip_flat.launches
@@ -509,6 +609,14 @@ def check_gradip(torch, ops, ref, dev, n_slice: int):
         if n == 10_000_000:
             big_ms = timed(lambda: ops.gradip_flat(gp, z, 1.7), 20)
             big_bound, _ = bound(8.0 * n + 4, 2.0 * n)
+        if n in tags and n != n_slice:
+            b_ms, b_by = bound(8.0 * n + 4, 2.0 * n)
+            rows[tags[n]] = dict(
+                shape=f"[{n}] f32", max_abs_err=err,
+                ms=timed(lambda: ops.gradip_flat(gp, z, 1.7), 50),
+                plain_ms=timed(lambda: ref.gradip_reduce_ref(gp, z, 1.7), 50),
+                library_ms=timed(lambda: torch.dot(gp, z), 50),
+                library="torch.dot", bound_ms=b_ms, bound_by=b_by)
     b_ms, b_by = bound(8.0 * n_slice + 4, 2.0 * n_slice)
     out["gradip_flat"] = dict(
         max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
@@ -516,14 +624,15 @@ def check_gradip(torch, ops, ref, dev, n_slice: int):
                       lambda: torch.dot(gp, z), 50),
         plain_ms=timed(lambda: ref.gradip_reduce_ref(gp, z, 1.7), 50),
         ms_1e7=big_ms, bound_ms_1e7=big_bound,
-        shape=f"[{n_slice}] f32")
+        shape=f"[{n_slice}] f32", **rows)
     refusals = gradip_capture_refusals(torch, ops, gp, z)
     if None in refusals:
         fail(f"gradip was not refused under CUDA graph capture: {refusals}")
     if not torch.equal(ops.gradip_flat(gp, z, 1.7), got):
         fail("gradip differs after the refused captures")
     emit("kernels.gradip_variants", ok=True,
-         checked="n in {1, 777, 1e7, slice n}; one launch, 0-d; bit-equal "
+         checked=f"n in {{1, 777, 1e7, {', '.join(map(str, extra.values()))}"
+                 f", slice n}}; one launch, 0-d; bit-equal "
                  "over 3 repeats and from 2 streams x 4 calls; refused "
                  "under graph capture", refusals=refusals)
     out["gradip_flat"]["host_us"] = host_split_gradip(torch, ops, gp, z)
@@ -1142,6 +1251,125 @@ def check_flash_decode(torch, ops, ref, dev, cfg, slots: int, S: int,
         shape=shape, mbytes=n_bytes / 1e6)}
 
 
+def check_new_shapes(torch, ops, ref, dev, qwen3, chatglm3):
+    """Rows 3, 5-6 and 7 at the shapes of this slice's new configurations,
+    each against its plain version, timed (CUDA events) beside its plain
+    version, SDPA's f32 call and its bound: the forward at Qwen3-4B's ZO
+    forward (B = CLIENT_BATCH, G 4, head_dim 128) and at ChatGLM3-6B's
+    loss (OPTIONS_B x OPTIONS_S, G 16), the backward pair at Qwen3-4B's
+    pre-training gradient (PRETRAIN_BATCH, G 4), decode at ChatGLM3-6B's
+    served cache (G 16).  Returns {kernel: {config: row}}."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {"flash_attention": {}, "flash_attention_bwd_dq": {},
+           "flash_attention_bwd_dkv": {}, "flash_decode": {}}
+
+    def layout(cfg):
+        return (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                cfg.resolved_head_dim)
+
+    for tag, cfg, B, S in (("qwen3", qwen3, CLIENT_BATCH, SEQ_LEN),
+                           ("chatglm3", chatglm3, OPTIONS_B, OPTIONS_S)):
+        KV, G, dh = layout(cfg)
+        q, k, v = _attn(torch, dev, gen, B, S, KV, G, dh, torch.float32)
+        L = torch.full((B,), S, device=dev, dtype=torch.int32)
+        o, lse = ops.flash_attention(q, k, v, L, return_lse=True)
+        ro, rlse = ref.flash_attention_ref(q, k, v, L, window=0, softcap=0.0,
+                                           causal=True)
+        err = max(float((o - ro).abs().max()),
+                  float((lse - rlse).abs().max()))
+        del o, lse, ro, rlse
+        if err > 1e-4:
+            fail(f"flash differs from plain at {tag}'s shape: {err}")
+        live = int(ref.attention_valid(S, L, window=0, causal=True).sum()) \
+            * KV * G
+        n_bytes = 4.0 * (2 * q.numel() + k.numel() + v.numel()
+                         + B * KV * G * S + B)
+        b_ms, b_by = bound(n_bytes, 3 * 4.0 * dh * live, TF32_FLOP_PER_S)
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        out["flash_attention"][tag] = dict(
+            shape=f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}",
+            max_abs_err=err,
+            ms=timed(lambda: ops.flash_attention(q, k, v, L), 10),
+            plain_ms=timed(lambda: ref.flash_attention_ref(
+                q, k, v, L, window=0, softcap=0.0, causal=True), 3),
+            library_ms=timed(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True), 10),
+            bound_ms=b_ms, bound_by=b_by)
+        del q, k, v, qh, kh, vh
+
+    # the backward pair at Qwen3's pre-training gradient
+    KV, G, dh = layout(qwen3)
+    B, S = PRETRAIN_BATCH, SEQ_LEN
+    q, k, v = _attn(torch, dev, gen, B, S, KV, G, dh, torch.float32)
+    do = torch.randn(q.shape, generator=gen, device=dev)
+    L = torch.full((B,), S, device=dev, dtype=torch.int32)
+    o, lse = ref.flash_attention_ref(q, k, v, L, window=0, softcap=0.0,
+                                     causal=True)
+    args = (q, k, v, L, lse, ref.flash_attention_delta(o, do, KV), do)
+    kw = dict(window=0, softcap=0.0, causal=True)
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    o_sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                            enable_gqa=True)
+    lib_ms = timed(lambda: torch.autograd.grad(o_sdpa, (qh, kh, vh), doh,
+                                               retain_graph=True), 10)
+    del o_sdpa, qh, kh, vh, doh
+    for name, dkv, n_ops, fn, plain in (
+            ("flash_attention_bwd_dq", False, 6.0,
+             ops.flash_attention_bwd_dq, ref.flash_attn_bwd_dq_ref),
+            ("flash_attention_bwd_dkv", True, 8.0,
+             ops.flash_attention_bwd_dkv, ref.flash_attn_bwd_dkv_ref)):
+        got, want = fn(*args, **kw), plain(*args, **kw)
+        got, want = (got, want) if dkv else ((got,), (want,))
+        rel = max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                  for g, w in zip(got, want))
+        del got, want
+        if rel > BWD_REL_TOL:
+            fail(f"{name} differs from plain at qwen3's shape: {rel}")
+        flop, n_bytes = bwd_work(ref, q, k, L, dkv, n_ops, 0)
+        b_ms, b_by = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
+        out[name]["qwen3"] = dict(
+            shape=f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}",
+            max_rel_err=rel, ms=timed(lambda: fn(*args, **kw), 10),
+            plain_ms=timed(lambda: plain(*args, **kw), 3),
+            library_ms=lib_ms, library="SDPA f32 backward, dQ+dK+dV",
+            bound_ms=b_ms, bound_by=b_by)
+    del q, k, v, do, o, lse, args
+
+    # decode at ChatGLM3's served cache: both rows at their last step
+    KV, G, dh = layout(chatglm3)
+    S = max(CHATGLM_PROMPTS) + CHATGLM_NEW
+    lens = [n + CHATGLM_NEW for n in CHATGLM_PROMPTS]
+    B = len(lens)
+    q = torch.randn(B, KV, G, dh, generator=gen, device=dev)
+    k, v = (torch.randn(B, S, KV, dh, generator=gen, device=dev)
+            for _ in range(2))
+    L = torch.tensor(lens, device=dev, dtype=torch.int32)
+    got = ops.flash_decode(q, k, v, L)
+    want = ref.decode_attention_ref(q, k, v, L)
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    if rel > DECODE_REL_TOL["f32"]:
+        fail(f"flash_decode differs from plain at chatglm3's shape: {rel}")
+    n_bytes = 2.0 * int(L.sum()) * KV * dh * 4 + 4.0 * (q.numel()
+                                                         + got.numel())
+    b_ms, b_by = bound(n_bytes, 4.0 * dh * G * KV * int(L.sum()))
+    qh = q.reshape(B, KV * G, 1, dh)
+    kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+    mask = (torch.arange(S, device=dev)[None, :] < L[:, None])[:, None, None]
+    out["flash_decode"]["chatglm3"] = dict(
+        shape=f"q [{B},{KV},{G},{dh}], cache [{B},{S},{KV},{dh}] f32, "
+              f"lengths {lens}",
+        max_rel_err=rel, ms=timed(lambda: ops.flash_decode(q, k, v, L), 50),
+        plain_ms=timed(lambda: ref.decode_attention_ref(q, k, v, L), 20),
+        library_ms=timed(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True), 50),
+        bound_ms=b_ms, bound_by=b_by)
+    emit("kernels.new_shapes", ok=True, **out)
+    return out
+
+
 def decode_graph_replay(torch, ops, q, k, v, L):
     """flash_decode(q, k, v, L) captured in a CUDA graph (after a warm call
     on the capture's side stream), replayed once: its output."""
@@ -1401,13 +1629,17 @@ def mask_overlap(torch, a, b, params) -> float:
     return float(torch.isin(fa, flat(b)).sum()) / max(1, fa.numel())
 
 
-def run_slice(torch, dev, cfg):
-    """The slice on ``cfg`` through the port's public API; returns
-    (launch counts over the run, the counts the run implies)."""
+def run_slice(torch, dev, cfg, *, t_cali=T_CALI, rounds=ROUNDS,
+              label="slice", profile="zo_step"):
+    """The slice on ``cfg`` through the port's public API: VP calibration
+    of ``t_cali`` steps (none at 0), then ``rounds`` rounds with GradIP;
+    emitted as ``label``, its profiled ZO step as ``profile.<profile>``.
+    Returns (launch counts over the run, the counts the run implies)."""
     import numpy as np
 
     import repro_torch.core as C
     from repro_torch.configs import FLConfig
+    from repro_torch.core.dispatch import get_backing, resolve_backend
     from repro_torch.core.gradip import grad_tree
     from repro_torch.data import (TaskSpec, dirichlet_partition,
                                   make_task_fns, pretrain_batches,
@@ -1468,17 +1700,22 @@ def run_slice(torch, dev, cfg):
     fl = FLConfig(n_clients=N_CLIENTS, local_steps=1, eps=1e-3,
                   density=DENSITY, zo_backend="kernel", vp_init_steps=2,
                   vp_later_steps=2, vp_sigma_relative=True, seed=SEED)
+    # the route "auto" would take: the flat kernels while their six dense
+    # f32 vectors fit in half of the card (core/dispatch.py)
+    auto_backend = resolve_backend("auto", get_backing(space, params))
     server = C.FederatedZO(loss, params, space, fl, clients,
                            eval_fn=evaluate, device=dev)
     t0 = time.perf_counter()
     gp = C.pretrain_gradient_vec(lambda p, b: model.loss(p, b), params,
                                  space, pre)
     phase_done("pretrain_gradient", t0)
+    flagged, trajs = [], []
+    if t_cali:
+        t0 = time.perf_counter()
+        _, flagged, trajs = server.calibrate_vp(gp, T_cali=t_cali)
+        phase_done("calibrate_vp", t0)
     t0 = time.perf_counter()
-    results, flagged, trajs = server.calibrate_vp(gp, T_cali=T_CALI)
-    phase_done("calibrate_vp", t0)
-    t0 = time.perf_counter()
-    server.run(ROUNDS, gp_vec=gp)
+    server.run(rounds, gp_vec=gp)
     phase_done("rounds", t0)
     t0 = time.perf_counter()
     m1 = {k: float(v) for k, v in evaluate(server.params, ev).items()}
@@ -1499,7 +1736,7 @@ def run_slice(torch, dev, cfg):
     phase_done("replay_check", t0)
     counts = ops.launches()  # the main path ends here
 
-    n_steps = N_CLIENTS * T_CALI + ROUNDS * N_CLIENTS + 1
+    n_steps = N_CLIENTS * t_cali + rounds * N_CLIENTS + 1
     n_forwards = 2 * n_steps + 2  # two per ZO step, plus the two evals
     # differentiated passes on the kernel route: mask and pre-training
     # gradient batches, and the gradient check's one
@@ -1507,7 +1744,7 @@ def run_slice(torch, dev, cfg):
     expected = {name: 0 for name in counts}
     expected.update({"zo_dual_perturb_flat": n_steps,
                      "zo_fused_update_flat": n_steps,
-                     "gradip_flat": N_CLIENTS * T_CALI + ROUNDS * N_CLIENTS,
+                     "gradip_flat": N_CLIENTS * t_cali + rounds * N_CLIENTS,
                      "flash_attention": cfg.n_layers * (n_forwards + n_grads),
                      "flash_attention_bwd_dq": cfg.n_layers * n_grads,
                      "flash_attention_bwd_dkv": cfg.n_layers * n_grads})
@@ -1518,9 +1755,11 @@ def run_slice(torch, dev, cfg):
               and bool(torch.isfinite(gp).all())
               and bool(torch.isfinite(gs).all()))
     grad_ok = max(grad_rel.values()) <= GRAD_REL_BOUND
-    emit("slice", model=cfg.name, n_params=model.n_params,
+    emit(label, model=cfg.name, n_layers=cfg.n_layers,
+         n_params=model.n_params, n_pad=get_backing(space, params).n_pad,
+         auto_backend=auto_backend,
          mask_coords=space.n, clients=N_CLIENTS, client_batch=CLIENT_BATCH,
-         seq_len=SEQ_LEN, T_cali=T_CALI, rounds=ROUNDS, flagged=flagged,
+         seq_len=SEQ_LEN, T_cali=t_cali, rounds=rounds, flagged=flagged,
          eval_before=m0, eval_after=m1, up_bytes=server.comm.up_bytes,
          down_bytes=server.comm.down_bytes, launches=counts,
          expected_launches=expected, replay_max_rel_err=rel,
@@ -1529,21 +1768,26 @@ def run_slice(torch, dev, cfg):
          mask_overlap_min=MASK_OVERLAP_MIN,
          grad_rel_kernel_vs_dense=grad_rel,
          grad_rel_max=max(grad_rel.values()), grad_rel_bound=GRAD_REL_BOUND,
-         times_s=times, round_s=times["rounds"] / ROUNDS,
-         zo_step_s=times["rounds"] / (ROUNDS * N_CLIENTS),
+         times_s=times, round_s=times["rounds"] / rounds,
+         zo_step_s=times["rounds"] / (rounds * N_CLIENTS),
          peak_gb=peaks, resident_gb=resident,
          max_memory_allocated_gb=max(peaks.values(), default=None))
     if not finite:
-        fail("non-finite loss, scalar or GradIP in the slice")
+        fail(f"non-finite loss, scalar or GradIP in {label}")
     if not replay_ok:
-        fail(f"client delta and server replay differ (max rel {rel})")
+        fail(f"{label}: client delta and server replay differ (max rel "
+             f"{rel})")
     if not grad_ok:
-        fail(f"kernel-route gradient differs from the dense route's: "
-             f"{grad_rel} > {GRAD_REL_BOUND}")
+        fail(f"{label}: kernel-route gradient differs from the dense "
+             f"route's: {grad_rel} > {GRAD_REL_BOUND}")
     if overlap < MASK_OVERLAP_MIN:
-        fail(f"kernel-route mask overlaps the dense-route mask by {overlap}")
+        fail(f"{label}: kernel-route mask overlaps the dense-route mask by "
+             f"{overlap}")
+    if on_card and auto_backend != "kernel":
+        fail(f"{label}: zo_backend 'auto' leaves the flat kernels "
+             f"({auto_backend!r})")
     if on_card:
-        profile_step(torch, "zo_step", lambda: run(
+        profile_step(torch, profile, lambda: run(
             server.params, keys, batches, torch.zeros(space.n, device=dev)))
     return counts, expected
 
@@ -1791,6 +2035,308 @@ def run_fleet(torch, dev, cfg):
     return counts, expected
 
 
+# --------------------------------------------------------------- lora --
+def run_lora(torch, dev, cfg):
+    """LoRA-FedZO with random early stopping on ``cfg`` (Llama-3.2-1B with
+    rank-LORA_RANK adapters on q and v) through the port's public API:
+    ``LoRASpace`` on the flat kernel route, which carries the whole model
+    with the adapters among the base weights; the pre-training gradient at
+    the adapter coordinates through the flash backward; LORA_EARLY_STOP
+    clients early-stopped by ``early_stop_random``; LORA_ROUNDS rounds of
+    N_CLIENTS Dirichlet clients at T=LORA_T with GradIP.  Returns (launch
+    counts over the run, the counts the run implies)."""
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import FLConfig
+    from repro_torch.core.dispatch import get_backing
+    from repro_torch.data import (TaskSpec, dirichlet_partition,
+                                  make_task_fns, pretrain_batches,
+                                  sample_dataset, subset)
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ModelCtx
+    from repro_torch.utils.tree import tree_flatten_with_keys
+
+    on_card = dev.type == "cuda"
+    phase_done, times, peaks, resident = phase_clock(torch, on_card)
+    t0 = time.perf_counter()
+    ctx = ModelCtx(attn_backend="kernel")
+    model = Model(cfg, ctx, device=dev)
+    params = model.init(seed=SEED)
+    spec = TaskSpec(vocab=512, seq_len=SEQ_LEN)
+    loss, _, evaluate = make_task_fns(model, spec)
+    train = sample_dataset(spec, 1024, seed=1)
+    parts = dirichlet_partition(train["label"], n_clients=N_CLIENTS,
+                                alpha=0.5)
+    clients = [C.Client(k, subset(train, p), batch_size=CLIENT_BATCH)
+               for k, p in enumerate(parts)]
+    ev = sample_dataset(spec, EVAL_EXAMPLES, seed=2)
+    pre = pretrain_batches(spec, n_batches=PRETRAIN_BATCHES,
+                           batch_size=PRETRAIN_BATCH)
+    # the base weights as they start, to hold the rounds to them
+    base0 = {p: t.clone() for p, t in tree_flatten_with_keys(params)[0]
+             if "lora_" not in p}
+    # fresh adapters (B factors zero) leave the function unchanged: the
+    # LoRA model's loss bit-equal to the base model's on a client batch
+    base_model = Model(cfg.replace(lora_rank=0), ctx, device=dev)
+    base_loss, _, _ = make_task_fns(base_model, spec)
+    base_params = {k: v for k, v in params.items() if k != "stack"}
+    base_params["stack"] = {
+        i: {k: v for k, v in lp.items() if not k.startswith("lora_")}
+        for i, lp in params["stack"].items()}
+    b0 = {k: v[0] for k, v in clients[0].next_batches(1).items()}
+    clients[0].ptr = 0
+    with torch.no_grad():
+        l_lora = loss(params, b0)
+        l_base = base_loss(base_params, b0)
+    loss_bit_equal = bool(torch.equal(l_lora, l_base))
+    del base_params, base_model
+    phase_done("setup", t0)
+
+    ops.reset_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    m0 = {k: float(v) for k, v in evaluate(params, ev).items()}
+    phase_done("eval_before", t0)
+    space = C.LoRASpace(params)
+    backing = get_backing(space, params)
+    fl = FLConfig(n_clients=N_CLIENTS, local_steps=LORA_T, lr=LORA_LR,
+                  eps=1e-3, mask_kind="lora", zo_backend="kernel", seed=SEED)
+    server = C.FederatedZO(loss, params, space, fl, clients,
+                           eval_fn=evaluate, device=dev)
+    t0 = time.perf_counter()
+    gp = C.pretrain_gradient_vec(lambda p, b: model.loss(p, b), params,
+                                 space, pre)
+    phase_done("pretrain_gradient", t0)
+    server.early_stop_random(LORA_EARLY_STOP, seed=LORA_STOP_SEED)
+    t0 = time.perf_counter()
+    steps = {}
+    for _ in range(LORA_ROUNDS):
+        for cid, g in server.run_round(gp_vec=gp).items():
+            steps.setdefault(cid, []).append(len(g))
+    phase_done("rounds", t0)
+    t0 = time.perf_counter()
+    m1 = {k: float(v) for k, v in evaluate(server.params, ev).items()}
+    phase_done("eval_after", t0)
+
+    # a client that runs LORA_T steps, against the server's replay
+    t0 = time.perf_counter()
+    cid = min(set(range(N_CLIENTS)) - server.early_stopped)
+    run = C.make_local_run(loss, space, fl.eps, fl.lr, backend="kernel")
+    keys = C.round_keys(fl.seed, server.round, LORA_T)
+    batches = {k: torch.as_tensor(v, device=dev)
+               for k, v in clients[cid].next_batches(LORA_T).items()}
+    delta, gs = run(server.params, keys, batches,
+                    torch.zeros(space.n, device=dev))
+    rec = C.reconstruct_delta(space, keys, gs.cpu().numpy(), fl.lr)
+    rel = float((delta - rec).abs().max() / rec.abs().max())
+    replay_ok = bool(torch.allclose(delta, rec, rtol=1e-6,
+                                    atol=1e-6 * float(rec.abs().max())))
+    phase_done("replay_check", t0)
+    counts = ops.launches()  # the main path ends here
+
+    t0 = time.perf_counter()
+    base_kept = all(torch.equal(t, base0[p]) for p, t in
+                    tree_flatten_with_keys(server.params)[0]
+                    if "lora_" not in p)
+    del base0
+    phase_done("base_check", t0)
+    want_steps = {c: [1 if c in server.early_stopped else LORA_T]
+                  * LORA_ROUNDS for c in range(N_CLIENTS)}
+    n_round_steps = sum(sum(v) for v in want_steps.values())
+    n_steps = n_round_steps + LORA_T  # and the replayed client's
+    expected = {name: 0 for name in counts}
+    expected.update({"zo_dual_perturb_flat": n_steps,
+                     "zo_fused_update_flat": n_steps,
+                     "gradip_flat": n_round_steps,
+                     # two forwards a ZO step, the two evals, and the
+                     # pre-training gradient's batches under autograd
+                     "flash_attention": cfg.n_layers * (
+                         2 * n_steps + 2 + PRETRAIN_BATCHES),
+                     "flash_attention_bwd_dq": cfg.n_layers
+                     * PRETRAIN_BATCHES,
+                     "flash_attention_bwd_dkv": cfg.n_layers
+                     * PRETRAIN_BATCHES})
+    up_want = 4 * n_round_steps
+    down_want = 4 * space.n * N_CLIENTS * LORA_ROUNDS
+    scalars = [g for h in server.gradip_log.values() for g in h]
+    finite = (all(np.isfinite(v) for v in (*m0.values(), *m1.values()))
+              and all(np.all(np.isfinite(g)) for g in scalars)
+              and bool(torch.isfinite(gp).all())
+              and bool(torch.isfinite(gs).all()))
+    emit("lora", model=cfg.name, lora_rank=cfg.lora_rank,
+         lora_alpha=cfg.lora_alpha, n_params=model.n_params,
+         lora_coords=space.n, n_flat=backing.n_flat, n_pad=backing.n_pad,
+         clients=N_CLIENTS, client_batch=CLIENT_BATCH, seq_len=SEQ_LEN,
+         T=LORA_T, lr=LORA_LR, rounds=LORA_ROUNDS,
+         early_stopped=sorted(server.early_stopped), steps=steps,
+         loss_lora_vs_base_bit_equal=loss_bit_equal, loss_before=float(
+             l_lora), base_weights_unchanged=base_kept,
+         gp_zero_share=float((gp == 0).float().mean()),
+         eval_before=m0, eval_after=m1, up_bytes=server.comm.up_bytes,
+         up_bytes_want=up_want, down_bytes=server.comm.down_bytes,
+         down_bytes_want=down_want, launches=counts,
+         expected_launches=expected, replay_max_rel_err=rel,
+         replay_ok=replay_ok, finite=finite, times_s=times,
+         round_s=times["rounds"] / LORA_ROUNDS,
+         zo_step_s=times["rounds"] / n_round_steps, peak_gb=peaks,
+         resident_gb=resident,
+         max_memory_allocated_gb=max(peaks.values(), default=None))
+    if space.n != 16 * (2 * 2048 * 4 + 4 * 2048 + 4 * 512) and \
+            cfg.n_layers == 16:
+        fail(f"lora: LoRASpace holds {space.n} coordinates")
+    if not loss_bit_equal:
+        fail(f"lora: the fresh LoRA model's loss {float(l_lora)} is not "
+             f"bit-equal to the base model's {float(l_base)}")
+    if not base_kept:
+        fail("lora: a base weight moved in the LoRA-FedZO rounds")
+    if steps != want_steps:
+        fail(f"lora: local steps {steps} != {want_steps}")
+    if (server.comm.up_bytes, server.comm.down_bytes) != (up_want,
+                                                           down_want):
+        fail(f"lora: bytes up/down {server.comm.up_bytes}/"
+             f"{server.comm.down_bytes} != {up_want}/{down_want}")
+    if not finite:
+        fail("non-finite loss, scalar or GradIP in lora")
+    if not replay_ok:
+        fail(f"lora: client delta and server replay differ (max rel {rel})")
+    return counts, expected
+
+
+def run_slice_qwen3(torch, dev, cfg):
+    """MEERKAT on Qwen3-4B at full width, QWEN3_LAYERS layers (qk-norm,
+    head_dim 128, G 4): the slice's mask, pre-training gradient and
+    kernel-vs-dense checks, then QWEN3_ROUNDS rounds with GradIP and no VP
+    calibration (``run_slice``)."""
+    return run_slice(torch, dev, cfg, t_cali=0, rounds=QWEN3_ROUNDS,
+                     label="slice_qwen3", profile="zo_step_qwen3")
+
+
+# ------------------------------------------------------------- options --
+def route_losses(torch, dev, cfg, batch):
+    """The logits and the LM loss of ``batch`` on ``cfg`` (random weights
+    from SEED) on the kernel, online and dense (q-block-chunked) attention
+    routes.  The launch counts are set to 0 once, before the three routes,
+    and read after each.  Returns (losses, each route's max |logit - the
+    kernel route's| over the kernel route's max |logit|, seconds, launches
+    by route, launches of the three); the parameters are freed on
+    return."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ModelCtx
+    params = Model(cfg, device=dev).init(seed=SEED)
+    out, gap, times, by_route = {}, {}, {}, {}
+    ops.reset_launches()
+    before = ops.launches()
+    with torch.no_grad():
+        for route, q_block in (("kernel", 0), ("online", 0),
+                               ("dense", OPTIONS_Q_BLOCK)):
+            model = Model(cfg, ModelCtx(attn_backend=route,
+                                        attn_q_block=q_block), device=dev)
+            t0 = time.perf_counter()
+            logits = model.forward(params, batch)[0]
+            out[route] = float(model.loss(params, batch))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times[route] = time.perf_counter() - t0
+            now = ops.launches()
+            by_route[route] = {k: now[k] - before[k] for k in now}
+            before = now
+            if route == "kernel":
+                want, scale = logits, float(logits.abs().max())
+            gap[route] = float((logits - want).abs().max()) / scale
+            del logits
+    return out, gap, times, by_route, before
+
+
+def run_options(torch, dev, cfgs):
+    """The other new options at full width, ``cfgs`` = (ChatGLM3-6B:
+    partial RoPE, QKV bias, G 16, cut to CHATGLM_LAYERS layers;
+    Phi-3.5-MoE: LayerNorm, 16 experts top-2, cut to PHI_LAYERS): one LM
+    loss of
+    OPTIONS_B x OPTIONS_S on the kernel, online and dense routes, within
+    OPTIONS_ROUTE_REL; then ChatGLM3 behind the serving engine (the
+    flash-decode kernel at G 16) with ``run_serve``'s checks, and every
+    served token against the argmax of the teacher-forced training forward.
+    Returns (launch counts: the kernel-route losses and the engine's run,
+    the counts they imply)."""
+    import numpy as np
+
+    from repro_torch.models import Model
+
+    cfg, phi = cfgs
+    rng = np.random.default_rng(SEED + 3)
+    counts = {name: 0 for name in KERNEL_SOURCES}
+    expected = dict(counts)
+    rows = {}
+    for c in (cfg, phi):
+        batch = {"tokens": rng.integers(0, c.vocab, (OPTIONS_B, OPTIONS_S))
+                 .astype(np.int32)}
+        losses, logit_gap, times, by_route, got = route_losses(
+            torch, dev, c, batch)
+        for name in counts:
+            counts[name] += got[name]
+        # the kernel route's forward and loss, one launch a layer each;
+        # the online and dense routes launch nothing
+        expected["flash_attention"] += 2 * c.n_layers
+        ref_loss = losses["kernel"]
+        gap = {r: abs(v - ref_loss) / abs(ref_loss)
+               for r, v in losses.items()}
+        rows[c.name] = dict(n_layers=c.n_layers, n_params=Model(
+            c, device=dev).n_params, norm=c.norm, rope=c.rope_style,
+            G=c.n_heads // c.n_kv_heads, head_dim=c.resolved_head_dim,
+            losses=losses, rel_to_kernel=gap, logits_rel_to_kernel=logit_gap,
+            launches_by_route=by_route, times_s=times)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"options: non-finite loss on {c.name}: {losses}")
+        if by_route["kernel"]["flash_attention"] != 2 * c.n_layers or any(
+                by_route[r][k] for r in ("online", "dense") for k in got):
+            fail(f"options: {c.name}'s routes launched {by_route}")
+        if max(gap.values()) > OPTIONS_ROUTE_REL:
+            fail(f"options: {c.name}'s attention routes disagree: {losses}")
+        if max(logit_gap.values()) > OPTIONS_LOGIT_REL:
+            fail(f"options: {c.name}'s attention routes' logits disagree: "
+                 f"{logit_gap} > {OPTIONS_LOGIT_REL}")
+    emit("options.routes", B=OPTIONS_B, S=OPTIONS_S,
+         dense_q_block=OPTIONS_Q_BLOCK, bound=OPTIONS_ROUTE_REL,
+         logits_bound=OPTIONS_LOGIT_REL, **rows)
+
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in CHATGLM_PROMPTS]
+    S_max = max(CHATGLM_PROMPTS) + CHATGLM_NEW
+    served = {}
+    got, want = run_serve(torch, dev, cfg, prompts=prompts,
+                          news=[CHATGLM_NEW] * len(prompts), S_max=S_max,
+                          slots=len(prompts), route_reqs=range(len(prompts)),
+                          naive_reqs=(), label="options.serve_chatglm3",
+                          outs_out=served)
+    for name in counts:
+        counts[name] += got[name]
+        expected[name] += want[name]
+
+    # every served token is the argmax of the training forward fed the
+    # prompt and the tokens before it (kernel route, teacher-forced)
+    model, params = served["model"], served["params"]
+    worst = 0.0
+    with torch.no_grad():
+        for p, o in zip(prompts, served["outs"]):
+            toks = np.concatenate([p, o[:-1]]).astype(np.int32)[None]
+            lg = model.forward(params, {"tokens": toks})[0][0, len(p) - 1:]
+            t = torch.as_tensor(o, device=dev).long()
+            top = lg.max(-1).values
+            short = (top - lg.gather(-1, t[:, None])[:, 0]) / \
+                lg.abs().amax(-1)
+            worst = max(worst, float(short.max()))
+    emit("options.teacher_forced", ok=worst <= SERVE_TIE_REL,
+         worst_gap=worst, tie_bound=SERVE_TIE_REL,
+         tokens=[len(o) for o in served["outs"]])
+    if worst > SERVE_TIE_REL:
+        fail(f"options: a served ChatGLM3 token is not the argmax of the "
+             f"teacher-forced forward ({worst} > {SERVE_TIE_REL})")
+    return counts, expected
+
+
 # ------------------------------------------------------------- first order --
 def run_first_order(torch, dev, cfg):
     """The backprop baseline on ``cfg``: Adam steps through
@@ -1936,12 +2482,13 @@ def route_gap(torch, models, params, prompt, toks, S_max):
 
 
 def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
-              naive_reqs, label):
+              naive_reqs, label, outs_out=None):
     """Serving on ``cfg`` through the port's public API: the
     continuous-batching engine over ``prompts`` (greedy), then its checks:
     every token against the request replayed alone, the kernel and ref
     decode routes, and the naive engine.  Returns (launch counts over the
-    engine's run, the counts the run implies)."""
+    engine's run, the counts the run implies); ``outs_out``, a dict, gets
+    the model, its parameters and the engine's tokens."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -2038,6 +2585,8 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
         for p in prompts[:slots]:
             engine.submit(p[:64], max_new_tokens=40)
         profile_step(torch, f"{label}_decode_burst", engine.step)
+    if outs_out is not None:
+        outs_out.update(model=model, params=params, outs=outs)
     return counts, expected
 
 
@@ -2862,7 +3411,8 @@ def main() -> int:
     emit("card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
 
-    from repro_torch.configs import GEMMA2_2B, JAMBA_1_5_LARGE, LLAMA32_1B
+    from repro_torch.configs import (CHATGLM3_6B, GEMMA2_2B, JAMBA_1_5_LARGE,
+                                     LLAMA32_1B, PHI35_MOE, QWEN3_4B)
     from repro_torch.configs.jamba_1_5_large_398b import SLICE_CUT
     from repro_torch.kernels import build, ops, ref
     t0 = time.perf_counter()
@@ -2879,10 +3429,19 @@ def main() -> int:
     n_flat = param_count(LLAMA32_1B)
     n_pad = -(-n_flat // 1024) * 1024
     n_mask = max(1, int(round(n_flat * DENSITY)))
+    # the flat and GradIP sizes of phases lora (the adapters' coordinates)
+    # and slice_qwen3 (its mask)
+    llama_lora = LLAMA32_1B.replace(lora_rank=LORA_RANK)
+    qwen3 = QWEN3_4B.replace(n_layers=QWEN3_LAYERS)
+    n_lora, n_qwen3 = param_count(llama_lora), param_count(qwen3)
+    flat_extra = {"lora": -(-n_lora // 1024) * 1024,
+                  "qwen3": -(-n_qwen3 // 1024) * 1024}
+    gradip_extra = {"lora": n_lora - n_flat,
+                    "qwen3": max(1, int(round(n_qwen3 * DENSITY)))}
     t0 = time.perf_counter()
     rows = {}
-    rows.update(check_elementwise(torch, ops, ref, dev, n_pad))
-    rows.update(check_gradip(torch, ops, ref, dev, n_mask))
+    rows.update(check_elementwise(torch, ops, ref, dev, n_pad, flat_extra))
+    rows.update(check_gradip(torch, ops, ref, dev, n_mask, gradip_extra))
     gemma = GEMMA2_2B.replace(n_layers=GEMMA2_2B.period * 2)
     rows.update(check_flash(torch, ops, ref, dev, LLAMA32_1B, CLIENT_BATCH))
     check_flash_prefill(torch, ops, ref, dev, gemma, GEMMA_PROMPTS)
@@ -2892,6 +3451,10 @@ def main() -> int:
                                    SERVE_SLOTS, SERVE_S_MAX, gemma))
     rows.update(check_mamba_scan(torch, ops, ref, dev))
     rows.update(check_fixture_double(torch, ops, ref, dev))
+    chatglm3 = CHATGLM3_6B.replace(n_layers=CHATGLM_LAYERS)
+    for name, extra in check_new_shapes(torch, ops, ref, dev, qwen3,
+                                        chatglm3).items():
+        rows[name].update(extra)
     torch.cuda.empty_cache()
     emit("kernels", seconds=time.perf_counter() - t0, rows=rows)
 
@@ -2901,6 +3464,11 @@ def main() -> int:
     launches = {name: 0 for name in KERNEL_SOURCES}
     for phase, run, cfg in (("slice", run_slice, LLAMA32_1B),
                             ("fleet", run_fleet, LLAMA32_1B),
+                            ("lora", run_lora, llama_lora),
+                            ("slice_qwen3", run_slice_qwen3, qwen3),
+                            ("options", run_options,
+                             (chatglm3, PHI35_MOE.replace(
+                                 n_layers=PHI_LAYERS))),
                             ("first_order", run_first_order, LLAMA32_1B),
                             ("serve", run_serve_llama, LLAMA32_1B),
                             ("serve_gemma", run_serve_gemma, gemma),

@@ -1,14 +1,27 @@
+"""Config registry (``repro.configs``): the assigned architectures the port
+runs, the paper's models, and the tiny test configs."""
 from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.configs.chatglm3_6b import CONFIG as CHATGLM3_6B
+from repro_torch.configs.gemma2_27b import CONFIG as GEMMA2_27B
 from repro_torch.configs.jamba_1_5_large_398b import CONFIG as JAMBA_1_5_LARGE
+from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as KIMI_K2
 from repro_torch.configs.paper_models import GEMMA2_2B, LLAMA32_1B, QWEN2_1_5B
-from repro_torch.configs.tiny import TINY
+from repro_torch.configs.phi35_moe_42b_a6_6b import CONFIG as PHI35_MOE
+from repro_torch.configs.qwen2_7b import CONFIG as QWEN2_7B
+from repro_torch.configs.qwen3_4b import CONFIG as QWEN3_4B
+from repro_torch.configs.tiny import TINY, TINY_LORA
 
-# the port's architectures by name (the JAX package's ``REGISTRY`` holds
-# more; the port has the paper's models, the hybrid Jamba and the tiny test
-# config)
-REGISTRY = {"tiny": TINY,
-            **{c.name: c for c in (LLAMA32_1B, QWEN2_1_5B, GEMMA2_2B,
-                                   JAMBA_1_5_LARGE)}}
+# the JAX package's ASSIGNED less xlstm-350m, whisper-small and
+# pixtral-12b, which wait for their families (ROADMAP A item 6)
+ASSIGNED = {
+    c.name: c
+    for c in (QWEN3_4B, KIMI_K2, PHI35_MOE, QWEN2_7B, CHATGLM3_6B,
+              JAMBA_1_5_LARGE, GEMMA2_27B)
+}
+
+PAPER_MODELS = {c.name: c for c in (LLAMA32_1B, QWEN2_1_5B, GEMMA2_2B)}
+
+REGISTRY = {"tiny": TINY, **ASSIGNED, **PAPER_MODELS}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -18,3 +31,7 @@ def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
     return REGISTRY[name]
+
+
+def list_archs():
+    return sorted(ASSIGNED)

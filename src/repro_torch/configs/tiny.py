@@ -13,3 +13,5 @@ TINY = ModelConfig(
     tie_embeddings=True,
     source="test",
 )
+
+TINY_LORA = TINY.replace(name="tiny-lora", lora_rank=4)

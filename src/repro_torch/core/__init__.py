@@ -11,7 +11,7 @@ from repro_torch.core.quantize import (IdentityCodec, IntCodec, QuantSpec,
 from repro_torch.core.sampling import ClientSampler
 from repro_torch.core.seeds import round_keys, step_key
 from repro_torch.core.server import Client, CommLog, FederatedZO
-from repro_torch.core.spaces import DenseSpace, MaskedSpace
+from repro_torch.core.spaces import DenseSpace, LoRASpace, MaskedSpace
 from repro_torch.core.virtual_path import (aggregate, reconstruct_delta,
                                            reconstruct_from_wire,
                                            reconstruct_grad_vecs)

@@ -324,6 +324,14 @@ class FederatedZO:
         self.early_stopped = set(flagged)
         return results, flagged, trajs
 
+    def early_stop_random(self, n: int, seed: int = 0):
+        """Random-client-selection baseline (Table 6): early-stop ``n``
+        clients drawn by ``np.random.default_rng(seed)`` without
+        replacement, the JAX package's draw, so the flags are equal."""
+        rng = np.random.default_rng(seed)
+        ids = rng.choice([c.cid for c in self.clients], size=n, replace=False)
+        self.early_stopped = set(int(i) for i in ids)
+
     # -- fault tolerance: snapshot / restore ---------------------------------
     def save_checkpoint(self, path: str) -> str:
         """Atomically snapshot the full server state (params, velocity,

@@ -8,6 +8,8 @@ a flat value vector ``v in R^n`` into the parameter tree:
   per-leaf flat indices (paper Eq. 1: ``z (.) m`` — z is sampled only at the
   masked coordinates, mathematically identical, O(n) memory).
 * :class:`DenseSpace`  — Full-FedZO: all parameters.
+* :class:`LoRASpace`   — LoRA-FedZO: every coordinate of the ``lora_*``
+  adapter leaves, none of the base weights.
 
 z comes from ``core/prng.py`` on the space's device, so a space built from a
 JAX mask draws the same uniform bits as ``repro``'s.
@@ -18,7 +20,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.utils.tree import (tree_flatten, tree_flatten_with_keys,
+                                   tree_leaves, tree_unflatten)
 
 
 class _FlatSpace:
@@ -110,3 +113,45 @@ class DenseSpace(_FlatSpace):
 
     def identity_layout(self) -> bool:
         return True
+
+
+class LoRASpace(_FlatSpace):
+    """Only the ``lora_*`` adapter leaves, dense within them (LoRA-FedZO).
+
+    ``template``'s leaves whose path holds ``lora_`` are the space, in
+    ``tree_leaves`` order; the base weights are never perturbed or
+    updated.  Raises when the template has no adapter (a config with
+    ``lora_rank`` 0)."""
+
+    def __init__(self, template):
+        paths, _ = tree_flatten_with_keys(template)
+        self._is_lora = ["lora_" in path for path, _ in paths]
+        leaves = [leaf for _, leaf in paths]
+        self.device = leaves[0].device
+        self.sizes = [int(l.numel()) if m else 0
+                      for l, m in zip(leaves, self._is_lora)]
+        self.offsets = np.concatenate([[0], np.cumsum(self.sizes)]).astype(int)
+        self.n = int(self.offsets[-1])
+        if self.n == 0:
+            raise ValueError("no lora_* leaves found; set cfg.lora_rank > 0")
+
+    def add(self, params, vec):
+        """params + vec at the adapter coordinates (a new tree; the base
+        leaves are the same tensors)."""
+        p_leaves, treedef = tree_flatten(params)
+        out = [p + vec[self.offsets[i]:self.offsets[i + 1]]
+               .reshape(p.shape).to(p.dtype) if m else p
+               for i, (p, m) in enumerate(zip(p_leaves, self._is_lora))]
+        return tree_unflatten(treedef, out)
+
+    def slice(self, tree):
+        return torch.cat([l.reshape(-1).float() for l, m in
+                          zip(tree_leaves(tree), self._is_lora) if m])
+
+    def leaf_index_arrays(self, template):
+        return [torch.arange(l.numel(), device=self.device) if m
+                else torch.zeros(0, dtype=torch.int64, device=self.device)
+                for l, m in zip(tree_leaves(template), self._is_lora)]
+
+    def identity_layout(self) -> bool:
+        return all(self._is_lora)

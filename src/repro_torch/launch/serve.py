@@ -31,7 +31,7 @@ def main(argv=None):
                     choices=["auto", "kernel", "ref"],
                     help="decode-attention route (continuous engine)")
     ap.add_argument("--attn-backend", default="auto",
-                    choices=["auto", "kernel", "dense"],
+                    choices=["auto", "kernel", "online", "dense"],
                     help="prefill forward-attention route")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--max-new", type=int, default=12)

@@ -6,11 +6,11 @@ family with Dirichlet Non-IID clients: Algorithm 2 end to end (mask
 calibration from the C4-proxy corpus, per-round seed ladders, client local
 ZO steps, server virtual-path reconstruction and aggregation), optional
 MEERKAT-VP calibration and early stopping, fault injection, fleet sampling
-with a quantized uplink, and checkpoint/resume.  Runs on the CUDA card
-unless ``--device`` says otherwise.
+with a quantized uplink, and checkpoint/resume.  ``--method lora`` is
+LoRA-FedZO: ZO over the q/v adapters only (``LoRASpace``; rank 4 unless the
+config sets one).  Runs on the CUDA card unless ``--device`` says otherwise.
 
-Not ported yet: ``--method lora`` (ROADMAP A item 2: ``LoRASpace`` and the
-LoRA layers) and ``--mesh`` (ROADMAP A12); both raise.
+Not ported yet: ``--mesh`` (ROADMAP A12); it raises.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 4
@@ -32,9 +32,9 @@ import numpy as np
 from repro_torch.checkpoint.state import FINAL_NAME, LATEST_NAME
 from repro_torch.configs import TINY, get_config
 from repro_torch.configs.base import FLConfig
-from repro_torch.core import (Client, DenseSpace, FederatedZO, magnitude_mask,
-                              pretrain_gradient_vec, random_mask,
-                              sensitivity_mask)
+from repro_torch.core import (Client, DenseSpace, FederatedZO, LoRASpace,
+                              magnitude_mask, pretrain_gradient_vec,
+                              random_mask, sensitivity_mask)
 from repro_torch.data import (TaskSpec, dirichlet_partition, iid_partition,
                               make_task_fns, pretrain_batches, sample_dataset,
                               single_label_partition, subset)
@@ -51,6 +51,8 @@ def build_space(method, loss_fn, params, pre, density, seed, device):
         return random_mask(params, density, seed=seed, balanced=False)
     if method == "full":
         return DenseSpace(params)
+    if method == "lora":
+        return LoRASpace(params)
     raise ValueError(method)
 
 
@@ -75,7 +77,7 @@ def main(argv=None):
                     choices=["auto", "kernel", "ref"],
                     help="ZO perturb/update route (core/dispatch.py)")
     ap.add_argument("--attn-backend", default="auto",
-                    choices=["auto", "kernel", "dense"],
+                    choices=["auto", "kernel", "online", "dense"],
                     help="forward-attention route for the ZO loss forwards")
     ap.add_argument("--mesh", default=None,
                     help="sharded rounds on a device mesh: not ported yet "
@@ -120,16 +122,14 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     a = ap.parse_args(argv)
-    if a.method == "lora":
-        raise NotImplementedError(
-            "--method lora needs LoRASpace and the LoRA layers, not ported "
-            "yet (ROADMAP A item 2)")
     if a.mesh:
         raise NotImplementedError(
             "--mesh needs the sharded round (FLShardPlan), not ported yet "
             "(ROADMAP A12)")
 
     cfg = TINY if a.arch == "tiny" else get_config(a.arch).reduced()
+    if a.method == "lora" and cfg.lora_rank == 0:
+        cfg = cfg.replace(lora_rank=4)
     spec = TaskSpec(vocab=min(cfg.vocab, 512), seq_len=16)
     model = Model(cfg, ctx=ModelCtx(attn_backend=a.attn_backend),
                   device=a.device)

@@ -38,7 +38,7 @@ def _window(cfg: ModelConfig, mixer: str, S_max: int) -> int:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.encoder is not None or cfg.rope_style != "full" or any(
+    if cfg.encoder is not None or cfg.rope_style == "none" or any(
             m not in ("attn", "local_attn") or f != "dense"
             for m, f in cfg.layer_pattern):
         raise NotImplementedError(
@@ -87,14 +87,14 @@ def decode_step(params, token, cache, cfg: ModelConfig,
         pp = tree_map(lambda a: a[period], params["stack"])
         for i, (mixer, _) in enumerate(cfg.layer_pattern):
             lp, cc = pp[f"p{i}"], cache["stack"][f"p{i}"]
-            h = L.rmsnorm(x, lp["norm"]["scale"], cfg.norm_eps)
+            h = L.apply_norm(x, lp["norm"], cfg.norm, cfg.norm_eps)
             y, _, _ = L.decode_self_attention(
                 h, lp, cfg, cc["k"][period], cc["v"][period], cur,
                 local=mixer == "local_attn", ctx=ctx, active=act)
             if cfg.post_norms and "post_norm" in lp:
-                y = L.rmsnorm(y, lp["post_norm"]["scale"], cfg.norm_eps)
+                y = L.apply_norm(y, lp["post_norm"], cfg.norm, cfg.norm_eps)
             x, _ = _ffn_fwd(x + y, lp, "dense", cfg)
-    x = L.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = unembed(x, params, cfg)[:, 0]
     cache["pos"] = cur + (1 if act is None else act.to(torch.int32))
     return logits, cache
@@ -158,10 +158,9 @@ def prefill(params, batch, cfg: ModelConfig, ctx: ModelCtx = DEFAULT_CTX,
         pp = tree_map(lambda a: a[period], params["stack"])
         for i, (mixer, _) in enumerate(cfg.layer_pattern):
             lp, cc = pp[f"p{i}"], cache["stack"][f"p{i}"]
-            h = L.rmsnorm(x, lp["norm"]["scale"], cfg.norm_eps)
+            h = L.apply_norm(x, lp["norm"], cfg.norm, cfg.norm_eps)
             q, k, v = L._project_qkv(h, lp, cfg)
-            q = L.apply_rope(q, positions, cfg.rope_theta)
-            k = L.apply_rope(k, positions, cfg.rope_theta)
+            q, k = L.rope(q, k, positions, cfg)
             local = mixer == "local_attn"
             y = L.forward_attention(
                 q, k, v, cfg, ctx, window=cfg.sliding_window if local else 0,
@@ -171,11 +170,11 @@ def prefill(params, batch, cfg: ModelConfig, ctx: ModelCtx = DEFAULT_CTX,
             _fill_attn_cache(cc["k"][period], cc["v"][period], k, v,
                              None if kv_mask is None else lengths_total)
             if cfg.post_norms and "post_norm" in lp:
-                y = L.rmsnorm(y, lp["post_norm"]["scale"], cfg.norm_eps)
+                y = L.apply_norm(y, lp["post_norm"], cfg.norm, cfg.norm_eps)
             x, _ = _ffn_fwd(x + y, lp, "dense", cfg)
     # the final norm is per position: take it at the last real tokens only
     last = x[torch.arange(B, device=dev), lengths_total.long() - 1][:, None]
-    last = L.rmsnorm(last, params["final_norm"]["scale"], cfg.norm_eps)
+    last = L.apply_norm(last, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = unembed(last, params, cfg)[:, 0]
     cache["pos"] = lengths_total
     return logits, cache

@@ -47,8 +47,13 @@ class _Init:
                           device=self.device)
 
 
-def _norm_p(ini, d, n=None):
-    return {"scale": ini.full((n, d) if n else (d,), 0.0)}  # RMSNorm 1+s
+def _norm_p(ini, cfg, d, n=None):
+    """RMSNorm: scale 0 (it multiplies by 1 + scale); LayerNorm: scale 1
+    and bias 0."""
+    shape = (n, d) if n else (d,)
+    if cfg.norm == "rmsnorm":
+        return {"scale": ini.full(shape, 0.0)}
+    return {"scale": ini.full(shape, 1.0), "bias": ini.full(shape, 0.0)}
 
 
 def _attn_params(ini, cfg: ModelConfig, n: int):
@@ -57,7 +62,7 @@ def _attn_params(ini, cfg: ModelConfig, n: int):
     H, KV = cfg.n_heads, cfg.n_kv_heads
     out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
     p = {
-        "norm": _norm_p(ini, D, n),
+        "norm": _norm_p(ini, cfg, D, n),
         "wq": ini.dense((D, H * hd), n=n),
         "wk": ini.dense((D, KV * hd), n=n),
         "wv": ini.dense((D, KV * hd), n=n),
@@ -67,8 +72,19 @@ def _attn_params(ini, cfg: ModelConfig, n: int):
         p["bq"] = ini.full((n, H * hd), 0.0)
         p["bk"] = ini.full((n, KV * hd), 0.0)
         p["bv"] = ini.full((n, KV * hd), 0.0)
+    if cfg.qk_norm:
+        p["q_norm"] = ini.full((n, hd), 0.0)
+        p["k_norm"] = ini.full((n, hd), 0.0)
     if cfg.post_norms:
-        p["post_norm"] = _norm_p(ini, D, n)
+        p["post_norm"] = _norm_p(ini, cfg, D, n)
+    if cfg.lora_rank:
+        # drawn after wo, in the JAX package's order; the B factors are
+        # zero, so a fresh adapter leaves the model's function unchanged
+        r = cfg.lora_rank
+        p["lora_qa"] = ini.dense((D, r), n=n)
+        p["lora_qb"] = ini.full((n, r, H * hd), 0.0)
+        p["lora_va"] = ini.dense((D, r), n=n)
+        p["lora_vb"] = ini.full((n, r, KV * hd), 0.0)
     return p
 
 
@@ -76,13 +92,14 @@ def _mlp_params(ini, cfg: ModelConfig, n: int):
     D, F = cfg.d_model, cfg.d_ff
     out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
     p = {
-        "norm2": _norm_p(ini, D, n),
+        "norm2": _norm_p(ini, cfg, D, n),
         "w1": ini.dense((D, F), n=n),
         "w2": ini.dense((F, D), std=out_std, n=n),
-        "w3": ini.dense((D, F), n=n),
     }
+    if cfg.act != "gelu_plain":  # the plain MLP is not gated
+        p["w3"] = ini.dense((D, F), n=n)
     if cfg.post_norms:
-        p["post_norm2"] = _norm_p(ini, D, n)
+        p["post_norm2"] = _norm_p(ini, cfg, D, n)
     return p
 
 
@@ -91,7 +108,7 @@ def _moe_params(ini, cfg: ModelConfig, n: int):
     D, F, E = cfg.d_model, m.d_ff_expert, m.n_experts
     out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
     p = {
-        "norm2": _norm_p(ini, D, n),
+        "norm2": _norm_p(ini, cfg, D, n),
         "router": ini.dense((D, E), n=n),
         "w1": ini.dense((E, D, F), n=n),
         "w3": ini.dense((E, D, F), n=n),
@@ -116,7 +133,7 @@ def _mamba_params(ini, cfg: ModelConfig, n: int):
     A = torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(E, N)
     dt_bias = torch.log(torch.expm1(torch.full((E,), 0.01, device=dev)))
     return {
-        "norm": _norm_p(ini, D, n),
+        "norm": _norm_p(ini, cfg, D, n),
         "in_proj": ini.dense((D, 2 * E), n=n),
         "conv_w": ini.dense((s.d_conv, E), std=0.2, n=n),
         "conv_b": ini.full((n, E), 0.0),
@@ -131,19 +148,21 @@ def _mamba_params(ini, cfg: ModelConfig, n: int):
 
 def check_family(cfg: ModelConfig) -> None:
     """The port covers decoder-only stacks of attention and Mamba mixers
-    with gated dense or MoE FFNs, RMSNorm, and full RoPE or none (the
-    paper's models and the Jamba hybrid); the other families and options of
-    ``repro`` (mLSTM/sLSTM mixers, encoders, frontends, partial RoPE,
-    LayerNorm, qk-norm, LoRA) raise until they are ported."""
+    with dense (gated, or plain gelu) or MoE FFNs, RMSNorm or LayerNorm,
+    full, partial or no RoPE, qk-norm and LoRA adapters (the paper's
+    models, the dense and MoE configs and the Jamba hybrid); the other
+    families of ``repro`` (mLSTM/sLSTM mixers, encoders, frontends) raise
+    until they are ported (ROADMAP A item 6)."""
     bad = [(m, f) for m, f in cfg.layer_pattern
            if m not in _MIXERS or f not in _FFNS]
     if (bad or cfg.encoder is not None or cfg.frontend != "none"
-            or cfg.norm != "rmsnorm" or cfg.rope_style not in ("full", "none")
-            or cfg.act not in ("silu", "gelu") or cfg.qk_norm
-            or cfg.lora_rank):
+            or cfg.norm not in ("rmsnorm", "layernorm")
+            or cfg.rope_style not in ("full", "partial", "none")
+            or cfg.act not in ("silu", "gelu", "gelu_plain")):
         raise NotImplementedError(
             f"{cfg.name}: the port covers attention and Mamba mixers with "
-            f"gated dense or MoE FFNs, RMSNorm, and full RoPE or none only")
+            f"dense or MoE FFNs only; the mLSTM/sLSTM mixers, encoders and "
+            f"frontends come with their families")
 
 
 def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
@@ -162,7 +181,7 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
                   else _mlp_params(ini, cfg, n))
         stack[f"p{i}"] = lp
     params["stack"] = stack
-    params["final_norm"] = _norm_p(ini, cfg.d_model)
+    params["final_norm"] = _norm_p(ini, cfg, cfg.d_model)
     if not cfg.tie_embeddings:
         params["lm_head"] = ini.dense((cfg.d_model, cfg.vocab))
     return params

@@ -1,18 +1,23 @@
 """Transformer layers of the dense decoder and hybrid families, in torch
-(``repro.models.layers``): RMSNorm, RoPE (or no positional encoding, as in
-Jamba), GQA attention with QKV bias, softcap and sliding window, gated
-MLPs.
+(``repro.models.layers``): RMSNorm and LayerNorm, full or partial RoPE (or
+no positional encoding, as in Jamba), GQA attention with QKV bias, qk-norm,
+LoRA adapters on q and v, softcap and sliding window, gated and plain MLPs.
 
 Parameters are plain dicts of tensors (``models/init.py``).  Forward
 attention runs through one dispatch point, :func:`forward_attention`, which
-selects between two routes of the same function per ``ctx.attn_backend``
+selects between three routes of the same function per ``ctx.attn_backend``
 (see :func:`resolve_attn_backend`):
 
 * ``"kernel"`` — the flash-attention kernels (``kernels.ops.flash_attention``:
   the forward of ``kernels/csrc/flash_attn.cu`` and, under autograd, the
   recompute backward of ``kernels/csrc/flash_attn_bwd.cu``): GQA-grouped,
   no [S, S] scores in either direction;
-* ``"dense"``  — materialized scores, differentiated by autograd.
+* ``"online"`` — online softmax over key blocks in plain torch
+  (:func:`online_gqa_attention`), differentiated by autograd, no [S, S]
+  scores either: the route of head layouts the kernels do not take;
+* ``"dense"``  — materialized scores (chunked per query block when
+  ``ctx.attn_q_block`` is set, :func:`blocked_gqa_attention`),
+  differentiated by autograd.
 
 One-token decode runs through :func:`decode_self_attention`, on the route
 ``ctx.decode_backend`` resolves to (:func:`resolve_decode_backend`): the
@@ -20,6 +25,8 @@ flash-decode kernel (``kernels.ops.flash_decode``) or its plain version
 (``kernels.ref.decode_attention_ref``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +47,24 @@ def rmsnorm(x, scale, eps=1e-6):
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def layernorm(x, scale, bias, eps=1e-5):
+    """LayerNorm: (x - mean) / std * scale + bias (scale initialised at 1,
+    unlike RMSNorm's 1 + scale)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(x, p, kind: str, eps: float):
+    """The norm ``kind`` ("rmsnorm" | "layernorm") with its parameters
+    ``p`` (``{"scale"}`` or ``{"scale", "bias"}``)."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["scale"], eps)
+    return layernorm(x, p["scale"], p["bias"], eps)
+
+
 def softcap(x, cap: float):
     if not cap:
         return x
@@ -52,29 +77,62 @@ def rope_freqs(head_dim: int, theta: float, device=None):
                                          device=device) / head_dim))
 
 
-def apply_rope(x, positions, theta: float):
-    """x: [..., S, n_heads, head_dim]; positions: [..., S] integer."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions[..., None].float() * freqs      # [..., S, hd/2]
+def apply_rope(x, positions, theta: float, partial: float = 1.0):
+    """x: [..., S, n_heads, head_dim]; positions: [..., S] integer.
+
+    ``partial`` < 1 rotates only the first ``partial * head_dim`` dims,
+    rounded down to even (ChatGLM's "2d" RoPE), with the frequencies taken
+    over those dims; the rest pass through unchanged."""
+    hd = x.shape[-1]
+    rot = int(hd * partial)
+    rot -= rot % 2
+    xr, xp = x[..., :rot], x[..., rot:]
+    freqs = rope_freqs(rot, theta, x.device)
+    ang = positions[..., None].float() * freqs      # [..., S, rot/2]
     cos = torch.cos(ang)[..., None, :]               # broadcast over heads
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = xr.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    if rot == hd:
+        return out.to(x.dtype)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+def rope(q, k, positions, cfg):
+    """q and k rotated as ``cfg.rope_style`` says ("full", "partial" by
+    ``cfg.rope_partial_factor``, or "none": Jamba's attention has no
+    positions)."""
+    if cfg.rope_style == "none":
+        return q, k
+    partial = cfg.rope_partial_factor if cfg.rope_style == "partial" else 1.0
+    return (apply_rope(q, positions, cfg.rope_theta, partial),
+            apply_rope(k, positions, cfg.rope_theta, partial))
 
 
 # ------------------------------------------------------------ attention ----
 def _project_qkv(x, p, cfg):
-    """Return q [B,S,H,hd], k,v [B,S,KV,hd]."""
+    """Return q [B,S,H,hd], k,v [B,S,KV,hd]: the projections, the LoRA
+    adapters on q and v where the layer has them (``s * ((x qa) qb)``, s =
+    lora_alpha / lora_rank, in the JAX package's association), the QKV
+    bias, then qk-norm (an RMSNorm over head_dim) before RoPE."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+    q = x @ p["wq"]
     k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = x @ p["wv"]
+    if "lora_qa" in p:
+        s = cfg.lora_alpha / cfg.lora_rank
+        q = q + s * ((x @ p["lora_qa"]) @ p["lora_qb"])
+        v = v + s * ((x @ p["lora_va"]) @ p["lora_vb"])
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(cfg.n_heads, hd)
         k = k + p["bk"].reshape(cfg.n_kv_heads, hd)
         v = v + p["bv"].reshape(cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
@@ -97,23 +155,132 @@ def gqa_attention(q, k, v, mask, cfg):
     return out.reshape(B, Sq, H, hd).to(v.dtype)
 
 
-def causal_mask(S: int, window: int = 0, device=None):
-    """[1, S, S] causal (optionally banded) mask."""
-    qi = torch.arange(S, device=device)[:, None]
-    ki = torch.arange(S, device=device)[None, :]
+def causal_mask(S: int, window: int = 0, device=None, *, Sk: int = 0,
+                offset: int = 0):
+    """[1, S, Sk] causal (optionally banded) mask of S queries over Sk keys
+    (default S); ``offset`` is the absolute position of query 0."""
+    qi = torch.arange(S, device=device)[:, None] + offset
+    ki = torch.arange(Sk or S, device=device)[None, :]
     m = ki <= qi
     if window:
         m = m & (ki > qi - window)
     return m[None]
 
 
+def blocked_gqa_attention(q, k, v, cfg, *, window: int, q_block: int,
+                          kv_mask=None):
+    """Query-block-chunked causal attention: scores are materialized per
+    block [B, H, q_block, S] instead of [B, H, S, S]; one full block when
+    ``q_block`` does not divide S or is not smaller than it.
+
+    ``kv_mask``: [B, 1, S] bool key validity, ANDed into the causal mask."""
+    B, S, H, hd = q.shape
+    if not q_block or S % q_block or S <= q_block:
+        mask = causal_mask(S, window, device=q.device)
+        if kv_mask is not None:
+            mask = mask & kv_mask
+        return gqa_attention(q, k, v, mask, cfg)
+    outs = []
+    for off in range(0, S, q_block):
+        mask = causal_mask(q_block, window, device=q.device, Sk=S,
+                           offset=off)
+        if kv_mask is not None:
+            mask = mask & kv_mask
+        outs.append(gqa_attention(q[:, off:off + q_block], k, v, mask, cfg))
+    return torch.cat(outs, dim=1)
+
+
+def online_gqa_attention(q, k, v, cfg, *, window: int = 0,
+                         q_block: int = 512, kv_block: int = 512,
+                         lengths=None, kv_mask=None):
+    """Flash-style causal attention in plain torch: online softmax over key
+    blocks, grouped query (no KV repeat), never an [S, S] score tensor (a
+    [q_block, kv_block] tile per step), differentiated by autograd.
+
+    q: [B,S,H,hd]; k,v: [B,S,KV,hd] -> [B,S,H,hd], the function of
+    :func:`gqa_attention` under a causal (optionally banded) mask.  S need
+    not be a block multiple: inputs are zero-padded to a multiple of
+    lcm(q_block, kv_block), the padded keys masked and the padded query
+    rows trimmed.  ``lengths`` ([B]) and/or ``kv_mask`` ([B, S] bool) mask
+    right-padded keys.  p is masked explicitly (on a row masked so far,
+    exp(s - m) would be 1, not 0) and l floored at 1e-30, as in the JAX
+    package.  Key blocks wholly in a query block's future, or wholly
+    before its window, are skipped: on them p is 0 and the carry's
+    rescale is exp(0) = 1, so skipping them changes no bit."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    q_block = max(1, min(q_block, S))
+    kv_block = max(1, min(kv_block, S))
+    per = q_block * kv_block // math.gcd(q_block, kv_block)
+    pad = (-S) % per
+    dev = q.device
+    kvv = None if kv_mask is None else kv_mask.to(torch.bool)
+    if lengths is not None:
+        L = torch.as_tensor(lengths, device=dev).reshape(-1).expand(B)
+        lm = torch.arange(S, device=dev)[None, :] < L[:, None]
+        kvv = lm if kvv is None else kvv & lm
+    if pad:
+        q, k, v = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
+        if kvv is None:
+            kvv = (torch.arange(S + pad, device=dev) < S)[None].expand(
+                B, S + pad)
+        else:
+            kvv = F.pad(kvv, (0, pad))
+    Sp = S + pad
+    qg = q.reshape(B, Sp, KV, G, hd).float()
+    kf = k.float()
+    ki_base = torch.arange(kv_block, device=dev)[None, :]
+    qi_base = torch.arange(q_block, device=dev)[:, None]
+    outs = []
+    for q0 in range(0, Sp, q_block):
+        qb = qg[:, q0:q0 + q_block]
+        m = torch.full((B, KV, G, q_block), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, G, q_block), device=dev)
+        acc = torch.zeros((B, KV, G, q_block, hd), device=dev)
+        for k0 in range(0, Sp, kv_block):
+            if k0 > q0 + q_block - 1:
+                break                              # wholly in the future
+            if window and k0 + kv_block - 1 <= q0 - window:
+                continue                           # wholly before the band
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb,
+                             kf[:, k0:k0 + kv_block]) * scale
+            s = softcap(s, cfg.attn_softcap)
+            kpos, qpos = k0 + ki_base, q0 + qi_base
+            valid = kpos <= qpos
+            if window:
+                valid = valid & (kpos > qpos - window)
+            valid = valid[None, None, None]
+            if kvv is not None:
+                valid = valid & kvv[:, None, None, None, k0:k0 + kv_block]
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            vb = v[:, k0:k0 + kv_block]
+            # p rounded to v's dtype, then an f32 product, as JAX's
+            # preferred_element_type=f32 einsum
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(vb.dtype).float(), vb.float())
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    # [B, KV, G, q_block, hd] per block -> [B, Sp, H, hd]
+    out = torch.stack(outs, 1).permute(0, 1, 4, 2, 3, 5).reshape(B, Sp, H, hd)
+    return out[:, :S].to(v.dtype)
+
+
 # ---------------------------------------- forward-attention dispatch ----
-ATTN_BACKENDS = ("auto", "kernel", "dense")
+ATTN_BACKENDS = ("auto", "kernel", "online", "dense")
 
 # below this the [S, S] score tile is small and the dense route's single
-# fused matmul serves; at and above it the kernel avoids the O(S^2)
-# materialization that dominates forward memory (repro's threshold)
+# fused matmul serves; at and above it the blockwise routes avoid the
+# O(S^2) materialization that dominates forward memory (repro's threshold)
 ATTN_AUTO_MIN_S = 256
+
+# the online route's key block (the JAX package's ``ShardCtx.kv_block``)
+ONLINE_KV_BLOCK = 512
 
 
 def kernel_supports(cfg, differentiable: bool = False) -> bool:
@@ -129,29 +296,33 @@ def kernel_supports(cfg, differentiable: bool = False) -> bool:
 
 def resolve_attn_backend(backend, cfg, *, S: int = 0,
                          differentiable: bool = False) -> str:
-    """Map a requested forward-attention backend to 'kernel' | 'dense'.
+    """Map a requested forward-attention backend to 'kernel' | 'online' |
+    'dense'.
 
     Explicit backends are honoured.  "auto" resolves to "dense" below
-    ``ATTN_AUTO_MIN_S`` or for a head layout the kernels do not take, and
-    to "kernel" otherwise, whether or not autograd records
-    (``differentiable``): the kernel route differentiates through the
-    recompute backward kernels, whose saved state is O(S*dh).  Both the
-    forward and the backward kernels take head_dim 64, 128 and 256, so
-    Gemma-2 (head_dim 256) takes the kernel under autograd too.
+    ``ATTN_AUTO_MIN_S``; at and above it to "kernel" where the kernels take
+    the head layout, whether or not autograd records (``differentiable``:
+    the kernel route differentiates through the recompute backward
+    kernels, whose saved state is O(S*dh)), and to "online" where they do
+    not (TINY's head_dim 16, or G past the backward's tile under
+    autograd).  Both the forward and the backward kernels take head_dim
+    64, 128 and 256, so Gemma-2 (head_dim 256) takes the kernel under
+    autograd too.
 
-    This is the port's own rule.  Under grad, the JAX package on a compiled
-    TPU sends head dims off its 128-lane tile (Llama-3.2-1B's 64) to its
-    ``online`` jnp route, which the port does not have; the port's kernels
-    take head_dim 64 and 128 alike, so it takes the kernel there too."""
+    This is the port's own rule.  The JAX package's "auto" consults its
+    autotune table and, off the TPU or for head dims off its 128-lane tile
+    (Llama-3.2-1B's 64), takes its ``online`` route; the port's kernels
+    take head_dim 64 and 128 alike, so it takes the kernel there, and
+    ``online`` only for the layouts the kernels do not take."""
     backend = backend or "auto"
     if backend not in ATTN_BACKENDS:
         raise ValueError(
             f"attn backend must be one of {ATTN_BACKENDS}, got {backend!r}")
     if backend != "auto":
         return backend
-    if S < ATTN_AUTO_MIN_S or not kernel_supports(cfg, differentiable):
+    if S < ATTN_AUTO_MIN_S:
         return "dense"
-    return "kernel"
+    return "kernel" if kernel_supports(cfg, differentiable) else "online"
 
 
 def forward_attention(q, k, v, cfg, ctx=None, *, window: int = 0,
@@ -163,8 +334,14 @@ def forward_attention(q, k, v, cfg, ctx=None, *, window: int = 0,
     Right-padded batches (prefill) give key validity as per-row ``lengths``
     [B] and/or ``kv_mask`` [B, 1, S], a valid prefix per row: the kernel
     route passes the lengths (or the mask's row sums) to the kernel, the
-    dense route ANDs the key mask into the causal one."""
+    online and dense routes mask the keys.  ``ctx.attn_q_block`` tiles
+    the online route's queries (default min(128, S)) and chunks the dense
+    route's scores where it divides S and is smaller
+    (:func:`blocked_gqa_attention`); the kernel route ignores it, as the
+    JAX package's Pallas route does.  The online route's key block is
+    ``ONLINE_KV_BLOCK``."""
     B, S = q.shape[:2]
+    q_block = getattr(ctx, "attn_q_block", 0)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     be = resolve_attn_backend(getattr(ctx, "attn_backend", None), cfg, S=S,
                               differentiable=grad)
@@ -176,23 +353,29 @@ def forward_attention(q, k, v, cfg, ctx=None, *, window: int = 0,
         out = flash_attention(q, k, v, L, window=window,
                               softcap=cfg.attn_softcap)
         return out.to(v.dtype)
-    mask = causal_mask(S, window, device=q.device)
+    if be == "online":
+        # a q tile of 128 keeps every score tile smaller than [S, S] at any
+        # S the auto rule routes here (>= ATTN_AUTO_MIN_S)
+        return online_gqa_attention(
+            q, k, v, cfg, window=window, q_block=q_block or min(128, S),
+            kv_block=min(ONLINE_KV_BLOCK, S), lengths=lengths,
+            kv_mask=None if kv_mask is None else kv_mask.reshape(B, S))
     if kv_mask is None and lengths is not None:
         L = torch.as_tensor(lengths, device=q.device).reshape(-1).expand(B)
         kv_mask = (torch.arange(S, device=q.device)[None, :]
                    < L[:, None])[:, None, :]
-    if kv_mask is not None:
-        mask = mask & kv_mask.reshape(B, 1, S)
-    return gqa_attention(q, k, v, mask, cfg)
+    return blocked_gqa_attention(
+        q, k, v, cfg, window=window, q_block=q_block,
+        kv_mask=None if kv_mask is None else kv_mask.reshape(B, 1, S))
 
 
 def self_attention(x, p, cfg, positions, *, local: bool, ctx=None):
-    """Full training/prefill self-attention. x: [B,S,D] -> [B,S,D]."""
+    """Full training/prefill self-attention. x: [B,S,D] -> [B,S,D].  With
+    ``ctx.attn_q_block`` set it is also the JAX package's
+    ``self_attention_chunked`` (see :func:`forward_attention`)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
-    if cfg.rope_style != "none":  # Jamba's attention has no positions
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = rope(q, k, positions, cfg)
     window = cfg.sliding_window if local else 0
     out = forward_attention(q, k, v, cfg, ctx, window=window)
     return out.reshape(B, S, -1) @ p["wo"]
@@ -245,8 +428,7 @@ def decode_self_attention(x1, p, cfg, cache_k, cache_v, cur_pos, *,
     W = cache_k.shape[1]
     q, k, v = _project_qkv(x1, p, cfg)  # [B,1,H,hd], [B,1,KV,hd]
     pos = torch.as_tensor(cur_pos, device=x1.device).reshape(-1).expand(B)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    q, k = rope(q, k, pos[:, None], cfg)
     rolling = bool(local and cfg.sliding_window)
     slot = torch.remainder(pos, W) if rolling else torch.clamp(pos, max=W - 1)
     rows = torch.arange(B, device=x1.device)
@@ -276,7 +458,11 @@ def decode_self_attention(x1, p, cfg, cache_k, cache_v, cur_pos, *,
 
 # ------------------------------------------------------------------ MLP ----
 def mlp(x, p, cfg):
-    """Gated MLP: act(x W1) * (x W3) W2, act = silu or tanh-gelu."""
+    """Gated MLP act(x W1) * (x W3) W2, act = silu or tanh-gelu; or, with
+    ``act="gelu_plain"``, the non-gated gelu(x W1) W2 (tanh-gelu, as
+    ``jax.nn.gelu``'s default), which has no W3."""
+    if cfg.act == "gelu_plain":
+        return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
     h = F.silu(x @ p["w1"]) if cfg.act == "silu" \
         else F.gelu(x @ p["w1"], approximate="tanh")
     return (h * (x @ p["w3"])) @ p["w2"]

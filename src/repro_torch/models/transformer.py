@@ -20,7 +20,12 @@ class ModelCtx:
     """How model code routes its attention: the counterpart of repro's
     ``ShardCtx`` without the mesh fields (the port runs on one device).
 
-    ``attn_backend``: auto | kernel | dense (``layers.resolve_attn_backend``);
+    ``attn_backend``: auto | kernel | online | dense
+    (``layers.resolve_attn_backend``);
+    ``attn_q_block``: 0 (whole-sequence attention), or the query block that
+    tiles the online route and chunks the dense route's scores where it
+    divides S and is smaller than S (``ShardCtx.attn_q_block``;
+    ``layers.forward_attention``);
     ``decode_backend``: auto | kernel | ref, the one-token decode route
     (``layers.resolve_decode_backend``; ``ShardCtx.decode_backend``);
     ``mamba_mode``: auto | kernel | scan, the selective-scan route of the
@@ -31,6 +36,7 @@ class ModelCtx:
     attn_backend: str = "auto"
     decode_backend: str = "auto"
     mamba_mode: str = "auto"
+    attn_q_block: int = 0
 
 
 DEFAULT_CTX = ModelCtx()
@@ -50,28 +56,28 @@ def unembed(x, params, cfg: ModelConfig):
 
 
 def _mixer_fwd(x, lp, mixer, cfg, ctx, positions):
-    h = L.rmsnorm(x, lp["norm"]["scale"], cfg.norm_eps)
+    h = L.apply_norm(x, lp["norm"], cfg.norm, cfg.norm_eps)
     if mixer == "mamba":
         y = SSM.mamba_forward(h, lp, cfg.ssm, mode=ctx.mamba_mode)
     else:
         y = L.self_attention(h, lp, cfg, positions,
                              local=mixer == "local_attn", ctx=ctx)
     if cfg.post_norms and "post_norm" in lp:
-        y = L.rmsnorm(y, lp["post_norm"]["scale"], cfg.norm_eps)
+        y = L.apply_norm(y, lp["post_norm"], cfg.norm, cfg.norm_eps)
     return x + y
 
 
 def _ffn_fwd(x, lp, ffn, cfg):
     """(x + FFN(x), the MoE layer's load-balance loss, or None for a dense
     FFN)."""
-    h = L.rmsnorm(x, lp["norm2"]["scale"], cfg.norm_eps)
+    h = L.apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
     aux = None
     if ffn == "moe":
         y, aux = MOE.moe_dense_ref(h, lp, cfg.moe, cfg.act)
     else:
         y = L.mlp(h, lp, cfg)
     if cfg.post_norms and "post_norm2" in lp:
-        y = L.rmsnorm(y, lp["post_norm2"]["scale"], cfg.norm_eps)
+        y = L.apply_norm(y, lp["post_norm2"], cfg.norm, cfg.norm_eps)
     return x + y, aux
 
 
@@ -90,7 +96,7 @@ def forward(params, batch, cfg: ModelConfig, ctx: ModelCtx = DEFAULT_CTX):
             x, a = _ffn_fwd(x, pp[f"p{i}"], ffn, cfg)
             if a is not None:
                 aux = aux + a
-    x = L.rmsnorm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return unembed(x, params, cfg), aux
 
 

@@ -145,9 +145,9 @@ class ContinuousBatchingEngine:
 
     ``decode_backend`` selects the decode-attention route ("kernel" | "ref"
     | "auto", ``models/layers.resolve_decode_backend``); ``attn_backend``
-    the prefill forward-attention route ("kernel" | "dense" | "auto",
-    ``models/layers.resolve_attn_backend``).  The engine runs on the
-    model's device and never moves ``params``.
+    the prefill forward-attention route ("kernel" | "online" | "dense" |
+    "auto", ``models/layers.resolve_attn_backend``).  The engine runs on
+    the model's device and never moves ``params``.
     """
 
     BURSTS = (32, 24, 16, 12, 8, 6, 4, 3, 2, 1)  # decode burst lengths

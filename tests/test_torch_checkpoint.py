@@ -447,7 +447,5 @@ def test_train_cli_kill_and_resume_bitexact(tmp_path):
 
 def test_train_cli_refuses_unported_options():
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="A item 2"):
-        train.main(["--device", "cpu", "--method", "lora"])
     with pytest.raises(NotImplementedError, match="A12"):
         train.main(["--device", "cpu", "--mesh", "2x2"])

@@ -96,7 +96,10 @@ def test_attn_backend_resolution():
     assert L.resolve_attn_backend("auto", cfg, S=128,
                                   differentiable=True) == "dense"
     assert L.resolve_attn_backend("kernel", cfg, S=16) == "kernel"
-    assert L.resolve_attn_backend("auto", TINY, S=512) == "dense"  # hd 16
+    # head_dim 16, which the kernels do not take: the blockwise online route
+    assert L.resolve_attn_backend("auto", TINY, S=512) == "online"
+    assert L.resolve_attn_backend("auto", TINY, S=128) == "dense"
+    assert L.resolve_attn_backend("online", cfg, S=16) == "online"
     with pytest.raises(ValueError):
         L.resolve_attn_backend("pallas", cfg)
 
@@ -116,7 +119,7 @@ def test_attn_backend_resolution_head_dim_256():
     wide = GEMMA2_2B.replace(n_heads=64, n_kv_heads=1)  # G 64
     assert L.resolve_attn_backend("auto", wide, S=4208) == "kernel"
     assert L.resolve_attn_backend("auto", wide, S=4208,
-                                  differentiable=True) == "dense"
+                                  differentiable=True) == "online"
 
 
 @pytest.mark.parametrize("grad,route", [(False, "kernel"), (True, "kernel")])
