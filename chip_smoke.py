@@ -22,8 +22,11 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 both their f32 and their 3xTF32 bound, with their record
                 of their blocks and their one-pass TF32 control; rows 3,
                 5-6 and 7 also at Qwen3-4B's and ChatGLM3-6B's shapes,
-                rows 1 and 2 also at phases lora's and slice_qwen3's flat
-                sizes, and row 4 at their GradIP sizes;
+                rows 3 and 7 at the serving shapes of Jamba (G 8) and
+                Whisper (G 1, head_dim 64), row 8 at a [2, 1536, 16384]
+                serving prefill with ragged lengths, rows 1 and 2 also
+                at phases lora's and slice_qwen3's flat sizes, and row 4
+                at their GradIP sizes;
 4. slice        MEERKAT-VP on full-size Llama-3.2-1B (random weights from a
                 seed): sensitivity mask and pre-training gradient through
                 the flash kernels' backward, held against the dense
@@ -104,6 +107,26 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 the LM loss, finite; then the layer's MoE FFN on its real
                 input against a plain per-token loop (moe_loop_ref), at the
                 configured capacity and at one that drops pairs;
+9b. serve_jamba one period of Jamba-1.5-Large at full width, (attention,
+                dense) and (Mamba, MoE), 11.9 B parameters, behind the
+                continuous-batching engine (4 slots, 2048 positions, six
+                greedy requests of 1-1500 tokens, waves admitted
+                mid-decode): every token against the request replayed
+                alone, the kernel and ref decode routes over 4 steps, the
+                first wave's prefill Mamba cache on the kernel route (the
+                selective scan, dt zeroed past each row's length) against
+                the scan route, one decode step with inactive rows that
+                must stay bit-equal; the decode step beside its floor of
+                streaming every weight;
+9c. families    xLSTM-350m at full size: two MEERKAT rounds of eight
+                Dirichlet clients at T=1 with GradIP and the replay check
+                (no attention layer: no dense-route check, its mask
+                overlap and gradient gap printed as null); then xLSTM-350m, Whisper-small (12 + 12 layers, 1500
+                frames) and Pixtral-12b at full width (2 of 40 layers, 256
+                patch positions), each held to its training forward
+                (prefill of 299 tokens and one decode step) and served
+                behind the engine with the serve checks (zero frontend
+                stubs, as the JAX package's engines);
 10. analysis    the static analyzer (``repro_torch.analysis``) on the card:
                 every rule flags its bad fixtures and passes its good ones
                 (the fixture_double kernel: bit-equal at [128, 128], its
@@ -122,8 +145,8 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 time with and without the recorder, and sample_z's time
                 against erfinv's float64 Horner form.
 
-Phases 4 to 10 (4b-4e too) each count every kernel's launches from zero,
-and each count must be the count its run implies.
+Phases 4 to 10 (4b-4e, 9b and 9c too) each count every kernel's launches
+from zero, and each count must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
 last.  Any failed check raises and the script exits non-zero; without a
@@ -246,6 +269,28 @@ MAMBA_VARIANTS = ((3, 37, 200, 16), (2, 300, 256, 8), (1, 1, 128, 16),
 # the kernel route's logits against the scan route's, of max |logit|: the
 # serial scan against the parallel prefix, through 3 Mamba layers
 MAMBA_ROUTE_REL = 1e-4
+# hybrid serving (phase serve_jamba): Jamba-1.5-Large at full width, one
+# period of (attention, dense) and (Mamba, MoE); six greedy requests
+# through 4 slots, budgets that differ so that waves are admitted
+# mid-decode; the decode routes over the first JAMBA_ROUTE_STEPS tokens
+JAMBA_SERVE_PATTERN = (("attn", "dense"), ("mamba", "moe"))
+JAMBA_SERVE_PROMPTS = (1, 77, 300, 1024, 1500, 640)
+JAMBA_SERVE_NEW = (16, 8, 16, 12, 16, 16)
+JAMBA_SERVE_SLOTS, JAMBA_SERVE_S_MAX, JAMBA_ROUTE_STEPS = 4, 2048, 4
+# the first wave's prefill Mamba state and conv buffer, kernel route
+# against scan route, of the leaf's largest entry
+MAMBA_STATE_REL = 1e-5
+# the other families (phase families): xLSTM-350m rounds (no VP
+# calibration) and serving; Whisper-small and Pixtral-12b (2 of 40 layers)
+# serving; for each, prefill of FAMILY_FWD_S - 1 tokens and one decode step
+# against the training forward's last two logits, of its max |logit|
+FAMILY_ROUNDS = 2
+PIXTRAL_LAYERS = 2
+FAMILY_SLOTS, FAMILY_NEW, FAMILY_FWD_S = 4, 16, 300
+FAMILY_FWD_REL = 1e-4
+XLSTM_PROMPTS, XLSTM_S_MAX = (1, 700, 233, 467, 90, 600), 720
+WHISPER_PROMPTS, WHISPER_S_MAX = (1, 300, 64, 400), 448
+PIXTRAL_PROMPTS, PIXTRAL_S_MAX = (1, 200, 500, 64), 784
 
 # the analyzer's fixture kernel: [128, 128] f32 in one block fits a block
 # (131,072 B of shared memory); [2048, 2048] in one block asks 33,554,432 B
@@ -305,11 +350,13 @@ KERNEL_SOURCES = {
 # fields a kernel row carries into the kernels line beside the required
 # ones, all measured in the run but bounds: the flash backward's pair timed
 # in turns with SDPA, its Gemma-2 (head_dim 256) instance, rows 3, 5-6 and 7
-# at Qwen3-4B's and ChatGLM3-6B's shapes (check_new_shapes), and rows 1, 2
-# and 4 at the flat and GradIP sizes of phases lora and slice_qwen3
+# at Qwen3-4B's and ChatGLM3-6B's shapes (check_new_shapes), rows 3, 7 and
+# 8 at the serving shapes of phases serve_jamba and families
+# (check_serving_shapes: "jamba_serve", "whisper"), and rows 1, 2 and 4 at
+# the flat and GradIP sizes of phases lora and slice_qwen3
 # (check_elementwise, check_gradip)
 KERNEL_LINE_EXTRAS = ("pair_ms_in_turns", "gemma", "qwen3", "chatglm3",
-                      "lora")
+                      "lora", "jamba_serve", "whisper")
 # the forward's (G, head_dim) layouts: Llama's and Gemma's, Jamba's G 8 at
 # 128, and G 64 (one query a block) at 64 and at 256
 FLASH_LAYOUTS = ((1, 64), (4, 64), (1, 128), (4, 128), (2, 256), (8, 128),
@@ -1251,6 +1298,96 @@ def check_flash_decode(torch, ops, ref, dev, cfg, slots: int, S: int,
         shape=shape, mbytes=n_bytes / 1e6)}
 
 
+def flash_forward_row(torch, ops, ref, dev, gen, tag, B, S, KV, G, dh,
+                      lens):
+    """Row 3 at q [B, S, KV*G, dh] f32, causal, each row ``lens[b]`` long:
+    held against its plain version (O and lse within 1e-4), timed (CUDA
+    events) beside its plain version and SDPA's f32 call (is_causal where
+    every row is full, else a boolean causal and length mask), with its
+    bound over every live pair and, beside it, the bound over the pairs of
+    real queries alone (the pad queries' outputs are dropped by the
+    prefill)."""
+    import torch.nn.functional as F
+    q, k, v = _attn(torch, dev, gen, B, S, KV, G, dh, torch.float32)
+    L = torch.tensor(lens, device=dev, dtype=torch.int32)
+    o, lse = ops.flash_attention(q, k, v, L, return_lse=True)
+    ro, rlse = ref.flash_attention_ref(q, k, v, L, window=0, softcap=0.0,
+                                       causal=True)
+    err = max(float((o - ro).abs().max()), float((lse - rlse).abs().max()))
+    del o, lse, ro, rlse
+    if err > 1e-4:
+        fail(f"flash differs from plain at {tag}'s shape: {err}")
+    real = torch.arange(S, device=dev)[None, :] < L[:, None]
+    valid = ref.attention_valid(S, L, window=0, causal=True)
+    live = int(valid.sum()) * KV * G
+    live_real = int((valid & real[:, :, None]).sum()) * KV * G
+    H, n_real = KV * G, int(L.sum())
+    b_ms, b_by = bound(4.0 * (2 * q.numel() + k.numel() + v.numel()
+                              + B * H * S + B),
+                       3 * 4.0 * dh * live, TF32_FLOP_PER_S)
+    # real queries alone: their q, o and lse rows and the keys they see
+    rb_ms, rb_by = bound(4.0 * (n_real * (2 * H * dh + 2 * KV * dh + H) + B),
+                         3 * 4.0 * dh * live_real, TF32_FLOP_PER_S)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    full = all(n == S for n in lens)
+    mask = None if full else (
+        torch.ones(S, S, device=dev, dtype=torch.bool).tril()[None]
+        & real[:, None, :])[:, None]
+    row = dict(
+        shape=f"q [{B},{S},{H},{dh}] f32, causal, G={G}"
+              + ("" if full else f", lengths {list(lens)}"),
+        max_abs_err=err,
+        ms=timed(lambda: ops.flash_attention(q, k, v, L), 10),
+        plain_ms=timed(lambda: ref.flash_attention_ref(
+            q, k, v, L, window=0, softcap=0.0, causal=True), 3),
+        library_ms=timed(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=full, enable_gqa=True),
+            10),
+        library="SDPA f32, " + ("causal" if full
+                                else "boolean causal and length mask"),
+        bound_ms=b_ms, bound_by=b_by,
+        real_query_pair_share=live_real / live,
+        bound_real_queries_ms=rb_ms, bound_real_queries_by=rb_by)
+    del q, k, v, qh, kh, vh, mask
+    return row
+
+
+def flash_decode_row(torch, ops, ref, dev, gen, tag, S_cache, KV, G, dh,
+                     lens):
+    """Row 7 at q [B, KV, G, dh] over a [B, S_cache, KV, dh] f32 cache, row
+    b ``lens[b]`` long: held against its plain version (DECODE_REL_TOL),
+    timed beside its plain version and SDPA's f32 call with a length mask,
+    and its bound."""
+    import torch.nn.functional as F
+    B = len(lens)
+    q = torch.randn(B, KV, G, dh, generator=gen, device=dev)
+    k, v = (torch.randn(B, S_cache, KV, dh, generator=gen, device=dev)
+            for _ in range(2))
+    L = torch.tensor(lens, device=dev, dtype=torch.int32)
+    got = ops.flash_decode(q, k, v, L)
+    want = ref.decode_attention_ref(q, k, v, L)
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    if rel > DECODE_REL_TOL["f32"]:
+        fail(f"flash_decode differs from plain at {tag}'s cache: {rel}")
+    n_bytes = 2.0 * int(L.sum()) * KV * dh * 4 + 4.0 * (q.numel()
+                                                         + got.numel())
+    b_ms, b_by = bound(n_bytes, 4.0 * dh * G * KV * int(L.sum()))
+    qh = q.reshape(B, KV * G, 1, dh)
+    kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
+    mask = (torch.arange(S_cache, device=dev)[None, :]
+            < L[:, None])[:, None, None]
+    row = dict(
+        shape=f"q [{B},{KV},{G},{dh}], cache [{B},{S_cache},{KV},{dh}] f32, "
+              f"lengths {list(lens)}",
+        max_rel_err=rel, ms=timed(lambda: ops.flash_decode(q, k, v, L), 50),
+        plain_ms=timed(lambda: ref.decode_attention_ref(q, k, v, L), 20),
+        library_ms=timed(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True), 50),
+        bound_ms=b_ms, bound_by=b_by)
+    del q, k, v, qh, kh, vh, got, want
+    return row
+
+
 def check_new_shapes(torch, ops, ref, dev, qwen3, chatglm3):
     """Rows 3, 5-6 and 7 at the shapes of this slice's new configurations,
     each against its plain version, timed (CUDA events) beside its plain
@@ -1270,33 +1407,8 @@ def check_new_shapes(torch, ops, ref, dev, qwen3, chatglm3):
 
     for tag, cfg, B, S in (("qwen3", qwen3, CLIENT_BATCH, SEQ_LEN),
                            ("chatglm3", chatglm3, OPTIONS_B, OPTIONS_S)):
-        KV, G, dh = layout(cfg)
-        q, k, v = _attn(torch, dev, gen, B, S, KV, G, dh, torch.float32)
-        L = torch.full((B,), S, device=dev, dtype=torch.int32)
-        o, lse = ops.flash_attention(q, k, v, L, return_lse=True)
-        ro, rlse = ref.flash_attention_ref(q, k, v, L, window=0, softcap=0.0,
-                                           causal=True)
-        err = max(float((o - ro).abs().max()),
-                  float((lse - rlse).abs().max()))
-        del o, lse, ro, rlse
-        if err > 1e-4:
-            fail(f"flash differs from plain at {tag}'s shape: {err}")
-        live = int(ref.attention_valid(S, L, window=0, causal=True).sum()) \
-            * KV * G
-        n_bytes = 4.0 * (2 * q.numel() + k.numel() + v.numel()
-                         + B * KV * G * S + B)
-        b_ms, b_by = bound(n_bytes, 3 * 4.0 * dh * live, TF32_FLOP_PER_S)
-        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        out["flash_attention"][tag] = dict(
-            shape=f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}",
-            max_abs_err=err,
-            ms=timed(lambda: ops.flash_attention(q, k, v, L), 10),
-            plain_ms=timed(lambda: ref.flash_attention_ref(
-                q, k, v, L, window=0, softcap=0.0, causal=True), 3),
-            library_ms=timed(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True, enable_gqa=True), 10),
-            bound_ms=b_ms, bound_by=b_by)
-        del q, k, v, qh, kh, vh
+        out["flash_attention"][tag] = flash_forward_row(
+            torch, ops, ref, dev, gen, tag, B, S, *layout(cfg), [S] * B)
 
     # the backward pair at Qwen3's pre-training gradient
     KV, G, dh = layout(qwen3)
@@ -1339,33 +1451,10 @@ def check_new_shapes(torch, ops, ref, dev, qwen3, chatglm3):
     del q, k, v, do, o, lse, args
 
     # decode at ChatGLM3's served cache: both rows at their last step
-    KV, G, dh = layout(chatglm3)
-    S = max(CHATGLM_PROMPTS) + CHATGLM_NEW
-    lens = [n + CHATGLM_NEW for n in CHATGLM_PROMPTS]
-    B = len(lens)
-    q = torch.randn(B, KV, G, dh, generator=gen, device=dev)
-    k, v = (torch.randn(B, S, KV, dh, generator=gen, device=dev)
-            for _ in range(2))
-    L = torch.tensor(lens, device=dev, dtype=torch.int32)
-    got = ops.flash_decode(q, k, v, L)
-    want = ref.decode_attention_ref(q, k, v, L)
-    rel = float((got - want).abs().max()) / float(want.abs().max())
-    if rel > DECODE_REL_TOL["f32"]:
-        fail(f"flash_decode differs from plain at chatglm3's shape: {rel}")
-    n_bytes = 2.0 * int(L.sum()) * KV * dh * 4 + 4.0 * (q.numel()
-                                                         + got.numel())
-    b_ms, b_by = bound(n_bytes, 4.0 * dh * G * KV * int(L.sum()))
-    qh = q.reshape(B, KV * G, 1, dh)
-    kh, vh = (x.transpose(1, 2).contiguous() for x in (k, v))
-    mask = (torch.arange(S, device=dev)[None, :] < L[:, None])[:, None, None]
-    out["flash_decode"]["chatglm3"] = dict(
-        shape=f"q [{B},{KV},{G},{dh}], cache [{B},{S},{KV},{dh}] f32, "
-              f"lengths {lens}",
-        max_rel_err=rel, ms=timed(lambda: ops.flash_decode(q, k, v, L), 50),
-        plain_ms=timed(lambda: ref.decode_attention_ref(q, k, v, L), 20),
-        library_ms=timed(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=True), 50),
-        bound_ms=b_ms, bound_by=b_by)
+    out["flash_decode"]["chatglm3"] = flash_decode_row(
+        torch, ops, ref, dev, gen, "chatglm3",
+        max(CHATGLM_PROMPTS) + CHATGLM_NEW, *layout(chatglm3),
+        [n + CHATGLM_NEW for n in CHATGLM_PROMPTS])
     emit("kernels.new_shapes", ok=True, **out)
     return out
 
@@ -1633,8 +1722,12 @@ def run_slice(torch, dev, cfg, *, t_cali=T_CALI, rounds=ROUNDS,
               label="slice", profile="zo_step"):
     """The slice on ``cfg`` through the port's public API: VP calibration
     of ``t_cali`` steps (none at 0), then ``rounds`` rounds with GradIP;
-    emitted as ``label``, its profiled ZO step as ``profile.<profile>``.
-    Returns (launch counts over the run, the counts the run implies)."""
+    emitted as ``label``, its profiled ZO step as ``profile.<profile>``
+    (none when ``profile`` is None).  Where ``cfg`` has attention layers,
+    the kernel attention route's mask and gradient are held against the
+    dense route's; a model without them has nothing to hold, and the
+    phase line gives null for both.  Returns (launch counts over the
+    run, the counts the run implies)."""
     import numpy as np
 
     import repro_torch.core as C
@@ -1648,6 +1741,8 @@ def run_slice(torch, dev, cfg, *, t_cali=T_CALI, rounds=ROUNDS,
     from repro_torch.models import Model, ModelCtx
 
     on_card = dev.type == "cuda"
+    n_attn = n_mixers(cfg, "attn", "local_attn")
+    dense_check = n_attn > 0
     phase_done, times, peaks, resident = phase_clock(torch, on_card)
     t0 = time.perf_counter()
     # one model for every pass: forwards and, under autograd, the backward
@@ -1680,22 +1775,26 @@ def run_slice(torch, dev, cfg, *, t_cali=T_CALI, rounds=ROUNDS,
 
     # the kernel route against the dense one: the mask, and the whole-model
     # LM-loss gradient of one pre-training batch, leaf by leaf
-    t0 = time.perf_counter()
-    dense_space = C.sensitivity_mask(lambda p, b: dense.loss(p, b), params,
-                                     pre, density=DENSITY, device=dev)
-    overlap = mask_overlap(torch, space, dense_space, params)
-    del dense_space
-    phase_done("mask_dense", t0)
-    t0 = time.perf_counter()
-    gk = grad_tree(lambda p, b: model.loss(p, b), params, pre[0])
-    phase_done("grad_kernel", t0)
-    t0 = time.perf_counter()
-    gd = grad_tree(lambda p, b: dense.loss(p, b), params, pre[0])
-    grad_rel = {
-        name: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-        for (name, a), (_, b) in zip(named_leaves(gk), named_leaves(gd))}
-    del gk, gd
-    phase_done("grad_dense", t0)
+    overlap = grad_rel = None
+    if dense_check:
+        t0 = time.perf_counter()
+        dense_space = C.sensitivity_mask(lambda p, b: dense.loss(p, b),
+                                         params, pre, density=DENSITY,
+                                         device=dev)
+        overlap = mask_overlap(torch, space, dense_space, params)
+        del dense_space
+        phase_done("mask_dense", t0)
+        t0 = time.perf_counter()
+        gk = grad_tree(lambda p, b: model.loss(p, b), params, pre[0])
+        phase_done("grad_kernel", t0)
+        t0 = time.perf_counter()
+        gd = grad_tree(lambda p, b: dense.loss(p, b), params, pre[0])
+        grad_rel = {
+            name: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for (name, a), (_, b) in zip(named_leaves(gk),
+                                         named_leaves(gd))}
+        del gk, gd
+        phase_done("grad_dense", t0)
 
     fl = FLConfig(n_clients=N_CLIENTS, local_steps=1, eps=1e-3,
                   density=DENSITY, zo_backend="kernel", vp_init_steps=2,
@@ -1740,21 +1839,21 @@ def run_slice(torch, dev, cfg, *, t_cali=T_CALI, rounds=ROUNDS,
     n_forwards = 2 * n_steps + 2  # two per ZO step, plus the two evals
     # differentiated passes on the kernel route: mask and pre-training
     # gradient batches, and the gradient check's one
-    n_grads = 2 * PRETRAIN_BATCHES + 1
+    n_grads = 2 * PRETRAIN_BATCHES + int(dense_check)
     expected = {name: 0 for name in counts}
     expected.update({"zo_dual_perturb_flat": n_steps,
                      "zo_fused_update_flat": n_steps,
                      "gradip_flat": N_CLIENTS * t_cali + rounds * N_CLIENTS,
-                     "flash_attention": cfg.n_layers * (n_forwards + n_grads),
-                     "flash_attention_bwd_dq": cfg.n_layers * n_grads,
-                     "flash_attention_bwd_dkv": cfg.n_layers * n_grads})
+                     "flash_attention": n_attn * (n_forwards + n_grads),
+                     "flash_attention_bwd_dq": n_attn * n_grads,
+                     "flash_attention_bwd_dkv": n_attn * n_grads})
     scalars = [g for h in server.gradip_log.values() for g in h]
     finite = (all(np.isfinite(v) for v in (*m0.values(), *m1.values()))
               and all(np.all(np.isfinite(t)) for t in trajs)
               and all(np.all(np.isfinite(g)) for g in scalars)
               and bool(torch.isfinite(gp).all())
               and bool(torch.isfinite(gs).all()))
-    grad_ok = max(grad_rel.values()) <= GRAD_REL_BOUND
+    grad_max = max(grad_rel.values()) if dense_check else None
     emit(label, model=cfg.name, n_layers=cfg.n_layers,
          n_params=model.n_params, n_pad=get_backing(space, params).n_pad,
          auto_backend=auto_backend,
@@ -1767,7 +1866,7 @@ def run_slice(torch, dev, cfg, *, t_cali=T_CALI, rounds=ROUNDS,
          mask_overlap_kernel_vs_dense=overlap,
          mask_overlap_min=MASK_OVERLAP_MIN,
          grad_rel_kernel_vs_dense=grad_rel,
-         grad_rel_max=max(grad_rel.values()), grad_rel_bound=GRAD_REL_BOUND,
+         grad_rel_max=grad_max, grad_rel_bound=GRAD_REL_BOUND,
          times_s=times, round_s=times["rounds"] / rounds,
          zo_step_s=times["rounds"] / (rounds * N_CLIENTS),
          peak_gb=peaks, resident_gb=resident,
@@ -1777,19 +1876,24 @@ def run_slice(torch, dev, cfg, *, t_cali=T_CALI, rounds=ROUNDS,
     if not replay_ok:
         fail(f"{label}: client delta and server replay differ (max rel "
              f"{rel})")
-    if not grad_ok:
+    if dense_check and grad_max > GRAD_REL_BOUND:
         fail(f"{label}: kernel-route gradient differs from the dense "
              f"route's: {grad_rel} > {GRAD_REL_BOUND}")
-    if overlap < MASK_OVERLAP_MIN:
+    if dense_check and overlap < MASK_OVERLAP_MIN:
         fail(f"{label}: kernel-route mask overlaps the dense-route mask by "
              f"{overlap}")
     if on_card and auto_backend != "kernel":
         fail(f"{label}: zo_backend 'auto' leaves the flat kernels "
              f"({auto_backend!r})")
-    if on_card:
+    if on_card and profile:
         profile_step(torch, profile, lambda: run(
             server.params, keys, batches, torch.zeros(space.n, device=dev)))
     return counts, expected
+
+
+def n_mixers(cfg, *kinds) -> int:
+    """Layers of ``cfg`` whose mixer is one of ``kinds``."""
+    return cfg.n_periods * sum(m in kinds for m, _ in cfg.layer_pattern)
 
 
 # ------------------------------------------------------------------- fleet --
@@ -2449,8 +2553,11 @@ def teacher_forced(torch, model, params, prompt, toks, S_max):
     engine's own tokens.  Returns (worst shortfall of each token's logit
     below the step's largest, over max |logit|; near-ties: steps where the
     token is within the bound but not the argmax)."""
-    logits, cache = model.prefill(params, {"tokens": prompt[None]},
-                                  S_max=S_max)
+    from repro_torch.serving.engine import _frontend_extra, _frontend_stub
+    logits, cache = model.prefill(
+        params, {"tokens": prompt[None],
+                 **_frontend_stub(model.cfg, 1, model.device)},
+        S_max=S_max + _frontend_extra(model.cfg))
     t = torch.as_tensor(toks, device=model.device).long()
     rows = []
     for i in range(len(toks)):
@@ -2468,9 +2575,13 @@ def route_gap(torch, models, params, prompt, toks, S_max):
     """Largest |logit| difference between the decode routes of ``models``
     (kernel, ref), teacher-forced on the same tokens from one prefill, over
     the step's largest |logit|."""
+    from repro_torch.serving.engine import _frontend_extra, _frontend_stub
     from repro_torch.utils import tree_map
-    logits, cache = models[0].prefill(params, {"tokens": prompt[None]},
-                                      S_max=S_max)
+    cfg = models[0].cfg
+    logits, cache = models[0].prefill(
+        params, {"tokens": prompt[None],
+                 **_frontend_stub(cfg, 1, models[0].device)},
+        S_max=S_max + _frontend_extra(cfg))
     caches = [cache] + [tree_map(torch.clone, cache) for _ in models[1:]]
     t = torch.as_tensor(toks, device=models[0].device).int()
     gaps = []
@@ -2481,20 +2592,43 @@ def route_gap(torch, models, params, prompt, toks, S_max):
     return float(torch.stack(gaps).max())
 
 
+def inactive_rows_kept(torch, model, params, cache) -> dict:
+    """One decode step on ``cache`` (in place) with every other row
+    inactive: {leaf path: whether the inactive rows of the leaf, and their
+    positions, stayed bit-equal}."""
+    from repro_torch.utils import tree_map
+    B = int(cache["pos"].shape[0])
+    active = torch.arange(B, device=model.device) % 2 == 0
+    before = tree_map(torch.clone, cache)
+    tok = torch.zeros((B,), dtype=torch.int32, device=model.device)
+    model.decode_step(params, tok, cache, active=active)
+    off = ~active
+    kept = {"pos": bool(torch.equal(before["pos"][off], cache["pos"][off]))}
+    for (name, a), (_, b) in zip(named_leaves(before["stack"]),
+                                 named_leaves(cache["stack"])):
+        kept[name] = bool(torch.equal(a[:, off], b[:, off]))
+    return kept
+
+
 def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
-              naive_reqs, label, outs_out=None):
+              naive_reqs, label, outs_out=None, route_steps=None,
+              profile=True):
     """Serving on ``cfg`` through the port's public API: the
     continuous-batching engine over ``prompts`` (greedy), then its checks:
     every token against the request replayed alone, the kernel and ref
-    decode routes, and the naive engine.  Returns (launch counts over the
-    engine's run, the counts the run implies); ``outs_out``, a dict, gets
-    the model, its parameters and the engine's tokens."""
+    decode routes (over the first ``route_steps`` tokens, all when None),
+    the naive engine, and one decode step with every other row inactive
+    that must leave those rows' cache leaves bit-equal.  Returns (launch
+    counts over the engine's run, the counts the run implies);
+    ``outs_out``, a dict, gets the model, its parameters, the engine and
+    its tokens."""
     import numpy as np
 
     from repro_torch.kernels import ops
     from repro_torch.models import Model, ModelCtx
     from repro_torch.models import layers as L
     from repro_torch.serving import ContinuousBatchingEngine, ServeEngine
+    from repro_torch.serving.engine import _frontend_extra
 
     on_card = dev.type == "cuda"
     phase_done, times, peaks, resident = phase_clock(torch, on_card)
@@ -2517,13 +2651,19 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
     stats = engine.stats
     n_tok = sum(len(o) for o in outs)
     kernel_decode = L.resolve_decode_backend("auto", cfg) == "kernel"
+    # a wave's prefill runs over its padded tokens behind any patch prefix
+    extra = _frontend_extra(cfg)
     long_waves = sum(1 for _, S_pad in engine.prefill_waves
-                     if L.resolve_attn_backend("auto", cfg, S=S_pad)
+                     if L.resolve_attn_backend("auto", cfg, S=S_pad + extra)
                      == "kernel")
+    n_attn = n_mixers(cfg, "attn", "local_attn")
     expected = {name: 0 for name in counts}
-    expected["flash_attention"] = cfg.n_layers * long_waves
-    expected["flash_decode"] = (cfg.n_layers * stats["decode_steps"]
+    expected["flash_attention"] = n_attn * long_waves
+    expected["flash_decode"] = (n_attn * stats["decode_steps"]
                                 if kernel_decode else 0)
+    # the selective scan once per Mamba layer per wave (no grad: kernel)
+    expected["mamba_scan"] = n_mixers(cfg, "mamba") * len(
+        engine.prefill_waves)
 
     t0 = time.perf_counter()
     worst, ties = 0.0, 0
@@ -2533,9 +2673,13 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
     phase_done("check_single", t0)
     t0 = time.perf_counter()
     routes = (model, Model(cfg, ModelCtx(decode_backend="ref"), device=dev))
-    gap = max(route_gap(torch, routes, params, prompts[i], outs[i],
+    gap = max(route_gap(torch, routes, params, prompts[i],
+                        outs[i][:route_steps],
                         len(prompts[i]) + len(outs[i])) for i in route_reqs)
     phase_done("check_routes", t0)
+    t0 = time.perf_counter()
+    kept = inactive_rows_kept(torch, model, params, engine.cache)
+    phase_done("check_inactive", t0)
     naive_worst, naive_ties, naive_same = 0.0, 0, None
     if naive_reqs:
         t0 = time.perf_counter()
@@ -2564,6 +2708,9 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
          prefill_s=getattr(engine, "prefill_s", None),
          decode_s=getattr(engine, "decode_s", None), engine_s=engine_s,
          tokens_per_s=n_tok / engine_s, ttft_mean_s=stats["ttft_mean_s"],
+         decode_step_ms=(getattr(engine, "decode_s", None) or 0.0) * 1e3
+         / max(1, stats["decode_steps"]),
+         inactive_rows_bit_equal=kept,
          single_worst_gap=worst, single_near_ties=ties,
          tie_bound=SERVE_TIE_REL, route_gap=gap, route_bound=SERVE_ROUTE_REL,
          route_requests=list(route_reqs), naive_requests=list(naive_reqs),
@@ -2579,14 +2726,17 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
              f"alone (engine {worst}, naive {naive_worst} > {SERVE_TIE_REL})")
     if gap > SERVE_ROUTE_REL:
         fail(f"{label}: kernel and ref decode routes differ by {gap}")
-    if on_card and kernel_decode:
+    if not all(kept.values()):
+        fail(f"{label}: an inactive row's cache changed in a decode step: "
+             f"{[k for k, v in kept.items() if not v]}")
+    if on_card and kernel_decode and profile:
         # one burst under the profiler: fill every slot, then a warm step
         # (admission and a 32-token burst) and a profiled 8-token burst
         for p in prompts[:slots]:
             engine.submit(p[:64], max_new_tokens=40)
         profile_step(torch, f"{label}_decode_burst", engine.step)
     if outs_out is not None:
-        outs_out.update(model=model, params=params, outs=outs)
+        outs_out.update(model=model, params=params, outs=outs, engine=engine)
     return counts, expected
 
 
@@ -2946,6 +3096,190 @@ def run_jamba_moe(torch, dev, cfg):
     if dispatch[MOE_TIGHT_CAPACITY]["dropped"] == 0:
         fail(f"jamba_moe: capacity factor {MOE_TIGHT_CAPACITY} dropped no "
              f"pair, so the dispatch check did not test capacity")
+    return counts, expected
+
+
+
+# ----------------------------------------------------- hybrid serving ------
+def check_serving_shapes(torch, ops, ref, dev):
+    """Rows 3, 7 and 8 at the serving shapes of phases serve_jamba and
+    families, each against its plain version, timed (CUDA events) beside
+    its plain version, its library call and its bound: the flash forward
+    at Jamba's first prefill wave (G 8, head_dim 128, ragged lengths) and at
+    Whisper's decoder wave (G 1, head_dim 64), flash decode at their served
+    caches, the selective scan at a [2, 1536, 16384] prefill with dt zeroed
+    past each row's length (its final state the decode state).  Returns
+    {kernel: {tag: row}}."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {"flash_attention": {}, "flash_decode": {}, "mamba_scan": {}}
+    shapes = {"jamba_serve": (8, 8, 128, JAMBA_SERVE_PROMPTS[:4],
+                              JAMBA_SERVE_S_MAX),
+              "whisper": (12, 1, 64, WHISPER_PROMPTS, WHISPER_S_MAX)}
+    for tag, (KV, G, dh, lens, S_cache) in shapes.items():
+        S = -(-max(lens) // SERVE_BUCKET) * SERVE_BUCKET
+        out["flash_attention"][tag] = flash_forward_row(
+            torch, ops, ref, dev, gen, tag, len(lens), S, KV, G, dh,
+            list(lens))
+        # decode at the served cache: every row at its last step
+        out["flash_decode"][tag] = flash_decode_row(
+            torch, ops, ref, dev, gen, tag, S_cache, KV, G, dh,
+            [n + FAMILY_NEW for n in lens])
+
+    # the selective scan at a serving prefill: dt zeroed past each length
+    B, S, E, N = 2, 1536, 16384, 16
+    lens = torch.tensor(JAMBA_SERVE_PROMPTS[4:6], device=dev)
+    dt, Bi, Ci, x, A = mamba_inputs(torch, dev, gen, B, S, E, N)
+    dt = dt * (torch.arange(S, device=dev)[None, :] < lens[:, None])[..., None]
+    args = (dt, Bi, Ci, x, A)
+    y, h = ops.mamba_scan(*args)
+    ry, rh = ref.mamba_scan_ref(*args)
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in ((y, ry), (h, rh))]
+    err = max(float((y - ry).abs().max()), float((h - rh).abs().max()))
+    del y, h, ry, rh
+    if max(errs) > MAMBA_SCAN_REL:
+        fail(f"mamba_scan differs from plain at the serving prefill: {errs}")
+    n_bytes = 4.0 * (3 * B * S * E + 2 * B * S * N + E * N + B * E * N)
+    # past a row's length dt is 0: no decay to exponentiate
+    n_exp = float(int(lens.sum()) * E * N)
+    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    exp_ms = n_exp / EXP_PER_S * 1e3
+    out["mamba_scan"]["jamba_serve"] = dict(
+        shape=f"dt, x [{B},{S},{E}] f32, N {N}, lengths {lens.tolist()}",
+        max_abs_err=err, max_rel_err=errs,
+        ms=timed(lambda: ops.mamba_scan(*args), 10),
+        plain_ms=timed(lambda: ref.mamba_scan_ref(*args), 2),
+        library_ms=None, bound_ms=max(mem_ms, exp_ms),
+        bound_by="bytes" if mem_ms >= exp_ms else "operations")
+    del args, dt, Bi, Ci, x, A
+    emit("kernels.serving_shapes", ok=True, **out)
+    return out
+
+
+def run_serve_jamba(torch, dev, cfg):
+    """Jamba-1.5-Large at full width, one period of (attention, dense) and
+    (Mamba, MoE): the engine over JAMBA_SERVE_PROMPTS with run_serve's
+    checks (the decode routes over JAMBA_ROUTE_STEPS tokens), then the
+    first wave's prefill Mamba cache on the kernel route against the scan
+    route, and the decode step's time beside its weight-streaming floor
+    (moe_dense_ref reads every expert's weights at every step)."""
+    import numpy as np
+
+    from repro_torch.models import Model, ModelCtx
+
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in JAMBA_SERVE_PROMPTS]
+    served = {}
+    counts, expected = run_serve(
+        torch, dev, cfg, prompts=prompts, news=list(JAMBA_SERVE_NEW),
+        S_max=JAMBA_SERVE_S_MAX, slots=JAMBA_SERVE_SLOTS, route_reqs=(3,),
+        naive_reqs=(), label="serve_jamba", outs_out=served,
+        route_steps=JAMBA_ROUTE_STEPS)
+    params, engine = served["params"], served["engine"]
+    wave = prompts[:JAMBA_SERVE_SLOTS]
+    S_pad = -(-max(map(len, wave)) // SERVE_BUCKET) * SERVE_BUCKET
+    toks = np.zeros((len(wave), S_pad), np.int32)
+    for i, p in enumerate(wave):
+        toks[i, :len(p)] = p
+    lens = np.array([len(p) for p in wave], np.int32)
+    t0 = time.perf_counter()
+    leaves = {}
+    with torch.no_grad():
+        for mode in ("kernel", "scan"):
+            m = Model(cfg, ModelCtx(mamba_mode=mode), device=dev)
+            _, cache = m.prefill(params, {"tokens": toks}, S_max=S_pad,
+                                 lengths=lens)
+            leaves[mode] = {k: cache["stack"]["p1"][k] for k in
+                            ("conv", "state")}
+            del cache
+    rel = {k: float((leaves["kernel"][k] - leaves["scan"][k]).abs().max()
+                    / leaves["scan"][k].abs().max())
+           for k in ("conv", "state")}
+    del leaves
+    weights = 4.0 * (served["model"].n_params - cfg.vocab * cfg.d_model)
+    step_ms = engine.decode_s * 1e3 / max(1, engine.stats["decode_steps"]) \
+        if dev.type == "cuda" else None
+    emit("serve_jamba.checks", mamba_prefill_rel=rel, tol=MAMBA_STATE_REL,
+         wave_lengths=lens.tolist(), wave_S_pad=S_pad,
+         routes_s=time.perf_counter() - t0, decode_step_ms=step_ms,
+         decode_weight_gb=weights / 1e9,
+         decode_step_floor_ms=weights / HBM_BYTES_PER_S * 1e3)
+    if max(rel.values()) > MAMBA_STATE_REL:
+        fail(f"serve_jamba: the prefill's Mamba cache differs between the "
+             f"kernel and scan routes: {rel}")
+    return counts, expected
+
+
+def family_forward_check(torch, dev, cfg, tag):
+    """Prefill FAMILY_FWD_S - 1 tokens of 2 rows (frontend embeddings from
+    concrete_inputs, a seeded generator), then decode the last: the prefill
+    and decode logits against the training forward's last two, of its max
+    |logit| (the JAX package's test_prefill_decode_matches_forward)."""
+    from repro_torch.models import Model, concrete_inputs
+    from repro_torch.serving.engine import _frontend_extra
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(seed=SEED)
+    S = FAMILY_FWD_S
+    batch = concrete_inputs(cfg, 2, S, torch.Generator(device=dev)
+                            .manual_seed(SEED), device=dev)
+    with torch.no_grad():
+        full, _ = model.forward(params, batch)
+        full = full[:, S - 2:].clone()
+        pre = dict(batch, tokens=batch["tokens"][:, :S - 1])
+        lp, cache = model.prefill(params, pre,
+                                  S_max=S + 4 + _frontend_extra(cfg))
+        ld, cache = model.decode_step(params, batch["tokens"][:, S - 1],
+                                      cache)
+    scale = float(full.abs().max())
+    rel = [float((a - full[:, i]).abs().max()) / scale
+           for i, a in enumerate((lp, ld))]
+    emit(f"families.forward_{tag}", model=cfg.name, n_layers=cfg.n_layers,
+         n_params=model.n_params, S=S, prefill_rel=rel[0], decode_rel=rel[1],
+         bound=FAMILY_FWD_REL, finite=bool(torch.isfinite(full).all()),
+         seconds=time.perf_counter() - t0)
+    del model, params, full, cache
+    if max(rel) > FAMILY_FWD_REL or not all(map(math.isfinite, rel)):
+        fail(f"families: {cfg.name}'s prefill/decode logits differ from the "
+             f"training forward's: {rel} > {FAMILY_FWD_REL}")
+
+
+def run_families(torch, dev, cfgs):
+    """xLSTM-350m at full size: FAMILY_ROUNDS MEERKAT rounds of N_CLIENTS
+    Dirichlet clients at T=1 with GradIP on the slice's task (no VP
+    calibration, run_slice), then serving; Whisper-small at full size and
+    Pixtral-12b at full width (PIXTRAL_LAYERS layers) served.  Each model
+    first passes family_forward_check, then the engine with run_serve's
+    checks (zero frontend stubs, as the JAX package's engines).  Returns
+    the launch counts summed over the rounds and the engines' runs, and
+    the counts they imply."""
+    import numpy as np
+    xlstm, whisper, pixtral = cfgs
+    counts, expected = run_slice(torch, dev, xlstm, t_cali=0,
+                                 rounds=FAMILY_ROUNDS,
+                                 label="families.xlstm_rounds", profile=None)
+    rng = np.random.default_rng(SEED + 3)
+    for tag, cfg, lens, S_max in (("xlstm", xlstm, XLSTM_PROMPTS,
+                                   XLSTM_S_MAX),
+                                  ("whisper", whisper, WHISPER_PROMPTS,
+                                   WHISPER_S_MAX),
+                                  ("pixtral", pixtral, PIXTRAL_PROMPTS,
+                                   PIXTRAL_S_MAX)):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        family_forward_check(torch, dev, cfg, tag)
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                   for n in lens]
+        got, want = run_serve(torch, dev, cfg, prompts=prompts,
+                              news=[FAMILY_NEW] * len(prompts), S_max=S_max,
+                              slots=FAMILY_SLOTS, route_reqs=range(2),
+                              naive_reqs=(), label=f"families.serve_{tag}",
+                              profile=False)
+        for name in counts:
+            counts[name] += got[name]
+            expected[name] += want[name]
     return counts, expected
 
 
@@ -3412,7 +3746,8 @@ def main() -> int:
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
 
     from repro_torch.configs import (CHATGLM3_6B, GEMMA2_2B, JAMBA_1_5_LARGE,
-                                     LLAMA32_1B, PHI35_MOE, QWEN3_4B)
+                                     LLAMA32_1B, PHI35_MOE, PIXTRAL_12B,
+                                     QWEN3_4B, WHISPER_SMALL, XLSTM_350M)
     from repro_torch.configs.jamba_1_5_large_398b import SLICE_CUT
     from repro_torch.kernels import build, ops, ref
     t0 = time.perf_counter()
@@ -3455,12 +3790,19 @@ def main() -> int:
     for name, extra in check_new_shapes(torch, ops, ref, dev, qwen3,
                                         chatglm3).items():
         rows[name].update(extra)
+    for name, extra in check_serving_shapes(torch, ops, ref, dev).items():
+        rows[name].update(extra)
     torch.cuda.empty_cache()
     emit("kernels", seconds=time.perf_counter() - t0, rows=rows)
 
     # one (Mamba, MoE) layer of Jamba at full width: 11.2 B parameters
     moe_layer = JAMBA_1_5_LARGE.replace(n_layers=1,
                                         layer_pattern=(("mamba", "moe"),))
+    # one period of (attention, dense) and (Mamba, MoE): 11.9 B parameters
+    jamba_serve = JAMBA_1_5_LARGE.replace(n_layers=2,
+                                          layer_pattern=JAMBA_SERVE_PATTERN)
+    families = (XLSTM_350M, WHISPER_SMALL,
+                PIXTRAL_12B.replace(n_layers=PIXTRAL_LAYERS))
     launches = {name: 0 for name in KERNEL_SOURCES}
     for phase, run, cfg in (("slice", run_slice, LLAMA32_1B),
                             ("fleet", run_fleet, LLAMA32_1B),
@@ -3475,6 +3817,8 @@ def main() -> int:
                             ("grad_gemma", run_grad_gemma, gemma),
                             ("slice_jamba", run_slice_jamba, SLICE_CUT),
                             ("jamba_moe", run_jamba_moe, moe_layer),
+                            ("serve_jamba", run_serve_jamba, jamba_serve),
+                            ("families", run_families, families),
                             ("analysis", run_analysis_phase, LLAMA32_1B)):
         t0 = time.perf_counter()
         counts, expected = run(torch, dev, cfg)

@@ -29,8 +29,14 @@ def params_from_numpy(tree, device=None):
 
 def cache_from_numpy(cache, device=None):
     """A JAX serving cache converted by ``jax.tree.map(np.asarray, cache)``
-    (``{"stack": {"p{i}": {"k", "v"}}, "pos"}``) -> the port's cache of
-    tensors on ``device``, so both packages can decode from one cache."""
+    -> the port's cache of tensors on ``device``, so both packages can
+    decode from one cache.  Every family has one layout in both packages
+    (``models/decode.py``): ``{"stack": {"p{i}": leaves}, "pos": [B]}``
+    with the leaves of layer ``i``'s mixer, each stacked over periods:
+    ``k``, ``v`` [n,B,W,KV,hd] (attention; Whisper's decoder layers also
+    ``ck``, ``cv`` [n,B,Senc,KV,hd]); ``conv`` [n,B,K-1,E] and ``state``
+    [n,B,E,N] (Mamba); ``C`` [n,B,H,dh,dh], ``n`` [n,B,H,dh] and ``m``
+    [n,B,H] (mLSTM); ``c``, ``n``, ``h``, ``m`` [n,B,E] (sLSTM)."""
     device = resolve_device(device)
     return tree_map(lambda a: torch.as_tensor(np.array(a), device=device),
                     cache)

@@ -1,5 +1,6 @@
-"""Parameter initialization for the dense decoder and hybrid (Mamba +
-attention + MoE) families (``repro.models.init``).
+"""Parameter initialization for every architecture family
+(``repro.models.init``): attention, Mamba, mLSTM and sLSTM mixers; dense,
+MoE or no FFNs; Whisper's encoder and its decoder's cross-attention.
 
 Layer parameters are *stacked over periods*: for each position ``i`` in
 ``cfg.layer_pattern`` the subtree ``stack['p{i}']`` has a leading
@@ -18,8 +19,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.ssm import _dt_rank
 from repro_torch.utils.device import resolve_device
 
-_MIXERS = ("attn", "local_attn", "mamba")
-_FFNS = ("dense", "moe")
+_MIXERS = ("attn", "local_attn", "mamba", "mlstm", "slstm")
+_FFNS = ("dense", "moe", "none")
+_FRONTENDS = ("none", "audio_stub", "vision_stub")
 
 
 class _Init:
@@ -56,7 +58,9 @@ def _norm_p(ini, cfg, d, n=None):
     return {"scale": ini.full(shape, 1.0), "bias": ini.full(shape, 0.0)}
 
 
-def _attn_params(ini, cfg: ModelConfig, n: int):
+def _attn_params(ini, cfg: ModelConfig, n: int, cross: bool = False):
+    """Self-attention; ``cross``: the decoder's cross-attention, plain
+    projections only (no bias, qk-norm, post-norm or LoRA)."""
     D = cfg.d_model
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
@@ -68,6 +72,8 @@ def _attn_params(ini, cfg: ModelConfig, n: int):
         "wv": ini.dense((D, KV * hd), n=n),
         "wo": ini.dense((H * hd, D), std=out_std, n=n),
     }
+    if cross:
+        return p
     if cfg.qkv_bias:
         p["bq"] = ini.full((n, H * hd), 0.0)
         p["bk"] = ini.full((n, KV * hd), 0.0)
@@ -146,23 +152,82 @@ def _mamba_params(ini, cfg: ModelConfig, n: int):
     }
 
 
+def _mlstm_params(ini, cfg: ModelConfig, n: int):
+    x = cfg.xlstm
+    D = cfg.d_model
+    E = int(x.proj_factor_mlstm * D)
+    H = x.n_heads
+    out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "norm": _norm_p(ini, cfg, D, n),
+        "up_proj": ini.dense((D, 2 * E), n=n),
+        "wq": ini.dense((E, E), n=n),
+        "wk": ini.dense((E, E), n=n),
+        "wv": ini.dense((E, E), n=n),
+        "w_i": ini.dense((E, H), std=0.01, n=n),
+        "b_i": ini.full((n, H), 0.0),
+        "w_f": ini.dense((E, H), std=0.01, n=n),
+        "b_f": ini.full((n, H), 3.0),  # forget-gate bias: remember
+        "gn_scale": ini.full((n, H, E // H), 1.0),
+        "down_proj": ini.dense((E, D), std=out_std, n=n),
+    }
+
+
+def _slstm_params(ini, cfg: ModelConfig, n: int):
+    x = cfg.xlstm
+    D = E = cfg.d_model
+    H = x.n_heads
+    dh = E // H
+    F = int(x.proj_factor_slstm * E)
+    F -= F % 2
+    out_std = 0.02 / math.sqrt(2 * cfg.n_layers)
+    b = ini.full((n, 4 * E), 0.0)
+    b[:, E:2 * E] = 3.0  # forget-gate bias; gates are (i, f, z, o)
+    return {
+        "norm": _norm_p(ini, cfg, D, n),
+        "w_gates": ini.dense((D, 4 * E), n=n),
+        "b_gates": b,
+        "r_gates": ini.dense((H, dh, 4, dh), std=dh ** -0.5, n=n),
+        "up_proj": ini.dense((E, 2 * F), n=n),
+        "down_proj": ini.dense((F, D), std=out_std, n=n),
+    }
+
+
+_MIXER_PARAMS = {"attn": _attn_params, "local_attn": _attn_params,
+                 "mamba": _mamba_params, "mlstm": _mlstm_params,
+                 "slstm": _slstm_params}
+
+
+def _stack_params(ini, cfg: ModelConfig, pattern, n: int,
+                  with_cross: bool = False):
+    stack = {}
+    for i, (mixer, ffn) in enumerate(pattern):
+        lp = _MIXER_PARAMS[mixer](ini, cfg, n)
+        if with_cross and mixer in ("attn", "local_attn"):
+            lp["cross"] = dict(_attn_params(ini, cfg, n, cross=True),
+                               norm=_norm_p(ini, cfg, cfg.d_model, n))
+        if ffn == "dense":
+            lp.update(_mlp_params(ini, cfg, n))
+        elif ffn == "moe":
+            lp.update(_moe_params(ini, cfg, n))
+        stack[f"p{i}"] = lp
+    return stack
+
+
 def check_family(cfg: ModelConfig) -> None:
-    """The port covers decoder-only stacks of attention and Mamba mixers
-    with dense (gated, or plain gelu) or MoE FFNs, RMSNorm or LayerNorm,
-    full, partial or no RoPE, qk-norm and LoRA adapters (the paper's
-    models, the dense and MoE configs and the Jamba hybrid); the other
-    families of ``repro`` (mLSTM/sLSTM mixers, encoders, frontends) raise
-    until they are ported (ROADMAP A item 6)."""
+    """Every family of ``repro``: attention, Mamba, mLSTM and sLSTM
+    mixers with dense (gated, or plain gelu), MoE or no FFNs, RMSNorm or
+    LayerNorm, full, partial or no RoPE, the audio encoder and the vision
+    prefix.  What none of them has raises ``ValueError``, as the JAX
+    package's init does."""
     bad = [(m, f) for m, f in cfg.layer_pattern
            if m not in _MIXERS or f not in _FFNS]
-    if (bad or cfg.encoder is not None or cfg.frontend != "none"
+    if (bad or cfg.frontend not in _FRONTENDS
             or cfg.norm not in ("rmsnorm", "layernorm")
             or cfg.rope_style not in ("full", "partial", "none")
             or cfg.act not in ("silu", "gelu", "gelu_plain")):
-        raise NotImplementedError(
-            f"{cfg.name}: the port covers attention and Mamba mixers with "
-            f"dense or MoE FFNs only; the mLSTM/sLSTM mixers, encoders and "
-            f"frontends come with their families")
+        raise ValueError(f"{cfg.name}: no family has this layer pattern, "
+                         f"frontend, norm, RoPE style or activation")
 
 
 def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
@@ -171,19 +236,18 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
     CUDA card unless the caller says otherwise, ``utils.device``)."""
     check_family(cfg)
     ini = _Init(seed, resolve_device(device), dtype)
-    params = {"embed": ini.dense((cfg.vocab, cfg.d_model))}
-    stack = {}
-    n = cfg.n_periods
-    for i, (mixer, ffn) in enumerate(cfg.layer_pattern):
-        lp = (_mamba_params(ini, cfg, n) if mixer == "mamba"
-              else _attn_params(ini, cfg, n))
-        lp.update(_moe_params(ini, cfg, n) if ffn == "moe"
-                  else _mlp_params(ini, cfg, n))
-        stack[f"p{i}"] = lp
-    params["stack"] = stack
-    params["final_norm"] = _norm_p(ini, cfg, cfg.d_model)
+    params = {"embed": ini.dense((cfg.vocab, cfg.d_model)),
+              "stack": _stack_params(ini, cfg, cfg.layer_pattern,
+                                     cfg.n_periods,
+                                     with_cross=cfg.encoder is not None),
+              "final_norm": _norm_p(ini, cfg, cfg.d_model)}
     if not cfg.tie_embeddings:
         params["lm_head"] = ini.dense((cfg.d_model, cfg.vocab))
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "stack": _stack_params(ini, cfg, (("attn", "dense"),),
+                                   cfg.encoder.n_layers),
+            "final_norm": _norm_p(ini, cfg, cfg.d_model)}
     return params
 
 

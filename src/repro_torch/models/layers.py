@@ -1,7 +1,9 @@
 """Transformer layers of the dense decoder and hybrid families, in torch
 (``repro.models.layers``): RMSNorm and LayerNorm, full or partial RoPE (or
 no positional encoding, as in Jamba), GQA attention with QKV bias, qk-norm,
-LoRA adapters on q and v, softcap and sliding window, gated and plain MLPs.
+LoRA adapters on q and v, softcap and sliding window, gated and plain MLPs,
+and Whisper's encoder (bidirectional) and cross-attention, which take the
+dense GQA route as the JAX package's do.
 
 Parameters are plain dicts of tensors (``models/init.py``).  Forward
 attention runs through one dispatch point, :func:`forward_attention`, which
@@ -379,6 +381,31 @@ def self_attention(x, p, cfg, positions, *, local: bool, ctx=None):
     window = cfg.sliding_window if local else 0
     out = forward_attention(q, k, v, cfg, ctx, window=window)
     return out.reshape(B, S, -1) @ p["wo"]
+
+
+def bidir_attention(x, p, cfg):
+    """Encoder (non-causal) self-attention. x: [B,S,D] -> [B,S,D]."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(x, p, cfg)
+    return gqa_attention(q, k, v, None, cfg).reshape(B, S, -1) @ p["wo"]
+
+
+def cross_attention(x, enc_kv, p, cfg):
+    """Decoder cross-attention. x: [B,S,D]; enc_kv: (k, v) each
+    [B,Senc,KV,hd] (:func:`encode_kv`) -> [B,S,D]."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+    k, v = enc_kv
+    return gqa_attention(q, k, v, None, cfg).reshape(B, S, -1) @ p["wo"]
+
+
+def encode_kv(enc_out, p, cfg):
+    """Cross-attention K/V [B,Senc,KV,hd] from the encoder output: computed
+    once per request at prefill and kept in the decode cache."""
+    B, Se, _ = enc_out.shape
+    shape = (B, Se, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return (enc_out @ p["wk"]).reshape(shape), \
+        (enc_out @ p["wv"]).reshape(shape)
 
 
 # -------------------------------------------------- decode-mode attention ----

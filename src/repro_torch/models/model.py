@@ -1,4 +1,4 @@
-"""Public model facade (``repro.models.model``)."""
+"""Public model facade and random model inputs (``repro.models.model``)."""
 from __future__ import annotations
 
 import torch
@@ -56,3 +56,27 @@ class Model:
     @property
     def n_params(self):
         return param_count(self.cfg)
+
+
+def concrete_inputs(cfg: ModelConfig, batch: int, seq_len: int, gen=None,
+                    dtype=torch.float32, device=None):
+    """Random training/prefill inputs (``repro.models.model
+    .concrete_inputs``): tokens [batch, seq_len] uniform over the vocab,
+    and the frontend stub's embeddings, standard normal in ``dtype``:
+    Whisper's ``audio_embeds`` [batch, n_frames, D], Pixtral's
+    ``patch_embeds`` [batch, n_patches, D].  Draws come from ``gen`` (a
+    ``torch.Generator`` on ``device``; seed 0 when None), tokens first."""
+    device = resolve_device(device)
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, seq_len),
+                                   generator=gen, device=device,
+                                   dtype=torch.int32)}
+    frames = {"audio_stub": ("audio_embeds",
+                             cfg.encoder.n_frames if cfg.encoder else 1500),
+              "vision_stub": ("patch_embeds", cfg.n_patches)}
+    if cfg.frontend in frames:
+        name, n = frames[cfg.frontend]
+        out[name] = torch.randn((batch, n, cfg.d_model), generator=gen,
+                                device=device).to(dtype)
+    return out

@@ -16,8 +16,10 @@ of two routes of the same function (``ModelCtx.mamba_mode``, resolved by
   ``ShardCtx.remat``), so the [B, chunk, E, N] pairs of one chunk at a time
   are alive, not those of every chunk and layer.
 
-The one-token decode recurrence (``mamba_decode``) comes with hybrid
-serving.
+Serving prefills through :func:`mamba_forward` with ``return_state`` and
+``valid``, and decodes one token at a time through :func:`mamba_decode`,
+the recurrence written out in plain torch, as the JAX package computes it
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -210,3 +212,26 @@ def _finish(y, xs, xs_raw, z, x, p, B, E, h_fin, return_state, lengths=None):
             conv_buf = torch.gather(xp, 1, idx[:, :, None].expand(-1, -1, E))
         return out, (conv_buf, h_fin)
     return out
+
+
+def mamba_decode(x1, p, scfg: SSMConfig, conv_buf, state):
+    """One-token decode. x1: [B,1,D]; conv_buf: [B,K-1,E] (the last K-1
+    conv inputs); state: [B,E,N] f32.  Returns (out [B,1,D], the shifted
+    conv buffer in its dtype, the new state), the buffer and the state new
+    tensors."""
+    N = scfg.d_state
+    xs, z = torch.chunk(x1 @ p["in_proj"], 2, dim=-1)
+    new_buf = torch.cat([conv_buf[:, 1:], xs.to(conv_buf.dtype)], dim=1)
+    xs = F.silu(_causal_conv(xs, p["conv_w"], p["conv_b"], buf=conv_buf))
+    r = p["dt_proj"].shape[0]
+    dt_r, B_in, C_in = torch.split(xs @ p["x_proj"], [r, N, N], dim=-1)
+    dt = softplus(dt_r @ p["dt_proj"] + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())
+    a = torch.exp(dt[:, 0, :, None].float() * A)              # [B,E,N]
+    b = (dt[:, 0] * xs[:, 0]).float()[..., None] \
+        * B_in[:, 0, None, :].float()
+    h = a * state + b
+    y = torch.einsum("ben,bn->be", h, C_in[:, 0].float())
+    y = y + xs[:, 0].float() * p["D"]
+    y = (y * F.silu(z[:, 0].float())).to(x1.dtype)
+    return (y @ p["out_proj"])[:, None], new_buf, h

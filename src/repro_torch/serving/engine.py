@@ -16,7 +16,9 @@ Two layers:
 
 Correctness contract: right-padded batched generation with per-sequence
 ``lengths`` gives the same greedy tokens as running each request alone
-(``models/decode.prefill``).
+(``models/decode.prefill``), for every cache family.  Token-only requests
+to Pixtral and Whisper get zero patch and frame embeddings
+(``_frontend_stub``), and Pixtral's patches count against ``S_max``.
 
 PyTorch runs eagerly, so the JAX package's ``jit`` cache and its
 ``CompileCache`` hit/miss counters have no counterpart here and are left
@@ -43,6 +45,25 @@ from repro_torch.utils.device import check_params_on
 from repro_torch.utils.tree import tree_leaves
 
 
+def _frontend_stub(cfg, B: int, device) -> Dict:
+    """Zero frontend embeddings (f32) for token-only serving requests:
+    Pixtral's patches, Whisper's audio frames."""
+    extras = {}
+    if cfg.frontend == "vision_stub":
+        extras["patch_embeds"] = torch.zeros((B, cfg.n_patches, cfg.d_model),
+                                             device=device)
+    if cfg.frontend == "audio_stub":
+        extras["audio_embeds"] = torch.zeros(
+            (B, cfg.encoder.n_frames, cfg.d_model), device=device)
+    return extras
+
+
+def _frontend_extra(cfg) -> int:
+    """Cache positions a request's frontend prefix takes (Pixtral's
+    patches; Whisper's frames live in the cross-attention cache)."""
+    return cfg.n_patches if cfg.frontend == "vision_stub" else 0
+
+
 def _pick(logits, key, temperature: float):
     """Greedy argmax, or a categorical draw at ``temperature`` (int32)."""
     if temperature > 0:
@@ -64,7 +85,7 @@ def generate(model: Model, params, batch: Dict, max_new_tokens: int,
     ``lengths``: per-row valid token counts of a right-padded batch (see
     ``models/decode.prefill``)."""
     S = batch["tokens"].shape[1]
-    S_max = S_max or (S + max_new_tokens)
+    S_max = S_max or (S + _frontend_extra(model.cfg) + max_new_tokens)
     logits, cache = model.prefill(params, batch, S_max=S_max, lengths=lengths)
     key = key if key is not None else prng.key(0)
     toks = []
@@ -106,7 +127,10 @@ class ServeEngine:
             toks = np.zeros((len(chunk), S), np.int32)
             for i, (t, _) in enumerate(chunk):
                 toks[i, :len(t)] = t  # right-pad; masked via lengths
-            gen = generate(self.model, self.params, {"tokens": toks}, new,
+            batch = {"tokens": toks,
+                     **_frontend_stub(self.model.cfg, len(chunk),
+                                      self.model.device)}
+            gen = generate(self.model, self.params, batch, new,
                            lengths=np.asarray(lens, np.int32)).cpu().numpy()
             for i, (_, m) in enumerate(chunk):
                 out.append(gen[i, :m])
@@ -194,7 +218,8 @@ class ContinuousBatchingEngine:
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")
-        if len(tokens) > self.S_max - max_new_tokens:
+        budget = self.S_max - _frontend_extra(self.cfg) - max_new_tokens
+        if len(tokens) > budget:
             raise ValueError(
                 f"prompt of {len(tokens)} tokens + {max_new_tokens} new "
                 f"exceeds S_max={self.S_max}")
@@ -225,9 +250,10 @@ class ContinuousBatchingEngine:
             device=self.device)
         slots = torch.as_tensor(np.array([s for _, s in items], np.int64),
                                 device=self.device)
-        logits, sub = D.prefill(
-            self.params, {"tokens": torch.as_tensor(toks, device=self.device)},
-            self.cfg, self.ctx, S_max=self.S_max, lengths=lengths)
+        batch = {"tokens": torch.as_tensor(toks, device=self.device),
+                 **_frontend_stub(self.cfg, g, self.device)}
+        logits, sub = D.prefill(self.params, batch, self.cfg, self.ctx,
+                                S_max=self.S_max, lengths=lengths)
         for big, small in zip(tree_leaves(self.cache["stack"]),
                               tree_leaves(sub["stack"])):
             big.index_copy_(1, slots, small.to(big.dtype))

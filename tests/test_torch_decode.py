@@ -408,6 +408,17 @@ def test_init_cache_layout_matches_jax():
 
 
 def test_other_cache_families_raise():
-    cfg = get_config("tiny").replace(layer_pattern=(("mamba", "dense"),))
-    with pytest.raises(NotImplementedError):
-        D.init_cache(cfg, 1, 8, device="cpu")
+    """Every family of the JAX package has its cache (a Mamba layer's
+    conv buffer and state, as JAX's); a mixer no family has raises, as in
+    the JAX package."""
+    from repro.configs import get_config as j_get_config
+    name = "jamba-1.5-large-398b-reduced"
+    cfg = get_config(name)
+    jc = JD.init_cache(j_get_config(name), 1, 8, dtype=jnp.float32)
+    tc = D.init_cache(cfg, 1, 8, dtype=torch.float32, device="cpu")
+    for leaf in ("conv", "state"):
+        np.testing.assert_array_equal(tc["stack"]["p1"][leaf].numpy(),
+                                      np.asarray(jc["stack"]["p1"][leaf]))
+    with pytest.raises(ValueError):
+        D.init_cache(cfg.replace(layer_pattern=(("rwkv", "dense"),)), 1, 8,
+                     device="cpu")

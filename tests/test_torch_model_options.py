@@ -25,7 +25,6 @@ from repro_torch.configs.tiny import TINY
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import Model, ModelCtx
 from repro_torch.models import layers as L
-from repro_torch.models.init import init_params
 from repro_torch.utils.tree import tree_flatten_with_keys
 
 # logits of a 2-layer model in f32 on two stacks of CPU kernels (XLA vs
@@ -60,14 +59,6 @@ def test_configs_are_copies_of_jax():
         assert get_config(name + "-reduced") == _port_cfg(
             j_get_config(name + "-reduced"))
     assert set(NAMES) <= set(list_archs())
-
-
-@pytest.mark.parametrize("name", ["xlstm-350m", "whisper-small",
-                                  "pixtral-12b"])
-def test_other_families_still_raise(name):
-    with pytest.raises(NotImplementedError):
-        init_params(0, _port_cfg(j_get_config(name + "-reduced")),
-                    device="cpu")
 
 
 def _pair(jcfg, tcfg, seed=0, route="dense", q_block=0, decode="ref"):
