@@ -47,6 +47,19 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 bit-equal; every upload billed at the int8 wire size; one
                 client's applied scalars equal the server's decoded wire
                 and its delta the wire replay;
+4f. mesh        the sharded federated round (sharding/fl.FLShardPlan) on
+                the slice's problem: one NCCL rank, a 1x1 mesh; VP
+                calibration (T_cali 2) and 2 rounds unsharded and under
+                FSDP from the same state (parameters after each round,
+                GradIP log, flags, bytes and pointers bit-equal, rows 1-4
+                launched as often), 1 round under "replicate" (bit-equal),
+                the FSDP server's checkpoint restored into an unsharded
+                server and one more round each (bit-equal); the round
+                seconds of each route, the gather at round entry, the
+                peak; make_fl_train_loop (8 x 2 x 512, 2 steps) on the mesh
+                route within 2e-5 / 2e-4 of the unsharded one; then the
+                roofline line: one client's ZO step timed against its model
+                FLOPs (launch/roofline.step_model_flops) over the f32 peak;
 4c. lora        LoRA-FedZO on the same model with rank-4 adapters on q and
                 v (alpha 16; 425,984 coordinates, LoRASpace on the flat
                 kernel route over all 1,236,240,384 parameters): the fresh
@@ -133,9 +146,10 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 [2048, 2048] one-block launch refused); every kernel's
                 launch plan (kernels/plans.py) equals the library's own
                 query at the shapes of the registry and the earlier phases;
-                the registry's programs run clean with launches equal to
-                their kernel records, and torch.cuda.set_sync_debug_mode
-                agrees with the host-sync rule on each; then
+                the registry's programs (fl_round_sharded on a one-rank
+                1x1 mesh) run clean with launches equal to their kernel
+                records, and torch.cuda.set_sync_debug_mode agrees with the
+                host-sync rule on each; then
                 make_fl_train_loop on full-size Llama-3.2-1B (8 clients x
                 2 x 512, 2 steps) under the recorder: no host sync, no f64,
                 no rebuild on a repeat call, every kernel block within the
@@ -145,7 +159,7 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 time with and without the recorder, and sample_z's time
                 against erfinv's float64 Horner form.
 
-Phases 4 to 10 (4b-4e, 9b and 9c too) each count every kernel's launches
+Phases 4 to 10 (4b-4f, 9b and 9c too) each count every kernel's launches
 from zero, and each count must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
@@ -190,6 +204,16 @@ FLEET_DROP, FLEET_LATE, FLEET_STALENESS = 0.2, 0.2, 2
 # it gives in-cohort drops and a straggler of round 1 still in flight at
 # the round-2 checkpoint, landing in round 3, so the restored queue is used
 FLEET_FAULT_SEED = 0
+# the sharded round (phase mesh): the slice's problem on a one-rank 1x1
+# mesh (one NCCL rank on the card); VP calibration of MESH_T_CALI steps,
+# then MESH_ROUNDS rounds unsharded and under FSDP, one under "replicate";
+# make_fl_train_loop of MESH_LOOP_STEPS steps at 8 x MESH_LOOP_BATCH x
+# SEQ_LEN held to tools/fl_mesh_parity.py's tolerance; MESH_ZO_STEPS timed
+# client steps for the roofline line
+MESH_SPEC, MESH_T_CALI, MESH_ROUNDS = "1x1", 2, 2
+MESH_LOOP_STEPS, MESH_LOOP_BATCH = 2, 2
+MESH_LOOP_PARAM_ATOL, MESH_LOOP_G_ATOL = 2e-5, 2e-4
+MESH_ZO_STEPS = 3
 # LoRA-FedZO on Llama-3.2-1B (phase lora): rank 4, alpha 16 on q and v;
 # T=2 at Table 1's LoRA rate, two clients early-stopped at random
 LORA_RANK, LORA_T, LORA_ROUNDS, LORA_LR = 4, 2, 2, 2e-2
@@ -312,18 +336,15 @@ AN_LIVENESS_REL = 0.10
 # they differ; 1e-5 is some 20 ulp of the largest normals (|z| < 6)
 Z_F64_ABS = 1e-5
 
-# H100 SXM data sheet: HBM3 rate, and the f32 rate outside the tensor cores
-# (the kernels compute in f32 on CUDA cores): 132 SMs x 128 lanes x 2 (FMA)
-# at the 1.98 GHz boost clock
-HBM_BYTES_PER_S = 3.35e12
+# the H100 SXM data sheet's peaks are repro_torch.launch.roofline.HW
+# (peak(): HBM3's rate, the f32 rate outside the tensor cores, where the
+# kernels compute in f32, and the dense TF32 rate of the tensor cores, where
+# the flash kernels run each f32 product as three TF32 products, 3xTF32);
+# the f32 rate is 132 SMs x 128 lanes x 2 (FMA) at the 1.98 GHz boost clock
 SM_CLOCK_HZ = 1.98e9
-F32_FLOP_PER_S = 67e12
-# the dense TF32 rate of the tensor cores (the same data sheet): the flash
-# backward kernels run each f32 product as three TF32 products (3xTF32)
-TF32_FLOP_PER_S = 495e12
 # exponentials: 16 a clock per SM on the special-function units (NVIDIA's
 # arithmetic-instruction throughput table, compute capability 9.0), at the
-# clock of the f32 rate above
+# clock of the f32 rate
 EXP_PER_S = 16 * 132 * SM_CLOCK_HZ
 
 KERNEL_SOURCES = {
@@ -461,9 +482,15 @@ def host_us(fn, iters: int = 200, reps: int = 5) -> float:
     return statistics.median(per)
 
 
-def bound(n_bytes: float, n_ops: float, flop_per_s: float = F32_FLOP_PER_S):
-    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    op_ms = n_ops / flop_per_s * 1e3
+def peak(key: str) -> float:
+    """One of the card's data-sheet peaks (``launch/roofline.HW``)."""
+    from repro_torch.launch.roofline import HW
+    return HW[key]
+
+
+def bound(n_bytes: float, n_ops: float, flop_per_s: float = None):
+    mem_ms = n_bytes / peak("hbm_bw") * 1e3
+    op_ms = n_ops / (flop_per_s or peak("peak_flops_f32")) * 1e3
     return max(mem_ms, op_ms), ("bytes" if mem_ms >= op_ms else "operations")
 
 
@@ -791,7 +818,7 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
     flop = 4.0 * dh * live                         # QK^T and PV: 2 FMA each
     # the kernel runs both products as 3xTF32: three times the FLOP on the
     # tensor cores is its bound, the f32 CUDA cores' a side figure
-    tf_ms, tf_by = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
+    tf_ms, tf_by = bound(n_bytes, 3 * flop, peak("peak_flops_tf32"))
     f32_ms, f32_by = bound(n_bytes, flop)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     row = timed_turns(lambda: ops.flash_attention(q, k, v, L),
@@ -893,7 +920,8 @@ def check_flash_prefill(torch, ops, ref, dev, cfg, lengths):
                                        causal=True).sum()) * KV * G
         n_bytes = 4.0 * (2 * q.numel() + k.numel() + v.numel()
                          + B * KV * S * G + B)
-        b_ms, b_by = bound(n_bytes, 3 * 4.0 * dh * live, TF32_FLOP_PER_S)
+        b_ms, b_by = bound(n_bytes, 3 * 4.0 * dh * live,
+                           peak("peak_flops_tf32"))
         f32_ms, _ = bound(n_bytes, 4.0 * dh * live)
         ms = timed(lambda: ops.flash_attention(q, k, v, L, **kw), 5)
         out[name] = dict(
@@ -1034,7 +1062,7 @@ def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int, gemma):
         # dQ, or P^T dO and dS^T Q for dK/dV; the kernels run each product
         # as 3xTF32, so their bound is three times that on the tensor
         # cores, and the f32 CUDA cores' a side figure
-        tf_ms, tf_by = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
+        tf_ms, tf_by = bound(n_bytes, 3 * flop, peak("peak_flops_tf32"))
         f32_ms, f32_by = bound(n_bytes, flop)
         row = kernel_times(lambda: fn(*args, **kw), 10)
         out[name] = dict(
@@ -1152,7 +1180,7 @@ def check_flash_bwd_gemma(torch, ops, ref, dev, cfg, inputs, both, rel_err):
                 ("flash_attention_bwd_dkv", True, 8.0, slice(1, 3),
                  ops.flash_attention_bwd_dkv)):
             flop, n_bytes = bwd_work(ref, q, k, L, dkv, n_ops, window)
-            tf_ms, tf_by = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
+            tf_ms, tf_by = bound(n_bytes, 3 * flop, peak("peak_flops_tf32"))
             f32_ms, _ = bound(n_bytes, flop)
             ms = timed(lambda: fn(*args, **kw), 3)
             out[name][layer] = dict(
@@ -1324,10 +1352,10 @@ def flash_forward_row(torch, ops, ref, dev, gen, tag, B, S, KV, G, dh,
     H, n_real = KV * G, int(L.sum())
     b_ms, b_by = bound(4.0 * (2 * q.numel() + k.numel() + v.numel()
                               + B * H * S + B),
-                       3 * 4.0 * dh * live, TF32_FLOP_PER_S)
+                       3 * 4.0 * dh * live, peak("peak_flops_tf32"))
     # real queries alone: their q, o and lse rows and the keys they see
     rb_ms, rb_by = bound(4.0 * (n_real * (2 * H * dh + 2 * KV * dh + H) + B),
-                         3 * 4.0 * dh * live_real, TF32_FLOP_PER_S)
+                         3 * 4.0 * dh * live_real, peak("peak_flops_tf32"))
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     full = all(n == S for n in lens)
     mask = None if full else (
@@ -1441,7 +1469,7 @@ def check_new_shapes(torch, ops, ref, dev, qwen3, chatglm3):
         if rel > BWD_REL_TOL:
             fail(f"{name} differs from plain at qwen3's shape: {rel}")
         flop, n_bytes = bwd_work(ref, q, k, L, dkv, n_ops, 0)
-        b_ms, b_by = bound(n_bytes, 3 * flop, TF32_FLOP_PER_S)
+        b_ms, b_by = bound(n_bytes, 3 * flop, peak("peak_flops_tf32"))
         out[name]["qwen3"] = dict(
             shape=f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}",
             max_rel_err=rel, ms=timed(lambda: fn(*args, **kw), 10),
@@ -1547,7 +1575,7 @@ def check_mamba_scan(torch, ops, ref, dev):
     del y, h, ry, rh, y2, h2
     n_bytes = 4.0 * (3 * B * S * E + 2 * B * S * N + E * N + B * E * N)
     n_exp = float(B * S * E * N)
-    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    mem_ms = n_bytes / peak("hbm_bw") * 1e3
     exp_ms = n_exp / EXP_PER_S * 1e3
     return {"mamba_scan": dict(
         max_abs_err=err, bound_ms=max(mem_ms, exp_ms),
@@ -1910,7 +1938,8 @@ def same_round_info(a, b) -> bool:
 
 
 def same_server_state(torch, a, b) -> dict:
-    """Bit-equality of two servers' state, field by field."""
+    """Bit-equality of two servers' state, field by field (a server on a
+    mesh by its gathered parameters)."""
     import numpy as np
 
     from repro_torch.utils.tree import tree_leaves
@@ -1922,7 +1951,8 @@ def same_server_state(torch, a, b) -> dict:
 
     return dict(
         params=all(torch.equal(x, y) for x, y in
-                   zip(tree_leaves(a.params), tree_leaves(b.params))),
+                   zip(tree_leaves(a.full_params()),
+                       tree_leaves(b.full_params()))),
         gradip_log=all(same_log(a.gradip_log[c], b.gradip_log[c])
                        for c in a.gradip_log),
         comm=(a.comm.up_bytes, a.comm.down_bytes)
@@ -1932,7 +1962,10 @@ def same_server_state(torch, a, b) -> dict:
                                        "gip_idx"))
             and np.array_equal(p["gs"], q["gs"])
             for p, q in zip(a._pending, b._pending)),
-        sampler=a.sampler.state_dict() == b.sampler.state_dict(),
+        sampler=(a.sampler is None) == (b.sampler is None) and (
+            a.sampler is None
+            or a.sampler.state_dict() == b.sampler.state_dict()),
+        flags=a.early_stopped == b.early_stopped,
         pointers=[c.ptr for c in a.clients] == [c.ptr for c in b.clients],
         round=a.round == b.round,
         last_round_info=same_round_info(a.last_round_info,
@@ -2136,6 +2169,265 @@ def run_fleet(torch, dev, cfg):
         fail(f"client delta and wire replay differ (max rel {rel})")
     if not finite:
         fail("non-finite GradIP or pre-training gradient in the fleet")
+    return counts, expected
+
+
+# ------------------------------------------------------------------- mesh --
+def run_mesh(torch, dev, cfg):
+    """Phase 4f (module docstring) on one rank of a process group
+    (``launch/mesh.process_group``: NCCL on the card, gloo on the CPU);
+    returns (launch counts over the run, the counts it implies)."""
+    from repro_torch.launch.mesh import process_group
+    with process_group(dev.type):
+        return _run_mesh(torch, dev, cfg)
+
+
+def _run_mesh(torch, dev, cfg):
+    import numpy as np
+
+    import repro_torch.core as C
+    from repro_torch.configs import FLConfig
+    from repro_torch.core import prng
+    from repro_torch.core.fl_step import make_fl_train_loop
+    from repro_torch.data import (TaskSpec, dirichlet_partition,
+                                  make_task_fns, pretrain_batches,
+                                  sample_dataset, subset)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import HW_CARD, step_model_flops
+    from repro_torch.models import Model, ModelCtx
+    from repro_torch.sharding.fl import make_fl_plan
+    from repro_torch.utils.tree import tree_leaves
+
+    on_card = dev.type == "cuda"
+    phase_done, times, peaks, resident = phase_clock(torch, on_card)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    model = Model(cfg, ModelCtx(attn_backend="kernel"), device=dev)
+    params = model.init(seed=SEED)
+    spec = TaskSpec(vocab=512, seq_len=SEQ_LEN)
+    loss, _, _ = make_task_fns(model, spec)
+    train = sample_dataset(spec, 1024, seed=1)
+    parts = dirichlet_partition(train["label"], n_clients=N_CLIENTS,
+                                alpha=0.5)
+    pre = pretrain_batches(spec, n_batches=PRETRAIN_BATCHES,
+                           batch_size=PRETRAIN_BATCH)
+    fl = FLConfig(n_clients=N_CLIENTS, local_steps=1, eps=1e-3,
+                  density=DENSITY, zo_backend="kernel", vp_init_steps=1,
+                  vp_later_steps=1, vp_sigma_relative=True, seed=SEED)
+    plans = {rule: make_fl_plan(spec=MESH_SPEC, rule=rule)
+             for rule in ("fsdp", "replicate")}
+
+    def server(space, plan=None):
+        clients = [C.Client(k, subset(train, q), batch_size=CLIENT_BATCH)
+                   for k, q in enumerate(parts)]
+        return C.FederatedZO(loss, params, space, fl, clients, device=dev,
+                             plan=plan)
+
+    phase_done("setup", t0)
+
+    ops.reset_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    space = C.sensitivity_mask(lambda p, b: model.loss(p, b), params, pre,
+                               density=DENSITY, device=dev)
+    gp = C.pretrain_gradient_vec(lambda p, b: model.loss(p, b), params,
+                                 space, pre)
+    phase_done("mask_and_gradient", t0)
+
+    def drive(srv, rounds, calibrate=True):
+        """VP calibration (unless told not to), then ``rounds`` rounds with
+        GradIP; (seconds, launches of each kernel, the gathered parameters
+        after each round)."""
+        before = ops.launches()
+        t = time.perf_counter()
+        if calibrate:
+            srv.calibrate_vp(gp, T_cali=MESH_T_CALI)
+        sync()
+        secs = {"calibrate": time.perf_counter() - t, "rounds": [],
+                "gathers": []}
+        after = []
+        for _ in range(rounds):
+            t = time.perf_counter()
+            srv.run_round(gp_vec=gp)
+            sync()
+            secs["rounds"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            after.append(srv.full_params())
+            sync()
+            secs["gathers"].append(time.perf_counter() - t)
+        launches = {k: v - before[k] for k, v in ops.launches().items()}
+        return secs, launches, after
+
+    def same_params(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                     tree_leaves(b)))
+
+    # (1) unsharded and FSDP from the same state: VP calibration, 2 rounds
+    t0 = time.perf_counter()
+    ref = server(space)
+    ref_s, ref_launches, ref_after = drive(ref, MESH_ROUNDS)
+    phase_done("unsharded", t0)
+    t0 = time.perf_counter()
+    fsdp = server(space, plans["fsdp"])
+    sync()
+    place_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    view = plans["fsdp"].compute_view(fsdp.params)
+    sync()
+    gather_ms = (time.perf_counter() - t) * 1e3
+    del view
+    fsdp_s, fsdp_launches, fsdp_after = drive(fsdp, MESH_ROUNDS)
+    phase_done("fsdp", t0)
+    same_fsdp = same_server_state(torch, ref, fsdp)
+    gradip_finite = all(np.all(np.isfinite(e))
+                        for h in ref.gradip_log.values() for e in h)
+    same_fsdp["params_each_round"] = all(
+        same_params(a, b) for a, b in zip(ref_after, fsdp_after))
+    del fsdp_after
+
+    # (2) one round under "replicate" from the same state (the unsharded
+    # server's VP flags, as its calibration set them)
+    t0 = time.perf_counter()
+    rep = server(space, plans["replicate"])
+    rep.early_stopped = set(ref.early_stopped)
+    rep_s, rep_launches, rep_after = drive(rep, 1, calibrate=False)
+    phase_done("replicate", t0)
+    same_rep = same_params(rep_after[0], ref_after[0])
+    del rep, rep_after, ref_after
+
+    # (3) the FSDP server's checkpoint restored into an unsharded server;
+    # one more round each
+    ckpt = ROOT / "build" / "mesh_ckpt" / "ckpt_mesh.msgpack"
+    t0 = time.perf_counter()
+    fsdp.save_checkpoint(str(ckpt))
+    phase_done("checkpoint_write", t0)
+    ckpt_bytes = ckpt.stat().st_size
+    t0 = time.perf_counter()
+    twin = server(space)
+    twin.load_checkpoint(str(ckpt))
+    sync()
+    phase_done("checkpoint_read", t0)
+    ckpt.unlink()
+    t0 = time.perf_counter()
+    fsdp.run_round(gp_vec=gp)
+    twin.run_round(gp_vec=gp)
+    sync()
+    phase_done("rounds_after_restore", t0)
+    same_restored = same_server_state(torch, fsdp, twin)
+    del fsdp, twin, ref
+
+    # (4) make_fl_train_loop, the mesh route against none
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab, size=(MESH_LOOP_STEPS, N_CLIENTS * MESH_LOOP_BATCH,
+                            SEQ_LEN), dtype=np.int32), device=dev)
+    loop_out, loop_s = {}, {}
+    for rule in (None, "fsdp"):
+        t0 = time.perf_counter()
+        plan = plans.get(rule)
+        loop = make_fl_train_loop(
+            lambda p, b: model.loss(p, b, per_example=True), space,
+            eps=1e-3, lr=1e-2, n_clients=N_CLIENTS, n_steps=MESH_LOOP_STEPS,
+            constrain_params=None if plan is None
+            else plan.constrain_params_fn())
+        p0 = params if plan is None else plan.place_params(params)
+        p, g, _ = loop(p0, prng.key(1), {"tokens": tokens})
+        sync()
+        loop_s[rule or "none"] = time.perf_counter() - t0
+        loop_out[rule] = (p if plan is None else plan.compute_view(p), g)
+        del p0, p, loop
+    phase_done("train_loop", t0)
+    loop_param_err = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(loop_out[None][0]), tree_leaves(loop_out["fsdp"][0])))
+    loop_g_err = float((loop_out[None][1] - loop_out["fsdp"][1]).abs().max())
+    loop_finite = bool(torch.isfinite(loop_out["fsdp"][1]).all())
+    del loop_out
+
+    # (5) the roofline line: one client's ZO step (T=1, CLIENT_BATCH x
+    # SEQ_LEN) timed, against its model FLOPs over the f32 peak
+    run = C.make_local_run(loss, space, fl.eps, fl.lr, backend="kernel")
+    keys = C.round_keys(fl.seed, 0, 1)
+    client = C.Client(0, subset(train, parts[0]), batch_size=CLIENT_BATCH)
+    batches = {k: torch.as_tensor(v, device=dev)
+               for k, v in client.next_batches(1).items()}
+    zeros = torch.zeros(space.n, device=dev)
+    run(params, keys, batches, zeros)  # warm
+    step_s = []
+    for _ in range(MESH_ZO_STEPS):
+        sync()
+        t = time.perf_counter()
+        run(params, keys, batches, zeros)
+        sync()
+        step_s.append(time.perf_counter() - t)
+    counts = ops.launches()  # the main path ends here
+    zo_s = statistics.median(step_s)
+    flops = step_model_flops(cfg, CLIENT_BATCH, SEQ_LEN, "zo_step")
+    f32 = peak("peak_flops_f32")
+    emit("roofline", model=cfg.name, batch=CLIENT_BATCH, seq_len=SEQ_LEN,
+         step="zo_step", model_flops=flops, zo_step_s=zo_s,
+         zo_step_s_each=step_s, flop_per_s=flops / zo_s,
+         peak_flops_f32=f32, mfu_f32=flops / zo_s / f32, peaks_of=HW_CARD,
+         device=torch.cuda.get_device_name(0) if on_card else "cpu")
+
+    n_grads = 2 * PRETRAIN_BATCHES  # mask and pre-training gradient
+    server_steps = N_CLIENTS * MESH_T_CALI + MESH_ROUNDS * N_CLIENTS
+    # ZO steps: two servers' calibration and rounds, the replicate round,
+    # the two rounds after the restore, the loops and the timed steps
+    zo_steps = (2 * server_steps + 3 * N_CLIENTS + 2 * MESH_LOOP_STEPS
+                + MESH_ZO_STEPS + 1)
+    n_attn = n_mixers(cfg, "attn", "local_attn")
+    expected = {name: 0 for name in counts}
+    expected.update({
+        "zo_dual_perturb_flat": zo_steps,
+        "zo_fused_update_flat": zo_steps,
+        "gradip_flat": 2 * server_steps + 3 * N_CLIENTS,
+        "flash_attention": n_attn * (2 * zo_steps + n_grads),
+        "flash_attention_bwd_dq": n_attn * n_grads,
+        "flash_attention_bwd_dkv": n_attn * n_grads})
+    rows14 = ("zo_dual_perturb_flat", "zo_fused_update_flat",
+              "flash_attention", "gradip_flat")
+    launches_equal = all(ref_launches[k] == fsdp_launches[k] for k in rows14)
+    finite = (loop_finite and gradip_finite
+              and bool(torch.isfinite(gp).all()))
+    emit("mesh", model=cfg.name, n_params=model.n_params,
+         mask_coords=space.n, mesh=MESH_SPEC, ranks=1,
+         backend="nccl" if on_card else "gloo", clients=N_CLIENTS,
+         client_batch=CLIENT_BATCH, seq_len=SEQ_LEN, T_cali=MESH_T_CALI,
+         rounds=MESH_ROUNDS, round_s={"unsharded": ref_s["rounds"],
+                                      "fsdp": fsdp_s["rounds"],
+                                      "replicate": rep_s["rounds"]},
+         calibrate_s={"unsharded": ref_s["calibrate"],
+                      "fsdp": fsdp_s["calibrate"]},
+         gather_ms=gather_ms, place_s=place_s,
+         gathers_after_rounds_s=fsdp_s["gathers"], bitequal_fsdp=same_fsdp,
+         bitequal_replicate=same_rep, bitequal_restored=same_restored,
+         checkpoint_bytes=ckpt_bytes,
+         checkpoint_write_s=times["checkpoint_write"],
+         checkpoint_read_s=times["checkpoint_read"],
+         launches_unsharded={k: ref_launches[k] for k in rows14},
+         launches_fsdp={k: fsdp_launches[k] for k in rows14},
+         launches_replicate={k: rep_launches[k] for k in rows14},
+         launches_equal=launches_equal, loop_s=loop_s,
+         loop_max_abs_param_diff=loop_param_err,
+         loop_max_abs_g_diff=loop_g_err,
+         loop_atol=(MESH_LOOP_PARAM_ATOL, MESH_LOOP_G_ATOL),
+         finite=finite, launches=counts, expected_launches=expected,
+         times_s=times, peak_gb=peaks, resident_gb=resident,
+         max_memory_allocated_gb=max(peaks.values(), default=None))
+    if not all(same_fsdp.values()):
+        fail(f"mesh: the FSDP server differs from the unsharded one: "
+             f"{same_fsdp}")
+    if not same_rep:
+        fail("mesh: the replicate round differs from the unsharded one")
+    if not all(same_restored.values()):
+        fail(f"mesh: the restored unsharded server differs from the FSDP "
+             f"one: {same_restored}")
+    if not launches_equal:
+        fail(f"mesh: launches {fsdp_launches} != unsharded {ref_launches}")
+    if loop_param_err > MESH_LOOP_PARAM_ATOL or loop_g_err > MESH_LOOP_G_ATOL:
+        fail(f"mesh: the train loop's mesh route is {loop_param_err} / "
+             f"{loop_g_err} from the unsharded one")
+    if not finite:
+        fail("mesh: non-finite projected gradients or pre-training gradient")
     return counts, expected
 
 
@@ -3142,7 +3434,7 @@ def check_serving_shapes(torch, ops, ref, dev):
     n_bytes = 4.0 * (3 * B * S * E + 2 * B * S * N + E * N + B * E * N)
     # past a row's length dt is 0: no decay to exponentiate
     n_exp = float(int(lens.sum()) * E * N)
-    mem_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    mem_ms = n_bytes / peak("hbm_bw") * 1e3
     exp_ms = n_exp / EXP_PER_S * 1e3
     out["mamba_scan"]["jamba_serve"] = dict(
         shape=f"dt, x [{B},{S},{E}] f32, N {N}, lengths {lens.tolist()}",
@@ -3204,7 +3496,7 @@ def run_serve_jamba(torch, dev, cfg):
          wave_lengths=lens.tolist(), wave_S_pad=S_pad,
          routes_s=time.perf_counter() - t0, decode_step_ms=step_ms,
          decode_weight_gb=weights / 1e9,
-         decode_step_floor_ms=weights / HBM_BYTES_PER_S * 1e3)
+         decode_step_floor_ms=weights / peak("hbm_bw") * 1e3)
     if max(rel.values()) > MAMBA_STATE_REL:
         fail(f"serve_jamba: the prefill's Mamba cache differs between the "
              f"kernel and scan routes: {rel}")
@@ -3412,6 +3704,7 @@ def run_analysis_phase(torch, dev, cfg):
     from repro_torch.analysis.fixtures import FIXTURES
     from repro_torch.analysis.registry import HOT_PATHS
     from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import process_group
     from repro_torch.models.init import param_count
 
     on_card = dev.type == "cuda"
@@ -3463,45 +3756,17 @@ def run_analysis_phase(torch, dev, cfg):
         for m in check_plans(torch, dev, n_pad, n_mask):
             problems.append(f"plan mismatch: {m}")
 
-    # (c) the registry: clean, launches = kernel records, sync agreement
+    # (c) the registry: clean, launches = kernel records, sync agreement;
+    # each program in a one-rank process group, where fl_round_sharded's
+    # 1x1 mesh lives (as analysis.core.run_program runs them)
     t0 = time.perf_counter()
     reg = []
     for prog in HOT_PATHS:
-        try:
-            built = prog.build(dev)
-        except AC.ProgramSkip as e:
-            # only this one skips, naming the item it waits for
-            want = {"fl_round_sharded": "A12"}.get(prog.name)
-            if want is None or want not in str(e):
-                problems.append(f"{prog.name} skipped: {e}")
-            reg.append(dict(program=prog.name, skipped=str(e)))
-            continue
-        art, counts, expected = _record_counted(torch, ops, AC, built, dev)
+        with process_group(dev.type):
+            row, counts, expected = _registry_row(torch, ops, AC, AR, prog,
+                                                  dev, problems)
         add(counts, expected, prog.name)
-        rows = AC.check_rules(prog.name, built, art, AR.ALL_RULES)
-        errs = [f["message"] for r in rows for f in r["findings"]
-                if f["severity"] == "error"]
-        peak = next(f["detail"]["peak_bytes"] for r in rows
-                    for f in r["findings"] if r["rule"] == "memory-ceiling"
-                    and "detail" in f and "peak_bytes" in f["detail"])
-        row = dict(program=prog.name, errors=errs[:3],
-                   launches={k: v for k, v in counts.items() if v},
-                   liveness_peak_bytes=peak,
-                   not_applicable=[r["rule"] for r in rows
-                                   if r.get("skipped")])
-        if on_card:
-            syncs = _sync_warnings(torch, built.fn, built.args)
-            rule_syncs = AR.host_sync_records(art.trace())
-            row.update(sync_warnings=syncs[:3], n_sync=len(syncs),
-                       rule_syncs=rule_syncs[:3],
-                       agree=bool(syncs) == bool(rule_syncs))
-            if not row["agree"]:
-                problems.append(f"{prog.name}: sync debug mode and the "
-                                f"host-sync rule disagree: {row}")
-        if errs:
-            problems.append(f"{prog.name}: {errs[:3]}")
         reg.append(row)
-        del built, art
     emit("analysis.registry", ok=not any(r.get("errors") for r in reg),
          seconds=time.perf_counter() - t0, programs=reg)
 
@@ -3512,6 +3777,35 @@ def run_analysis_phase(torch, dev, cfg):
     if problems:
         fail(f"analysis: {problems[:4]}")
     return total, total_expected
+
+
+def _registry_row(torch, ops, AC, AR, prog, dev, problems):
+    """One registry program built, recorded and checked: (its row, launch
+    counts, the counts its kernel records imply)."""
+    built = prog.build(dev)
+    art, counts, expected = _record_counted(torch, ops, AC, built, dev)
+    rows = AC.check_rules(prog.name, built, art, AR.ALL_RULES)
+    errs = [f["message"] for r in rows for f in r["findings"]
+            if f["severity"] == "error"]
+    peak_bytes = next(f["detail"]["peak_bytes"] for r in rows
+                      for f in r["findings"] if r["rule"] == "memory-ceiling"
+                      and "detail" in f and "peak_bytes" in f["detail"])
+    row = dict(program=prog.name, errors=errs[:3],
+               launches={k: v for k, v in counts.items() if v},
+               liveness_peak_bytes=peak_bytes,
+               not_applicable=[r["rule"] for r in rows if r.get("skipped")])
+    if dev.type == "cuda":
+        syncs = _sync_warnings(torch, built.fn, built.args)
+        rule_syncs = AR.host_sync_records(art.trace())
+        row.update(sync_warnings=syncs[:3], n_sync=len(syncs),
+                   rule_syncs=rule_syncs[:3],
+                   agree=bool(syncs) == bool(rule_syncs))
+        if not row["agree"]:
+            problems.append(f"{prog.name}: sync debug mode and the "
+                            f"host-sync rule disagree: {row}")
+    if errs:
+        problems.append(f"{prog.name}: {errs[:3]}")
+    return row, counts, expected
 
 
 def run_analysis_full(torch, dev, cfg, problems):
@@ -3806,6 +4100,7 @@ def main() -> int:
     launches = {name: 0 for name in KERNEL_SOURCES}
     for phase, run, cfg in (("slice", run_slice, LLAMA32_1B),
                             ("fleet", run_fleet, LLAMA32_1B),
+                            ("mesh", run_mesh, LLAMA32_1B),
                             ("lora", run_lora, llama_lora),
                             ("slice_qwen3", run_slice_qwen3, qwen3),
                             ("options", run_options,

@@ -181,18 +181,23 @@ def check_rules(program: str, built: Built, artifacts: Artifacts,
 def run_program(program: Program, rules: Sequence[Rule],
                 dev=None) -> List[dict]:
     """All requested rules over one program built on ``dev`` (None: the
-    card); one result row per rule."""
+    card); one result row per rule.  The program runs in a process group:
+    the caller's, or a one-rank group joined for it
+    (``launch/mesh.process_group``), where a mesh program's ``1x1`` mesh
+    lives."""
+    from repro_torch.launch.mesh import process_group
     dev = resolve_device(dev)
-    try:
-        built = program.build(dev)
-    except ProgramSkip as e:
-        return [dict(program=program.name, rule=r.name, ok=True,
-                     skipped=str(e), findings=[]) for r in rules]
-    artifacts = Artifacts(built, dev)
-    if built.meta.get("runtime", True) and any(
-            "runtime" in r.needs and r.applicable(built) for r in rules):
-        artifacts.repeat()  # before the recorded call (Artifacts.repeat)
-    return check_rules(program.name, built, artifacts, rules)
+    with process_group(dev.type):
+        try:
+            built = program.build(dev)
+        except ProgramSkip as e:
+            return [dict(program=program.name, rule=r.name, ok=True,
+                         skipped=str(e), findings=[]) for r in rules]
+        artifacts = Artifacts(built, dev)
+        if built.meta.get("runtime", True) and any(
+                "runtime" in r.needs and r.applicable(built) for r in rules):
+            artifacts.repeat()  # before the recorded call (Artifacts.repeat)
+        return check_rules(program.name, built, artifacts, rules)
 
 
 def run_analysis(programs: Sequence[Program], rules: Sequence[Rule],

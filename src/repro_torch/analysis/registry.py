@@ -25,7 +25,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.analysis.core import Built, Program, ProgramSkip
+from repro_torch.analysis.core import Built, Program
 
 S = 320              # sequence length: > vocab, d_model > ATTN_AUTO_MIN_S
 MiB = 2 ** 20
@@ -111,9 +111,60 @@ def build_fl_round(dev) -> Built:
 
 
 def build_fl_round_sharded(dev) -> Built:
-    raise ProgramSkip(
-        "needs the sharded round (FLShardPlan over a device mesh, "
-        "sharding/fl.py), which the port does not have yet (ROADMAP A12)")
+    """The sharded round on the process group the analyzer runs in (a
+    one-rank ``1x1`` mesh in a single process, ``analysis.core.run_program``):
+    the group body under an ``FLShardPlan`` (parameters at rest as
+    DTensors and gathered at entry, the rank's block of the clients, their
+    scalars gathered in client order).  Also runs one live ``FederatedZO``
+    round on the plan to cross-check ``CommLog`` against the protocol's
+    4*K*T*n_dirs bytes."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import Client, FederatedZO, prng
+    from repro_torch.data import (TaskSpec, dirichlet_partition,
+                                  sample_dataset, subset)
+    from repro_torch.sharding.fl import make_fl_plan
+    from repro_torch.utils.tree import tree_leaves
+    model, params, loss, space = _round_problem(dev)
+    plan = make_fl_plan(spec="1x1")
+    K, T, b = 4, 2, 8
+    group = _group_fn(loss, space)
+
+    def sharded(at_rest, keys, batches):
+        local = {k: v.to_local() for k, v in batches.items()}
+        deltas, gs = group(plan.compute_view(at_rest), keys.to_local(),
+                           local)
+        return deltas, plan.gather_clients(gs, K)
+
+    batches = {"tokens": _tokens(dev, K, T, b, 16, high=512),
+               "label": _tokens(dev, K, T, b, high=4)}
+    args = (plan.place_params(params),
+            plan.place_replicated(prng.split(prng.key(2), T)),
+            plan.place_client_batches(batches, K))
+
+    # live round on the same plan: the protocol's byte accounting
+    fl = FLConfig(n_clients=K, local_steps=T, lr=5e-2, eps=1e-3, seed=0,
+                  zo_backend="ref")
+    train = sample_dataset(TaskSpec(), 256, seed=1)
+    parts = dirichlet_partition(train["label"], K, 0.5, seed=0)
+    clients = [Client(k, subset(train, p), b) for k, p in enumerate(parts)]
+    srv = FederatedZO(loss, params, space, fl, clients, device=dev,
+                      plan=plan)
+    srv.run_round()
+    param_bytes = int(sum(p.numel() * p.element_size()
+                          for p in tree_leaves(params)))
+    return Built(
+        sharded, args,
+        meta=dict(
+            peak_bytes_budget=3 * MiB,  # estimate 1.54 MiB
+            comm=dict(
+                param_bytes=param_bytes,
+                # one ZeRO-3 gather of the weights per round body
+                allgather_max_bytes=3 * param_bytes,
+                # uplink-class traffic: deltas [K, n] + gs [K, T] + slop,
+                # still ~100x under one model copy
+                other_collective_max_bytes=8 * K * (space.n + T) + 2 ** 16,
+                expected_up_bytes=4 * K * T * fl.n_dirs,
+                commlog_up_bytes=int(srv.comm.up_bytes))))
 
 
 def build_ckpt_roundtrip(dev) -> Built:
@@ -218,7 +269,7 @@ HOT_PATHS = (
             "FederatedZO round group (clients in sequence), unsharded",
             build_fl_round),
     Program("fl_round_sharded",
-            "FederatedZO round group under FLShardPlan (not ported: A12)",
+            "FederatedZO round group under FLShardPlan (1x1 mesh)",
             build_fl_round_sharded),
     Program("ckpt_roundtrip",
             "checkpoint save/restore round trip, then the round group on "

@@ -17,8 +17,12 @@ model-sized part (params, velocity) and the per-client scalar part
 (pointers, GradIP scalars, pending uploads, sampler state): the server
 state never grows as K x model.
 
-Parameters are written from wherever they live, leaf by leaf, and restore
-onto the target server's device with each leaf's dtype.
+Parameters are written from wherever they live, leaf by leaf; a server on
+a mesh (``plan=``) writes its gathered parameters, from rank 0 alone, so
+the file is the unsharded server's byte for byte.  They restore onto the
+target server's device with each leaf's dtype and are placed per the
+*target* server's plan: a checkpoint moves between meshes and the
+unsharded server.
 """
 from __future__ import annotations
 
@@ -64,10 +68,17 @@ def _config_fingerprint(server) -> dict:
     return cfg
 
 
+def _is_writer(server) -> bool:
+    """Rank 0 of a mesh server's group writes; an unsharded server writes."""
+    return server.plan is None or torch.distributed.get_rank() == 0
+
+
 def save_server_state(path: str, server, extra_meta: dict | None = None
                       ) -> str:
-    """Write a full server snapshot to ``path`` (atomic; io.py format)."""
-    tree = {"params": server.params}
+    """Write a full server snapshot to ``path`` (atomic; io.py format).
+    Every rank of a mesh server calls it (the gather is a collective);
+    rank 0 writes, and every rank returns once the file is there."""
+    tree = {"params": server.full_params()}
     if server.velocity is not None:
         tree["velocity"] = server.velocity
     gradip, gradip_len = {}, {}
@@ -105,7 +116,10 @@ def save_server_state(path: str, server, extra_meta: dict | None = None
     }
     if extra_meta:
         meta["extra"] = extra_meta
-    save_pytree(path, tree, metadata=meta)
+    if _is_writer(server):
+        save_pytree(path, tree, metadata=meta)
+    if server.plan is not None:
+        torch.distributed.barrier()
     return path
 
 
@@ -122,7 +136,8 @@ def _check_config(meta: dict, server, path: str):
 
 def restore_server_state(path: str, server) -> dict:
     """Restore a snapshot written by :func:`save_server_state` (by either
-    package) into ``server``.  Returns the checkpoint meta dict."""
+    package, from any mesh) into ``server``, its parameters placed per
+    ``server.plan``.  Returns the checkpoint meta dict."""
     meta, leaves = load_manifest(path)
     if meta.get("state_version") != STATE_VERSION:
         raise CheckpointError(
@@ -130,8 +145,9 @@ def restore_server_state(path: str, server) -> dict:
             f"{meta.get('state_version')!r} != supported {STATE_VERSION}")
     _check_config(meta, server, path)
 
-    # -- params: template-checked against the live tree, onto the server's
-    # device with each live leaf's dtype ---------------------------------
+    # -- params: template-checked against the live tree (a mesh server's
+    # leaves give their global shapes), onto the server's device with each
+    # live leaf's dtype, then placed per the target plan ------------------
     flat, treedef = tree_flatten_with_keys(server.params, "['params']")
     out = []
     for key, tleaf in flat:
@@ -142,9 +158,11 @@ def restore_server_state(path: str, server) -> dict:
             raise CheckpointError(
                 f"{path!r}: shape mismatch at {key!r}: "
                 f"{tuple(arr.shape)} vs {tuple(tleaf.shape)}")
-        out.append(arr.to(device=tleaf.device, dtype=tleaf.dtype))
+        out.append(arr.to(device=server.device, dtype=tleaf.dtype))
         del arr
     server.params = tree_unflatten(treedef, out)
+    if server.plan is not None:
+        server.params = server.plan.place_params(server.params)
 
     server.velocity = (leaves[_keystr("velocity")].to(server.device)
                        if meta.get("has_velocity") else None)

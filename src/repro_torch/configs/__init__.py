@@ -1,6 +1,7 @@
 """Config registry (``repro.configs``): the assigned architectures the port
 runs, the paper's models, and the tiny test configs."""
-from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.configs.base import (FLConfig, InputShape, MeshConfig,
+                                      ModelConfig)
 from repro_torch.configs.chatglm3_6b import CONFIG as CHATGLM3_6B
 from repro_torch.configs.gemma2_27b import CONFIG as GEMMA2_27B
 from repro_torch.configs.jamba_1_5_large_398b import CONFIG as JAMBA_1_5_LARGE
@@ -10,6 +11,7 @@ from repro_torch.configs.phi35_moe_42b_a6_6b import CONFIG as PHI35_MOE
 from repro_torch.configs.pixtral_12b import CONFIG as PIXTRAL_12B
 from repro_torch.configs.qwen2_7b import CONFIG as QWEN2_7B
 from repro_torch.configs.qwen3_4b import CONFIG as QWEN3_4B
+from repro_torch.configs.shapes import SHAPES, get_shape
 from repro_torch.configs.tiny import TINY, TINY_LORA
 from repro_torch.configs.whisper_small import CONFIG as WHISPER_SMALL
 from repro_torch.configs.xlstm_350m import CONFIG as XLSTM_350M

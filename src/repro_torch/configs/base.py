@@ -1,7 +1,7 @@
 """Config dataclasses of the PyTorch port: a copy of
 ``repro.configs.base`` (the port imports nothing of the JAX package), less
-the input-shape, mesh and first-order configs it does not use yet and the
-TPU hardware table.
+the first-order config it does not use and the TPU hardware table (the
+card's peaks are ``launch/roofline.HW``).
 
 Every architecture is expressed as a :class:`ModelConfig`; each family also
 provides a ``reduced()`` variant (<=2 layers, d_model<=256, <=4 experts) that
@@ -164,6 +164,44 @@ class ModelConfig:
         if self.frontend == "vision_stub":
             kw["n_patches"] = 8
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    def reduced(self, seq_len: int = 32, global_batch: int = 4) -> "InputShape":
+        return InputShape(self.name + "-reduced", seq_len, global_batch, self.kind)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model * self.pods
+
+    @property
+    def shape(self):
+        if self.pods > 1:
+            return (self.pods, self.data, self.model)
+        return (self.data, self.model)
+
+    @property
+    def axis_names(self):
+        if self.pods > 1:
+            return ("pod", "data", "model")
+        return ("data", "model")
+
+    @property
+    def batch_axes(self):
+        return ("pod", "data") if self.pods > 1 else ("data",)
 
 
 @dataclass(frozen=True)

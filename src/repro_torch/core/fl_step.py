@@ -18,11 +18,19 @@ weight update one ``zo_fused_update_flat`` launch.
 per-client scalars to the uplink wire grid under each step's key before
 the masked mean, as the JAX package does.
 
-Left out against the JAX package: ``constrain_params`` (a mesh's weight
-shardings; the port runs on one device until ROADMAP A12) and
-``stack_forwards=True`` (``jax.vmap`` over the (w+, w-) pair; the
-ctypes-bound kernels cannot be vmapped, so the two forwards always run in
-sequence, ROADMAP C).
+``constrain_params`` (``FLShardPlan.constrain_params_fn()``) is the mesh
+route: each rank gathers the parameters once a call, computes the
+per-example losses of its block of the clients' rows, and the blocks are
+``all_gather``-ed in client order, so every rank forms the same scalars
+and applies the same update, then re-places the parameters.  The routes
+and kernels are the unsharded ones (ROADMAP C20).  JAX sums the scalars
+with a mesh-ordered ``psum``; the port keeps the client order (ROADMAP
+C21), and row-split forwards may differ from the whole batch's in the
+last bits, so the route is held to the JAX tool's tolerance.
+
+Left out against the JAX package: ``stack_forwards=True`` (``jax.vmap``
+over the (w+, w-) pair; the ctypes-bound kernels cannot be vmapped, so the
+two forwards always run in sequence, ROADMAP C).
 
 Everything runs under ``torch.no_grad()`` and eagerly: ``n_steps`` is a
 Python loop in place of ``jax.lax.scan``.
@@ -52,13 +60,44 @@ def _g_clients(l_plus, l_minus, n_clients: int, eps: float):
     return (l_plus - l_minus).reshape(n_clients, -1).mean(-1) / (2.0 * eps)
 
 
+def _mesh_plan(constrain_params):
+    """The plan of the mesh route (None without one)."""
+    if constrain_params is None:
+        return None
+    plan = getattr(constrain_params, "plan", None)
+    if plan is None:
+        raise TypeError("constrain_params is the callable that "
+                        "FLShardPlan.constrain_params_fn() returns")
+    return plan
+
+
+def _rank_rows(plan, n_clients: int):
+    """``batch -> batch``: this rank's block of the clients' rows (dim 0 of
+    every leaf, K clients' rows in order); the identity without a plan."""
+    if plan is None:
+        return lambda batch: batch
+    blk = plan.client_block(n_clients)
+
+    def rows(batch):
+        b = next(iter(batch.values())).shape[0] // n_clients
+        return {k: v[blk.start * b:blk.stop * b] for k, v in batch.items()}
+
+    return rows
+
+
 def _step_bodies(per_example_loss: Callable, space, eps: float, lr: float,
-                 n_clients: int, quantize=None):
+                 n_clients: int, quantize=None, plan=None):
     """The T=1 step on each route, shared by the step and the loop:
     ``ref(p, z, batch, mask, key)`` over the parameter tree and
     ``flat(backing, w_flat, z_flat, batch, mask, key)`` over the flat
     vector; each returns (the new params or flat vector, g_clients [K], g,
-    loss).  ``key`` is the step's, for the quantizer's rounding draw."""
+    loss).  ``key`` is the step's, for the quantizer's rounding draw.
+    Under a ``plan`` the batch holds the rank's rows, and the per-example
+    losses of every rank's rows are gathered before the scalars."""
+    per_example = per_example_loss
+    if plan is not None:
+        def per_example(p, batch):
+            return plan.gather_clients(per_example_loss(p, batch), n_clients)
 
     def finish(l_plus, l_minus, mask, key):
         g_clients = _g_clients(l_plus, l_minus, n_clients, eps)
@@ -69,18 +108,18 @@ def _step_bodies(per_example_loss: Callable, space, eps: float, lr: float,
 
     def ref(p, z, batch, mask, key):
         w_plus = space.add(p, eps * z)
-        l_plus = per_example_loss(w_plus, batch)
+        l_plus = per_example(w_plus, batch)
         w_minus = space.add(w_plus, (-2.0 * eps) * z)
         del w_plus
-        l_minus = per_example_loss(w_minus, batch)
+        l_minus = per_example(w_minus, batch)
         g_clients, g, loss = finish(l_plus, l_minus, mask, key)
         return space.add(w_minus, (eps - lr * g) * z), g_clients, g, loss
 
     def flat(backing, w_flat, z_flat, batch, mask, key):
         wp, wm = zo_dual_perturb_flat(w_flat, z_flat, None, eps)
-        l_plus = per_example_loss(backing.unflatten(wp), batch)
+        l_plus = per_example(backing.unflatten(wp), batch)
         del wp
-        l_minus = per_example_loss(backing.unflatten(wm), batch)
+        l_minus = per_example(backing.unflatten(wm), batch)
         del wm
         g_clients, g, loss = finish(l_plus, l_minus, mask, key)
         return (zo_fused_update_flat(w_flat, z_flat, None, -lr * g),
@@ -90,19 +129,26 @@ def _step_bodies(per_example_loss: Callable, space, eps: float, lr: float,
 
 
 def make_fl_train_step(per_example_loss: Callable, space, *, eps: float,
-                       lr: float, n_clients: int,
+                       lr: float, n_clients: int, constrain_params=None,
                        backend: Optional[str] = None, quantize=None):
     """T=1 high-frequency MEERKAT step (Alg. 3).  Returns
     ``step(params, key, batch, report_mask=None) -> (params', g_clients [K],
     metrics)``; ``per_example_loss(params, batch)`` gives the [B] losses of
     a batch whose rows are the K clients' in order.  ``report_mask`` ([K]
     0/1) leaves the clients whose upload was lost out of the mean;
-    ``quantize`` rounds the K scalars to the wire grid first."""
+    ``quantize`` rounds the K scalars to the wire grid first.
+    ``constrain_params`` is the mesh route (module docstring): ``params``
+    rest on the plan's mesh, and so do ``params'``."""
+    plan = _mesh_plan(constrain_params)
     ref, flat = _step_bodies(per_example_loss, space, eps, lr, n_clients,
-                             quantize)
+                             quantize, plan)
+    rows = _rank_rows(plan, n_clients)
 
     @torch.no_grad()
     def step(params, key, batch, report_mask=None):
+        if plan is not None:
+            params = plan.compute_view(params)
+        batch = rows(batch)
         backing = get_backing(space, params)
         z = space.sample_z(key)
         if resolve_backend(backend, backing) == "ref":
@@ -113,6 +159,8 @@ def make_fl_train_step(per_example_loss: Callable, space, *, eps: float,
                 backing, backing.flatten(params), backing.expand(z), batch,
                 report_mask, key)
             new_params = backing.unflatten(w_flat)
+        if plan is not None:
+            new_params = constrain_params(new_params)
         return new_params, g_clients, {"loss": loss, "g": g}
 
     return step
@@ -121,7 +169,8 @@ def make_fl_train_step(per_example_loss: Callable, space, *, eps: float,
 def make_fl_train_loop(per_example_loss: Callable, space, *, eps: float,
                        lr: float, n_clients: int, n_steps: int,
                        backend: Optional[str] = None,
-                       stack_forwards: Optional[bool] = None, quantize=None):
+                       stack_forwards: Optional[bool] = None,
+                       constrain_params=None, quantize=None):
     """``n_steps`` T=1 MEERKAT steps in one call, the training burst.
 
     Returns ``loop(params, key, batches, report_masks=None) -> (params',
@@ -135,24 +184,30 @@ def make_fl_train_loop(per_example_loss: Callable, space, *, eps: float,
     coordinates each step overwrites in place: each step is one
     ``zo_dual_perturb_flat``, the two forwards and one
     ``zo_fused_update_flat``.  ``stack_forwards`` may be None or False (two
-    forwards in sequence, see the module docstring).  ``quantize`` mirrors
-    :func:`make_fl_train_step`, under each step's key."""
+    forwards in sequence, see the module docstring).  ``quantize`` and
+    ``constrain_params`` mirror :func:`make_fl_train_step`, ``quantize``
+    under each step's key; the mesh route gathers the parameters once a
+    burst."""
     if stack_forwards:
         raise NotImplementedError(
             "stack_forwards=True vmaps the (w+, w-) forwards in the JAX "
             "package; the port's ctypes-bound kernels cannot be vmapped, so "
             "it always runs the two forwards in sequence")
+    plan = _mesh_plan(constrain_params)
     ref, flat = _step_bodies(per_example_loss, space, eps, lr, n_clients,
-                             quantize)
+                             quantize, plan)
+    rows = _rank_rows(plan, n_clients)
 
     @torch.no_grad()
     def loop(params, key, batches, report_masks=None):
+        if plan is not None:
+            params = plan.compute_view(params)  # once a burst
         backing = get_backing(space, params)
         keys = prng.split(key, n_steps)
         masks = ([None] * n_steps if report_masks is None
                  else list(report_masks))
-        steps = [({k: v[i] for k, v in batches.items()}, keys[i], masks[i])
-                 for i in range(n_steps)]
+        steps = [(rows({k: v[i] for k, v in batches.items()}), keys[i],
+                  masks[i]) for i in range(n_steps)]
         gs, losses = [], []
         if resolve_backend(backend, backing) == "ref":
             p = params
@@ -171,6 +226,8 @@ def make_fl_train_loop(per_example_loss: Callable, space, *, eps: float,
                 gs.append(g_cl)
                 losses.append(loss)
             p = backing.unflatten(w_flat)
+        if plan is not None:
+            p = constrain_params(p)
         gs = torch.stack(gs)
         return p, gs, {"loss": losses[-1], "g": gs[-1].mean()}
 

@@ -7,6 +7,16 @@ one after another on the server's device (the JAX package maps over them);
 the aggregated update is always computed from the server-side virtual-path
 reconstruction of the uploaded scalars.
 
+**Mesh route** (``plan=``, a :class:`repro_torch.sharding.fl.FLShardPlan`):
+every rank of the plan's mesh holds a server.  Parameters rest as DTensors
+placed by the plan (FSDP by default); each round gathers them once, every
+rank runs its block of each T-group's clients through the same client loop
+as the unsharded server (same routes and kernels), the decoded uploads are
+``all_gather``-ed in cohort order, and every rank replays, aggregates and
+applies the identical update, then re-places it.  Cohorts, faults, data
+pointers, GradIP and ``CommLog`` are computed on every rank from the shared
+seed, so the sharded round is bit-identical to the unsharded one.
+
 **Fault tolerance**: ``run_round(faults=)`` tolerates clients dropping
 (aggregate over survivors) and straggling (bounded staleness, seed-replayed
 exactly at arrival), and ``save_checkpoint``/``load_checkpoint`` snapshot
@@ -20,8 +30,6 @@ the cohort, unsampled clients get explicit GradIP gaps), and ``fl.quantize``
 routes the scalar uplink through the ``core/quantize`` codec: clients apply
 the wire-grid values in-loop (exact replay), so the server reconstructs
 virtual paths from the *decoded* upload bit for bit.
-
-Not ported yet (``ROADMAP.md``): the mesh route (``plan``, A12).
 """
 from __future__ import annotations
 
@@ -94,13 +102,16 @@ class FederatedZO:
 
     Args:
       loss_fn: scalar client loss ``(params, batch) -> f32 tensor``.
-      params: initial parameter tree, on ``device``.
+      params: initial parameter tree, on ``device``.  With ``plan`` set it
+        is placed on the mesh per the plan's rule at construction.
       space: coordinate space (``core/spaces.py``).
       fl: :class:`FLConfig` hyper-parameters.
       clients: the client fleet (``Client`` instances).
       eval_fn: optional ``(params, batch) -> {metric: tensor}``.
       device: where the rounds run; the CUDA card unless ``"cpu"`` is
-        asked for.
+        asked for (under a ``plan``, the rank's device).
+      plan: optional :class:`repro_torch.sharding.fl.FLShardPlan`: run
+        every round on the plan's mesh (see the module docstring).
       sampler: optional :class:`repro_torch.core.sampling.ClientSampler`
         override; by default one is built from ``fl.sample_frac < 1``
         (seeded with ``fl.seed``, weighted by client data size when
@@ -115,14 +126,17 @@ class FederatedZO:
 
     def __init__(self, loss_fn: Callable, params, space, fl: FLConfig,
                  clients: Sequence[Client], eval_fn: Optional[Callable] = None,
-                 device=None, sampler=None, codec=None):
+                 device=None, plan=None, sampler=None, codec=None):
         self.device = resolve_device(device)
         for p in tree_leaves(params):
             if p.device.type != self.device.type:
                 raise ValueError(f"params live on {p.device}, not "
                                  f"{self.device}")
+        if plan is not None:
+            plan.check_compute()
         self.loss_fn = loss_fn
-        self.params = params
+        self.plan = plan
+        self.params = params if plan is None else plan.place_params(params)
         self.space = space
         self.fl = fl
         self.backend = fl.zo_backend
@@ -154,14 +168,34 @@ class FederatedZO:
     def _client_T(self, cid: int) -> int:
         return 1 if cid in self.early_stopped else self.fl.local_steps
 
-    def _run_client(self, c: Client, keys, T: int) -> np.ndarray:
-        """Client ``c`` runs T local ZO steps from the current params and
-        uploads its scalars: [T] (or [T, n_dirs]) f32 on the host."""
-        batches = {k: torch.as_tensor(v, device=self.device)
-                   for k, v in c.next_batches(T).items()}
+    def full_params(self):
+        """The parameters as full tensors: the plan's gather
+        (``FLShardPlan.compute_view``, a collective every rank joins), or
+        the tree itself without a plan."""
+        if self.plan is None:
+            return self.params
+        return self.plan.compute_view(self.params)
+
+    def _run_clients(self, cs: List[Client], keys, T: int,
+                     params) -> np.ndarray:
+        """Clients ``cs`` run T local ZO steps each from ``params`` and
+        upload their scalars: [len(cs), T] (or [.., T, n_dirs]) f32 on the
+        host, in the order of ``cs``.  Every client's data pointer advances
+        on every rank; under a plan the rank runs its block of ``cs`` and
+        the blocks are gathered."""
+        data = [c.next_batches(T) for c in cs]
+        blk = (range(len(cs)) if self.plan is None
+               else self.plan.client_block(len(cs)))
         zeros = torch.zeros(self.space.n, dtype=torch.float32,
                             device=self.device)
-        _, gs = self._run(self.params, keys, batches, zeros)
+        gs = []
+        for i in blk:
+            batches = {k: torch.as_tensor(v, device=self.device)
+                       for k, v in data[i].items()}
+            gs.append(self._run(params, keys, batches, zeros)[1])
+        gs = torch.stack(gs)
+        if self.plan is not None:
+            gs = self.plan.gather_clients(gs, len(cs))
         return gs.cpu().numpy().astype(np.float32)
 
     def _recon(self, keys, gs: np.ndarray):
@@ -212,6 +246,7 @@ class FederatedZO:
         land in ``self.last_round_info``."""
         f = faults if faults is not None else fault.NO_FAULTS
         r = self.round
+        params = self.full_params()  # under a plan: the gather at entry
         cohort = self._cohort(r)
         in_cohort = set(cohort)
         f = f.restrict(in_cohort)
@@ -233,11 +268,11 @@ class FederatedZO:
             if not cs:
                 continue
             keys = S.round_keys(self.fl.seed, r, T)
-            for c in cs:
-                # (1) the client runs T local ZO steps; its scalars cross
-                # the wire through the codec, and the server keeps the
-                # decoded values (the ones the client applied)
-                wire = self.codec.encode(self._run_client(c, keys, T))
+            # (1) the clients run T local ZO steps each; their scalars
+            # cross the wire through the codec, and the server keeps the
+            # decoded values (the ones the clients applied)
+            for c, g in zip(cs, self._run_clients(cs, keys, T, params)):
+                wire = self.codec.encode(g)
                 g = self.codec.decode(wire)
                 if c.cid in f.late:
                     # straggler: the downlink happened, the upload is in
@@ -290,7 +325,10 @@ class FederatedZO:
                              else self.fl.server_momentum * self.velocity
                              + agg)
             agg = self.velocity
-        self.params = self.space.add(self.params, agg)
+        params = self.space.add(params, agg)
+        self.params = (params if self.plan is None
+                       else self.plan.place_params(params))
+        del params
         self.round += 1
         self.last_round_info = dict(
             round=r, n_reporting=n_report, drops=sorted(f.drops),
@@ -315,10 +353,10 @@ class FederatedZO:
         ids, trajectories [GradIP [T_cali] arrays])."""
         T = T_cali or self.fl.vp_calibration_steps
         keys = S.round_keys(self.fl.seed, -1, T)
+        gs = self._run_clients(self.clients, keys, T, self.full_params())
         trajs = []
-        for c in self.clients:
-            trajs.append(self._gradip(keys, self._run_client(c, keys, T),
-                                      gp_vec))
+        for c, g in zip(self.clients, gs):
+            trajs.append(self._gradip(keys, g, gp_vec))
             c.ptr = 0  # calibration does not consume training order
         results, flagged = VPCS.select_clients(trajs, self.fl)
         self.early_stopped = set(flagged)
@@ -344,7 +382,9 @@ class FederatedZO:
     def load_checkpoint(self, path: str) -> dict:
         """Restore a :meth:`save_checkpoint` snapshot (this package's or
         the JAX package's) into this server, config-fingerprint checked;
-        parameters land on this server's device.  Returns the meta dict."""
+        parameters land on this server's device, placed per its ``plan``
+        (so a checkpoint moves between meshes and the unsharded server).
+        Returns the meta dict."""
         from repro_torch.checkpoint.state import restore_server_state
         return restore_server_state(path, self)
 
@@ -371,7 +411,7 @@ class FederatedZO:
             self.run_round(gp_vec=gp_vec, faults=faults)
             if eval_every and self.round % eval_every == 0 \
                     and self.eval_fn is not None:
-                m = self.eval_fn(self.params, eval_batch)
+                m = self.eval_fn(self.full_params(), eval_batch)
                 m = {k: float(v) for k, v in m.items()}
                 m["round"] = self.round
                 self.history.append(m)

@@ -10,7 +10,12 @@ with a quantized uplink, and checkpoint/resume.  ``--method lora`` is
 LoRA-FedZO: ZO over the q/v adapters only (``LoRASpace``; rank 4 unless the
 config sets one).  Runs on the CUDA card unless ``--device`` says otherwise.
 
-Not ported yet: ``--mesh`` (ROADMAP A12); it raises.
+``--mesh DxM|PxDxM`` runs every round sharded on a device mesh
+(``sharding/fl.FLShardPlan``; ``--mesh-rule``, FSDP by default): started
+alone, the CLI spawns the mesh's ranks itself (``launch/mesh.spawn``: gloo
+ranks with ``--device cpu``, else one card a rank); under ``torchrun`` it
+runs as one of its ranks.  Rank 0 alone prints and writes; the final
+checkpoint is the unsharded run's, byte for byte.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 4
@@ -19,6 +24,8 @@ Examples:
       # then the same command + --resume
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --drop-rate 0.2 --late-rate 0.1 --sample-frac 0.5 --quantize int8
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --mesh 2x2 --rounds 2 --T 2 --clients 4
 """
 from __future__ import annotations
 
@@ -28,17 +35,20 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.state import FINAL_NAME, LATEST_NAME
 from repro_torch.configs import TINY, get_config
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import (Client, DenseSpace, FederatedZO, LoRASpace,
-                              magnitude_mask, pretrain_gradient_vec,
-                              random_mask, sensitivity_mask)
+                              MaskedSpace, magnitude_mask,
+                              pretrain_gradient_vec, random_mask,
+                              sensitivity_mask)
 from repro_torch.data import (TaskSpec, dirichlet_partition, iid_partition,
                               make_task_fns, pretrain_batches, sample_dataset,
                               single_label_partition, subset)
 from repro_torch.fault import FaultPlan
+from repro_torch.launch import mesh as M
 from repro_torch.models import Model, ModelCtx
 
 
@@ -80,8 +90,13 @@ def main(argv=None):
                     choices=["auto", "kernel", "online", "dense"],
                     help="forward-attention route for the ZO loss forwards")
     ap.add_argument("--mesh", default=None,
-                    help="sharded rounds on a device mesh: not ported yet "
-                         "(ROADMAP A12); raises")
+                    help="run rounds sharded on a device mesh: DxM / PxDxM "
+                         "ranks (e.g. 2x2), one device a rank")
+    ap.add_argument("--mesh-rule", default="fsdp",
+                    choices=["fsdp", "tp", "replicate"],
+                    help="parameter sharding rule under --mesh "
+                         "(sharding/fl.py; fsdp and replicate are bit-exact "
+                         "against the unsharded run; tp is not ported)")
     ap.add_argument("--vp", action="store_true",
                     help="MEERKAT-VP: calibrate GradIP + early-stop")
     ap.add_argument("--eval-every", type=int, default=5)
@@ -122,18 +137,44 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     a = ap.parse_args(argv)
-    if a.mesh:
-        raise NotImplementedError(
-            "--mesh needs the sharded round (FLShardPlan), not ported yet "
-            "(ROADMAP A12)")
+    if not a.mesh:
+        return train(a, a.device)
+    try:
+        mc = M.parse_mesh_spec(a.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    from repro_torch.sharding.fl import FLShardPlan
+    FLShardPlan(None, mc, a.mesh_rule).check_compute()
+    device_type = "cpu" if a.device == "cpu" else "cuda"
+    if torch.distributed.is_initialized() or M.torchrun_env() is not None:
+        with M.process_group(device_type) as dev:
+            return _rank(dev, a)
+    M.spawn(_rank, mc.n_devices, device_type, a)
 
+
+def _rank(dev, a):
+    """One rank of a ``--mesh`` run."""
+    from repro_torch.sharding.fl import make_fl_plan
+    plan = make_fl_plan(spec=a.mesh, rule=a.mesh_rule)
+    return train(a, dev, plan)
+
+
+def train(a, device, plan=None):
+    """The run of parsed arguments ``a`` on ``device``, sharded on
+    ``plan``'s mesh when one is given (then only rank 0 prints and
+    writes)."""
+    writer = plan is None or torch.distributed.get_rank() == 0
+    say = print if writer else (lambda *args, **kw: None)
     cfg = TINY if a.arch == "tiny" else get_config(a.arch).reduced()
     if a.method == "lora" and cfg.lora_rank == 0:
         cfg = cfg.replace(lora_rank=4)
     spec = TaskSpec(vocab=min(cfg.vocab, 512), seq_len=16)
+    if plan is not None:
+        say(f"mesh: {a.mesh} ({plan.mesh_cfg.n_devices} ranks, "
+            f"rule={a.mesh_rule}, client axis over {plan.batch_axes})")
     model = Model(cfg, ctx=ModelCtx(attn_backend=a.attn_backend),
-                  device=a.device)
-    print(f"arch={cfg.name} params={model.n_params:,} method={a.method} "
+                  device=device)
+    say(f"arch={cfg.name} params={model.n_params:,} method={a.method} "
           f"device={model.device}")
 
     params = model.init(seed=a.seed)
@@ -147,7 +188,9 @@ def main(argv=None):
     t0 = time.time()
     space = build_space(a.method, lm_loss_fn, params, pre, a.density, a.seed,
                         model.device)
-    print(f"space: n={space.n:,} coords ({time.time() - t0:.1f}s)")
+    if plan is not None and isinstance(space, MaskedSpace):
+        space = MaskedSpace(plan.broadcast(space.idx_tree))  # rank 0's mask
+    say(f"space: n={space.n:,} coords ({time.time() - t0:.1f}s)")
 
     train = sample_dataset(spec, 2048, seed=a.seed + 1)
     ev = sample_dataset(spec, 512, seed=a.seed + 2)
@@ -176,10 +219,10 @@ def main(argv=None):
                   sample_frac=a.sample_frac,
                   sample_weighted=a.sample_weighted, quantize=a.quantize)
     server = FederatedZO(loss, params, space, fl, clients, eval_fn=evaluate,
-                         device=model.device)
+                         device=model.device, plan=plan)
     if server.sampler is not None or server.codec.spec != "none":
         m = "full" if server.sampler is None else server.sampler.m
-        print(f"fleet: cohort {m}/{a.clients} per round"
+        say(f"fleet: cohort {m}/{a.clients} per round"
               + (" (weighted)" if a.sample_weighted else "")
               + f", uplink codec {server.codec.spec}")
 
@@ -190,7 +233,7 @@ def main(argv=None):
                                late_rate=a.late_rate,
                                max_staleness=a.max_staleness,
                                seed=a.fault_seed, kill_rounds=kills)
-        print("faults:", fault_plan.summary())
+        say("faults:", fault_plan.summary())
 
     resumed = False
     if a.resume:
@@ -199,38 +242,40 @@ def main(argv=None):
         latest = os.path.join(a.checkpoint_dir, LATEST_NAME)
         server.load_checkpoint(latest)
         resumed = True
-        print(f"resumed from {latest} at round {server.round}")
+        say(f"resumed from {latest} at round {server.round}")
 
     if a.vp and not resumed:
         # (resume restores the calibrated VPCS flags and the consumed data
         # pointers; recalibrating would reset both and break bit-exactness)
         gp = pretrain_gradient_vec(lm_loss_fn, params, space, pre)
+        if plan is not None:
+            gp = plan.broadcast(gp)
         results, flagged, _ = server.calibrate_vp(gp)
-        print(f"VPCS flagged clients {flagged} "
+        say(f"VPCS flagged clients {flagged} "
               f"(rho_later={[round(r.rho_later, 2) for r in results]})")
 
-    m0 = evaluate(server.params, eval_batch)
-    print(f"round {server.round}: acc={float(m0['acc']):.4f} "
+    m0 = evaluate(server.full_params(), eval_batch)
+    say(f"round {server.round}: acc={float(m0['acc']):.4f} "
           f"loss={float(m0['loss']):.4f}")
     server.run(max(0, a.rounds - server.round), eval_every=a.eval_every,
-               eval_batch=eval_batch, verbose=True, fault_plan=fault_plan,
+               eval_batch=eval_batch, verbose=writer, fault_plan=fault_plan,
                checkpoint_dir=a.checkpoint_dir,
                checkpoint_every=a.checkpoint_every)
     if a.checkpoint_dir:
         final = server.save_checkpoint(os.path.join(a.checkpoint_dir,
                                                     FINAL_NAME))
-        print("wrote", final)
-    m = evaluate(server.params, eval_batch)
-    print(f"final: acc={float(m['acc']):.4f} loss={float(m['loss']):.4f} "
+        say("wrote", final)
+    m = evaluate(server.full_params(), eval_batch)
+    say(f"final: acc={float(m['acc']):.4f} loss={float(m['loss']):.4f} "
           f"({time.time() - t0:.0f}s total)  comm: up={server.comm.up_bytes}B "
           f"down={server.comm.down_bytes}B")
-    if a.out:
+    if a.out and writer:
         os.makedirs(os.path.dirname(a.out) or ".", exist_ok=True)
         with open(a.out, "w") as f:
             json.dump({"history": server.history,
                        "final": {k: float(v) for k, v in m.items()},
                        "args": vars(a)}, f, indent=1)
-        print("wrote", a.out)
+        say("wrote", a.out)
 
 
 if __name__ == "__main__":

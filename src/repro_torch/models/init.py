@@ -255,3 +255,16 @@ def param_count(cfg: ModelConfig) -> int:
     from repro_torch.utils.tree import tree_leaves
     tree = init_params(0, cfg, device="meta")
     return int(sum(t.numel() for t in tree_leaves(tree)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: only top-k + shared experts count)."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    n_moe_layers = cfg.n_periods * sum(1 for _, f in cfg.layer_pattern
+                                       if f == "moe")
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    inactive = n_moe_layers * per_expert * (m.n_experts - m.top_k)
+    return total - inactive

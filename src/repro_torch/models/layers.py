@@ -425,8 +425,9 @@ def resolve_decode_backend(backend, cfg) -> str:
     whenever it takes the head layout, else its plain version.  This
     is the port's own rule and naming: the JAX package says "pallas" for
     the kernel and also sends a sharded mesh, or on a compiled TPU a
-    head_dim off the 128-lane tile, to "ref"; the port runs on one device
-    and its kernel takes head_dim 64, 128 and 256."""
+    head_dim off the 128-lane tile, to "ref"; no route of the port depends
+    on a mesh (ROADMAP C20) and its kernel takes head_dim 64, 128 and
+    256."""
     backend = backend or "auto"
     if backend not in DECODE_BACKENDS:
         raise ValueError(

@@ -22,7 +22,10 @@ from repro_torch.utils.tree import tree_map
 @dataclass(frozen=True)
 class ModelCtx:
     """How model code routes its attention: the counterpart of repro's
-    ``ShardCtx`` without the mesh fields (the port runs on one device).
+    ``ShardCtx`` without the mesh fields.  A sharded round's ranks each
+    compute unsharded on their own device (``sharding/fl.py``), so no
+    route depends on a mesh (ROADMAP C20; the mesh fields come with the
+    dry run, A item 8).
 
     ``attn_backend``: auto | kernel | online | dense
     (``layers.resolve_attn_backend``);

@@ -25,3 +25,19 @@ def check_params_on(params, device: torch.device) -> None:
     for p in tree_leaves(params):
         if p.device.type != device.type:
             raise ValueError(f"params live on {p.device}, not {device}")
+
+
+def rank_device(device_type: str, local_rank: int) -> torch.device:
+    """The device of one rank of a process group: ``cuda:{local_rank}``
+    on the card (which must be there: one card per rank, and nothing falls
+    back to the CPU), or the CPU when ``device_type`` is ``"cpu"``."""
+    if device_type == "cpu":
+        return torch.device("cpu")
+    if device_type != "cuda":
+        raise ValueError(f"ranks run on 'cuda' or 'cpu', not {device_type!r}")
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if local_rank >= n:
+        raise RuntimeError(
+            f"rank {local_rank} needs cuda:{local_rank}, but {n} CUDA "
+            "device(s) are visible (one card per rank)")
+    return torch.device(f"cuda:{local_rank}")

@@ -395,14 +395,18 @@ def test_registry_program_runs_clean_on_the_cpu(name):
     rows = run_program(programs_by_name([name])[0], list(ALL_RULES),
                        CPU)
     assert not _errors(rows), _errors(rows)
+    assert not [r for r in rows if r.get("skipped")
+                and r["skipped"] != "not applicable"]
     if name == "fl_round_sharded":
-        assert all("A12" in r["skipped"] for r in rows)
-    else:
-        assert not [r for r in rows if r.get("skipped")
-                    and r["skipped"] != "not applicable"]
+        # its comm budget applies, as in the JAX registry, and holds
+        comm = next(r for r in rows if r["rule"] == "comm-budget")
+        assert "skipped" not in comm and comm["ok"]
 
 
 def test_not_applicable_rows_equal_the_jax_registry():
+    """Over the programs both packages build here: JAX's
+    ``fl_round_sharded`` needs 4 devices and skips in this process
+    (ROADMAP C20), so it is held by the test above alone."""
     def rows(paths, all_rules, *dev):
         return {(p.name, r.name) for p in paths if p.name in RUNS
                 for r in all_rules if not r.applicable(p.build(*dev))}

@@ -445,7 +445,17 @@ def test_train_cli_kill_and_resume_bitexact(tmp_path):
     assert a == open(os.path.join(killed, FINAL_NAME), "rb").read()
 
 
-def test_train_cli_refuses_unported_options():
+def test_train_cli_refuses_unported_options(tmp_path):
+    """``--mesh`` runs (2 gloo ranks) and writes the unsharded run's final
+    checkpoint byte for byte; its ``tp`` rule is what stays unported."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="A12"):
-        train.main(["--device", "cpu", "--mesh", "2x2"])
+    args = ["--device", "cpu", "--rounds", "2", "--T", "2", "--clients",
+            "4", "--batch", "4", "--eval-every", "1", "--drop-rate", "0.2",
+            "--late-rate", "0.3", "--fault-seed", "5", "--sample-frac",
+            "0.5", "--quantize", "int8", "--checkpoint-dir"]
+    train.main(args + [str(tmp_path / "one")])
+    train.main(args + [str(tmp_path / "mesh"), "--mesh", "1x2"])
+    a = (tmp_path / "one" / FINAL_NAME).read_bytes()
+    assert a == (tmp_path / "mesh" / FINAL_NAME).read_bytes()
+    with pytest.raises(NotImplementedError, match="A item 8"):
+        train.main(["--device", "cpu", "--mesh", "1x2", "--mesh-rule", "tp"])
