@@ -60,6 +60,23 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 route within 2e-5 / 2e-4 of the unsharded one; then the
                 roofline line: one client's ZO step timed against its model
                 FLOPs (launch/roofline.step_model_flops) over the f32 peak;
+4g. tp          tensor-parallel compute (rule="tp") on the slice's problem,
+                one NCCL rank, a 1x1 mesh: 2 rounds of 8 clients (T=1)
+                unsharded and under tp from the same state, the tp model
+                under the plan's ctx as the train CLI builds it
+                (parameters after each round bit-equal, else within 2e-5;
+                rows 1-2 on each rank's flat shards and row 3 on its
+                local heads, each launched as often as unsharded);
+                Phi-3.5-MoE's layer (1 of
+                32, full width) through moe_sharded against moe_dense_ref
+                on 4 x 512 tokens (1e-5); the dry run's own ZO step run
+                for real (time, device-memory rise); then the dryrun line:
+                that step's fake-group record (f32, 16 x 512, 1x1) against
+                the real run (peak_est less arguments within 10% of the
+                rise), its FLOPs against step_model_flops, its roofline
+                bound at the f32 peak against the step's time; and bf16
+                single-mesh records of qwen3-4b train_4k and kimi-k2
+                decode_32k (depth 1/2, extrapolated), with their seconds;
 4c. lora        LoRA-FedZO on the same model with rank-4 adapters on q and
                 v (alpha 16; 425,984 coordinates, LoRASpace on the flat
                 kernel route over all 1,236,240,384 parameters): the fresh
@@ -159,7 +176,7 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 time with and without the recorder, and sample_z's time
                 against erfinv's float64 Horner form.
 
-Phases 4 to 10 (4b-4f, 9b and 9c too) each count every kernel's launches
+Phases 4 to 10 (4b-4g, 9b and 9c too) each count every kernel's launches
 from zero, and each count must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
@@ -214,6 +231,11 @@ MESH_SPEC, MESH_T_CALI, MESH_ROUNDS = "1x1", 2, 2
 MESH_LOOP_STEPS, MESH_LOOP_BATCH = 2, 2
 MESH_LOOP_PARAM_ATOL, MESH_LOOP_G_ATOL = 2e-5, 2e-4
 MESH_ZO_STEPS = 3
+# phase tp: rounds of the tp rule against the unsharded ones, and the MoE
+# layer's batch (x SEQ_LEN tokens)
+TP_ROUNDS, TP_MOE_BATCH = 2, 4
+# the dryrun line's single-mesh records (bf16, as the JAX dry run)
+DRYRUN_SINGLE = (("qwen3-4b", "train_4k"), ("kimi-k2-1t-a32b", "decode_32k"))
 # LoRA-FedZO on Llama-3.2-1B (phase lora): rank 4, alpha 16 on q and v;
 # T=2 at Table 1's LoRA rate, two clients early-stopped at random
 LORA_RANK, LORA_T, LORA_ROUNDS, LORA_LR = 4, 2, 2, 2e-2
@@ -2431,6 +2453,241 @@ def _run_mesh(torch, dev, cfg):
     return counts, expected
 
 
+# ----------------------------------------------------------------- tp --
+def run_tp(torch, dev, cfg):
+    """Phase tp (module docstring): tensor-parallel compute (``rule="tp"``)
+    on one rank of a 1x1 mesh, then the ``dryrun`` line from fake groups;
+    returns (launch counts over the run, the counts it implies)."""
+    from repro_torch.launch.mesh import process_group
+    with process_group(dev.type):
+        counts, expected, real = _run_tp(torch, dev, cfg)
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    run_dryrun_line(torch, dev, cfg, real)
+    return counts, expected
+
+
+def _run_tp(torch, dev, cfg):
+    import dataclasses
+
+    import repro_torch.core as C
+    from repro_torch.configs import FLConfig
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import (TaskSpec, dirichlet_partition,
+                                  make_task_fns, sample_dataset, subset)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import Model, ModelCtx
+    from repro_torch.models.moe import moe_dense_ref, moe_sharded
+    from repro_torch.sharding.fl import make_fl_plan
+    from repro_torch.utils.tree import tree_leaves
+
+    on_card = dev.type == "cuda"
+    phase_done, times, peaks, resident = phase_clock(torch, on_card)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    plan = make_fl_plan(spec=MESH_SPEC, rule="tp")
+    ctx = ModelCtx(attn_backend="kernel")
+    model = Model(cfg, ctx, device=dev)
+    params = model.init(seed=SEED)
+    spec = TaskSpec(vocab=512, seq_len=SEQ_LEN)
+    # the unsharded rounds under the plain ctx; the tp rounds under the
+    # plan's (its mesh and batch axes), as launch/train.py builds them
+    loss = make_task_fns(model, spec)[0]
+    tp_loss = make_task_fns(Model(cfg, plan.model_ctx(ctx), device=dev),
+                            spec)[0]
+    train = sample_dataset(spec, 1024, seed=1)
+    parts = dirichlet_partition(train["label"], n_clients=N_CLIENTS,
+                                alpha=0.5)
+    fl = FLConfig(n_clients=N_CLIENTS, local_steps=1, eps=1e-3,
+                  density=DENSITY, zo_backend="kernel", seed=SEED)
+    space = C.random_mask(params, DENSITY, seed=SEED)
+    phase_done("setup", t0)
+
+    def drive(srv_plan, loss):
+        clients = [C.Client(k, subset(train, q), batch_size=CLIENT_BATCH)
+                   for k, q in enumerate(parts)]
+        srv = C.FederatedZO(loss, params, space, fl, clients, device=dev,
+                            plan=srv_plan)
+        before = ops.launches()
+        secs, after = [], []
+        for _ in range(TP_ROUNDS):
+            sync()
+            t = time.perf_counter()
+            srv.run_round()
+            sync()
+            secs.append(time.perf_counter() - t)
+            after.append([x.clone() for x in tree_leaves(srv.full_params())])
+        return secs, {k: v - before[k] for k, v in ops.launches().items()}, \
+            after
+
+    ops.reset_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    ref_s, ref_launches, ref_after = drive(None, loss)
+    phase_done("unsharded", t0)
+    t0 = time.perf_counter()
+    tp_s, tp_launches, tp_after = drive(plan, tp_loss)
+    phase_done("tp_rounds", t0)
+    errs = [max(float((a - b).abs().max()) for a, b in zip(x, y))
+            for x, y in zip(ref_after, tp_after)]
+    bitequal = all(all(torch.equal(a, b) for a, b in zip(x, y))
+                   for x, y in zip(ref_after, tp_after))
+    moved = any(not torch.equal(a, b)
+                for a, b in zip(tree_leaves(params), ref_after[-1]))
+    del ref_after, tp_after
+
+    # Phi-3.5-MoE's layer at full width: moe_sharded on the 1x1 mesh (its
+    # experts DTensors on the model sub-mesh) against moe_dense_ref
+    t0 = time.perf_counter()
+    phi = PHI35_MOE_CFG()
+    lp = {k: v[0] for k, v in Model(phi, device=dev).init(seed=SEED)[
+        "stack"]["p0"].items() if k in ("router", "w1", "w2", "w3")}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((TP_MOE_BATCH, SEQ_LEN, phi.d_model), generator=gen,
+                    device=dev)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    sub = plan.mesh["model"]
+    dp_ = {k: DTensor.from_local(v, sub, [Shard(0)] if k != "router"
+                                 else [Replicate()], run_check=False)
+           for k, v in lp.items()}
+    ctx = plan.model_ctx(ModelCtx(use_sharded_moe=True))
+    with torch.no_grad():
+        want, aux_want = moe_dense_ref(x, lp, phi.moe, phi.act)
+        got, aux_got = moe_sharded(x, dp_, phi.moe, phi.act, ctx)
+        sync()
+        t = time.perf_counter()
+        moe_sharded(x, dp_, phi.moe, phi.act, ctx)
+        sync()
+        moe_ms = (time.perf_counter() - t) * 1e3
+    moe_rel = float((got - want).abs().max() / want.abs().max())
+    moe_aux_err = abs(float(aux_got) - float(aux_want))
+    moe_params = sum(v.numel() for v in lp.values())
+    del lp, dp_, x, want, got
+    phase_done("moe", t0)
+
+    # the dry run's own ZO step on this real rank (the record's program:
+    # the tp step of core/fl_step, online attention under the mesh), timed
+    # and its device-memory rise measured, for the dryrun line
+    t0 = time.perf_counter()
+    shape = InputShape("train_llama", seq_len=SEQ_LEN,
+                       global_batch=CLIENT_BATCH, kind="train")
+    idx = dryrun.mask_indices(cfg, dtype=torch.float32)[0]
+    fn, args = dryrun.build_step(cfg, shape, plan.mesh, plan.mesh_cfg,
+                                 "zo_fl", idx, dtype=torch.float32,
+                                 device=dev)
+    fn(*args)  # warm
+    sync()
+    step_s = []
+    for _ in range(2):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        t = time.perf_counter()
+        fn(*args)
+        sync()
+        step_s.append(time.perf_counter() - t)
+    rise = (torch.cuda.max_memory_allocated() - base) if on_card else None
+    real = dict(step_s=step_s, rise_bytes=rise)
+    del fn, args
+    phase_done("real_step", t0)
+    counts = ops.launches()  # the main path ends here
+
+    n_attn = n_mixers(cfg, "attn", "local_attn")
+    steps = TP_ROUNDS * N_CLIENTS
+    expected = {name: 0 for name in counts}
+    # the same launches on each drive: one dual perturb, one update and
+    # two forwards a client step
+    per_drive = {"zo_dual_perturb_flat": steps, "zo_fused_update_flat": steps,
+                 "flash_attention": 2 * steps * n_attn}
+    expected.update({k: 2 * v for k, v in per_drive.items()})
+    emit("tp", model=cfg.name, mesh=MESH_SPEC, ranks=1,
+         backend="nccl" if on_card else "gloo", clients=N_CLIENTS,
+         client_batch=CLIENT_BATCH, seq_len=SEQ_LEN, rounds=TP_ROUNDS,
+         round_s={"unsharded": ref_s, "tp": tp_s}, bitequal=bitequal,
+         max_abs_param_diff=errs, tol=(MESH_LOOP_PARAM_ATOL,
+                                       MESH_LOOP_G_ATOL), moved=moved,
+         launches_unsharded=ref_launches, launches_tp=tp_launches,
+         shard_routes=("zo_dual_perturb_flat", "zo_fused_update_flat",
+                       "flash_attention"),
+         moe=dict(model=phi.name, layer_params=moe_params,
+                  batch=TP_MOE_BATCH, seq_len=SEQ_LEN, rel_err=moe_rel,
+                  aux_abs_err=moe_aux_err, tol=MOE_LOOP_REL,
+                  sharded_ms=moe_ms),
+         launches=counts, expected_launches=expected, times_s=times,
+         peak_gb=peaks, resident_gb=resident)
+    if not bitequal and max(errs) > MESH_LOOP_PARAM_ATOL:
+        fail(f"tp: the tp rounds are {errs} from the unsharded ones")
+    if not moved:
+        fail("tp: the rounds left the parameters where they were")
+    for k, v in per_drive.items():
+        if on_card and (tp_launches[k], ref_launches[k]) != (v, v):
+            fail(f"tp: {tp_launches[k]} {k} launches under tp and "
+                 f"{ref_launches[k]} unsharded, not {v} each")
+    if moe_rel > MOE_LOOP_REL or moe_aux_err > MOE_LOOP_REL:
+        fail(f"tp: moe_sharded is {moe_rel} / {moe_aux_err} from "
+             "moe_dense_ref")
+    return counts, expected, real
+
+
+def PHI35_MOE_CFG():
+    """Phi-3.5-MoE cut to one of its 32 layers, at full width."""
+    from repro_torch.configs import PHI35_MOE
+    return PHI35_MOE.replace(n_layers=1)
+
+
+def run_dryrun_line(torch, dev, cfg, real):
+    """The ``dryrun`` line: the fake-group record of the tp phase's real
+    ZO step (f32, CLIENT_BATCH x SEQ_LEN, 1x1) against the real run (its
+    device-memory rise, its time), its FLOPs against the model's, its
+    roofline bound at the f32 peak; then bf16 single-mesh records of
+    qwen3-4b train_4k and kimi-k2 decode_32k, depth-1/2 extrapolated."""
+    from repro_torch.configs.base import InputShape, MeshConfig
+    from repro_torch.launch import dryrun, roofline
+    t0 = time.perf_counter()
+    shape = InputShape("train_llama", seq_len=SEQ_LEN,
+                       global_batch=CLIENT_BATCH, kind="train")
+    rec = dryrun.run_combo(cfg, shape, False, mc=MeshConfig(1, 1, 1),
+                           dtype=torch.float32, full=True)
+    if not rec["ok"]:
+        fail(f"dryrun: the Llama record failed: {rec.get('error')}")
+    hw_f32 = dict(roofline.HW, peak_flops_bf16=roofline.HW["peak_flops_f32"])
+    row = roofline.analyze(rec, hw_f32)
+    mem = rec["memory"]
+    est = mem["peak_est_bytes"] - mem["argument_bytes"]
+    rise = real["rise_bytes"]
+    model_flops = roofline.step_model_flops(cfg, CLIENT_BATCH, SEQ_LEN,
+                                            "zo_step")
+    step_s = min(real["step_s"])
+    others = {}
+    for arch, shp in DRYRUN_SINGLE:
+        r = dryrun.run_combo(arch, shp, False, full_budget=0)
+        if not r["ok"]:
+            fail(f"dryrun: {arch} {shp} failed: {r.get('error')}")
+        a = roofline.analyze(r)
+        others[f"{arch}|{shp}"] = dict(
+            trace_s=r["compile_s"], flops=r["cost"]["flops"],
+            bytes=r["cost"]["bytes"], collectives=r["collectives"],
+            peak_est_bytes=r["memory"]["peak_est_bytes"],
+            full_depth=r["full_depth"], dominant=a["dominant"],
+            bound_s=max(a["compute_s"], a["memory_s"], a["collective_s"]))
+    rel = None if rise is None else abs(est - rise) / rise
+    emit("dryrun", model=cfg.name, mesh="1x1", dtype="float32",
+         batch=CLIENT_BATCH, seq_len=SEQ_LEN, trace_s=rec["compile_s"],
+         record_flops=rec["cost"]["flops"], model_flops=model_flops,
+         flops_ratio=rec["cost"]["flops"] / model_flops,
+         record_bytes=rec["cost"]["bytes"], memory=mem,
+         peak_est_minus_args=est, measured_rise=rise, rise_rel_err=rel,
+         rise_tol=AN_LIVENESS_REL, bound_s_at_f32_peak=max(
+             row["compute_s"], row["memory_s"], row["collective_s"]),
+         dominant=row["dominant"], measured_step_s=real["step_s"],
+         bound_over_measured=max(row["compute_s"], row["memory_s"],
+                                 row["collective_s"]) / step_s,
+         fit_exact=rec.get("fit_exact"), single_mesh=others,
+         peaks_of=roofline.HW_CARD, seconds=time.perf_counter() - t0)
+    if rel is not None and rel > AN_LIVENESS_REL:
+        fail(f"dryrun: peak_est {est} is {rel:.3f} from the measured rise "
+             f"{rise}")
+
+
 # --------------------------------------------------------------- lora --
 def run_lora(torch, dev, cfg):
     """LoRA-FedZO with random early stopping on ``cfg`` (Llama-3.2-1B with
@@ -4101,6 +4358,7 @@ def main() -> int:
     for phase, run, cfg in (("slice", run_slice, LLAMA32_1B),
                             ("fleet", run_fleet, LLAMA32_1B),
                             ("mesh", run_mesh, LLAMA32_1B),
+                            ("tp", run_tp, LLAMA32_1B),
                             ("lora", run_lora, llama_lora),
                             ("slice_qwen3", run_slice_qwen3, qwen3),
                             ("options", run_options,

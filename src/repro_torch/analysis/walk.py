@@ -17,6 +17,21 @@ record, not among the program's ops.  Its returned tensors are its
 outputs, and it carries its launch plan (``kernels/plans.py``).  That keeps
 the dense rule and the liveness estimate the same on both devices.
 
+Each record also carries its cost, what one device does for it: ``flops`` of
+the matmul-class ops (``mm``, ``bmm``, ``addmm``, ``baddbmm``, the SDPA and
+convolution ops, as ``torch.utils.flop_counter`` counts them) and ``bytes``,
+the bytes of its inputs and outputs (eager PyTorch fuses nothing; views and
+``prim`` ops move none).  Under DTensors (the tensor-parallel layout) the
+recorder counts only ops on plain tensors, the local ops each DTensor op issues
+on this rank's shards and its collectives: a DTensor-level op is handed back to
+DTensor (``NotImplemented``) unrecorded, or its global shapes would count it a
+second time.  DTensor's sharding propagation runs ops of its own on fake
+tensors: :func:`record` pauses the recorder inside it
+(:func:`quiet_propagation`; where a torch version lacks the hook, ``warmup``
+runs the call once unrecorded to fill DTensor's propagation cache instead), and
+a recorder on real tensors skips fake ones.  Storages are told apart by their
+``StorageImpl``, so fake tensors (``launch/dryrun.py``) record as real ones do.
+
 The helpers mirror ``repro.analysis.walk``: :func:`iter_ops`,
 :func:`record_bytes`, :func:`max_square_dims`, :func:`square_dim_findings`,
 :func:`constant_records`, :func:`kernel_block_records` and
@@ -24,6 +39,7 @@ The helpers mirror ``repro.analysis.walk``: :func:`iter_ops`,
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import weakref
 from dataclasses import dataclass, field
@@ -36,6 +52,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import plans
+from repro_torch.utils.tree import is_dtensor
 
 # ops that make a tensor from host data (torch.tensor / as_tensor of an
 # array or a Python value): the recompile rule's counterpart of a baked-in
@@ -65,6 +82,8 @@ class Record:
     outs: List[Out]
     in_dtypes: tuple = ()
     kwargs: dict = field(default_factory=dict)  # non-tensor keyword args
+    flops: float = 0.0             # matmul-class FLOPs (kernels: inner)
+    bytes: float = 0.0             # input + output bytes
     launches: list = field(default_factory=list)  # plans.Launch (kernels)
     inner: int = 0                 # ops run inside a kernel record
     raised: Optional[str] = None   # the kernel's exception, if it raised
@@ -81,6 +100,7 @@ class Trace:
     smem_optin: Optional[int]      # the card's per-block limit (None: CPU)
     raised: Optional[str] = None   # the call's exception, if it raised
     died: dict = field(default_factory=dict)  # sid -> records before death
+    args: frozenset = frozenset()  # sids of the call's own arguments
 
 
 def device_limits(device: torch.device):
@@ -96,30 +116,72 @@ def tensors_of(tree):
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
+def _locals_of(tree):
+    """The tensors of a call's arguments or result, a DTensor by its local
+    shard (the storage this rank holds)."""
+    return [t.to_local() if is_dtensor(t) else t for t in tensors_of(tree)]
+
+
 def _storage(t: torch.Tensor):
-    """(address, bytes) of t's storage; (0, t's own bytes) for a wrapper
-    subclass with no storage of its own (an async collective's result),
-    which then never aliases another value."""
+    """(identity, bytes) of t's storage, the identity its ``StorageImpl``
+    (shared by views, and there on fake tensors too); (0, t's own bytes)
+    for a wrapper subclass with no storage of its own (an async
+    collective's result), which then never aliases another value."""
+    inner = getattr(t, "elem", None)    # an async collective's wrapper
+    if isinstance(inner, torch.Tensor) and inner is not t:
+        return _storage(inner)
     try:
         s = t.untyped_storage()
-        return s.data_ptr(), s.nbytes()
-    except RuntimeError:
+        return s._cdata, s.nbytes()
+    except (RuntimeError, NotImplementedError):
         return 0, t.numel() * t.element_size()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _is_fake(t) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+def op_flops(func, args, kwargs, out) -> float:
+    """FLOPs of one aten op as ``torch.utils.flop_counter`` counts them
+    (the matmul-class ops; 0 for any other)."""
+    from torch.utils.flop_counter import flop_registry
+    f = flop_registry.get(func._overloadpacket)
+    return 0.0 if f is None else float(f(*args, **kwargs, out_val=out))
+
+
+# ops that move no data and that backends issue differently (a gloo rank's
+# async collectives wrap and wait where a fake group's do not): unrecorded
+_BOOKKEEPING = ("_c10d_functional.wait_tensor.default",
+                "_c10d_functional._wrap_tensor_autograd.default")
+
+
+class TraceBudgetExceeded(RuntimeError):
+    """A recorded call ran more ops than its recorder's ``max_records``."""
 
 
 class Recorder(TorchDispatchMode):
     """Writes one call's ops down (module docstring).  Use through
     :func:`record`."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, fake: bool = False,
+                 max_records: Optional[int] = None):
         super().__init__()
+        self.max_records = max_records     # raise past this many records
+        self.fake = fake                   # the call runs on fake tensors
+        self.paused = 0                    # inside DTensor's propagation
         self.records: List[Record] = []
         self.roots = {}
         self.n_sms, self.smem_optin = device_limits(device)
         self._sids = itertools.count()
         self._ids = WeakIdKeyDictionary()  # tensor -> sid
-        self._by_ptr = {}                  # live storage address -> sid
-        self._frames = []                  # inner-op counts of open kernels
+        self._by_ptr = {}                  # live storage identity -> sid
+        self._ptr_of = {}                  # sid -> its storage identity
+        self._frames = []                  # [inner ops, flops] of kernels
         self._alive = {}                   # sid -> live tensor objects
         self._finalizers = []
         self.died = {}                     # sid -> len(records) at death
@@ -135,6 +197,10 @@ class Recorder(TorchDispatchMode):
         self._alive[sid] -= 1
         if not self._alive[sid]:
             self.died[sid] = len(self.records)
+            # the storage is gone: a later tensor at its address is new
+            ptr = self._ptr_of.pop(sid, None)
+            if ptr and self._by_ptr.get(ptr) == sid:
+                del self._by_ptr[ptr]
 
     # ---------------------------------------------------------- values --
     def sid_of(self, t: torch.Tensor) -> int:
@@ -150,6 +216,7 @@ class Recorder(TorchDispatchMode):
                 self.roots[sid] = nbytes
                 if ptr:
                     self._by_ptr[ptr] = sid
+                    self._ptr_of[sid] = ptr
             self._track(t, sid)
         return sid
 
@@ -163,6 +230,7 @@ class Recorder(TorchDispatchMode):
                 sid, new = next(self._sids), nbytes
                 if ptr:
                     self._by_ptr[ptr] = sid
+                    self._ptr_of[sid] = ptr
             if self._ids.get(t) is None:   # an in-place result is its input
                 self._track(t, sid)
             outs.append(Out(tuple(t.shape), str(t.dtype).replace("torch.", ""),
@@ -182,26 +250,46 @@ class Recorder(TorchDispatchMode):
     # ------------------------------------------------------------- ops --
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if self._frames:                     # inside a kernel record
-            self._frames[-1] += 1
+        if any(is_dtensor(t) for t in tree_leaves((args, kwargs))):
+            return NotImplemented       # DTensor issues the local ops
+        if self.paused:                 # DTensor's shape propagation
             return func(*args, **kwargs)
+        if self._frames:                     # inside a kernel record
+            result = func(*args, **kwargs)
+            self._frames[-1][0] += 1
+            self._frames[-1][1] += op_flops(func, args, kwargs, result)
+            return result
+        name = str(func)
+        if name.startswith("prim.") or name in _BOOKKEEPING:
+            return func(*args, **kwargs)
+        ts = tensors_of((args, kwargs))
+        if not self.fake and any(_is_fake(t) for t in ts):
+            return func(*args, **kwargs)     # DTensor's shape propagation
+        if self.max_records and len(self.records) >= self.max_records:
+            raise TraceBudgetExceeded(
+                f"more than {self.max_records} ops recorded")
         ts, sids, in_ptrs = self._inputs(args, kwargs)
         result = func(*args, **kwargs)
         flags = {k: v for k, v in kwargs.items()
                  if isinstance(v, (bool, int, float, str))}
-        if str(func).startswith("aten.copy_") and len(args) > 2:
+        if name.startswith("aten.copy_") and len(args) > 2:
             flags["non_blocking"] = bool(args[2])
+        moved = 0.0
+        if not func.is_view:
+            moved = float(sum(_nbytes(t) for t in ts)
+                          + sum(_nbytes(t) for t in tensors_of(result)))
         self.records.append(Record(
-            name=str(func), kind="op", ins=sids,
+            name=name, kind="op", ins=sids,
             in_devices=tuple(t.device.type for t in ts),
             outs=self._outs(result, in_ptrs), kwargs=flags,
-            in_dtypes=tuple(str(t.dtype).replace("torch.", "") for t in ts)))
+            in_dtypes=tuple(str(t.dtype).replace("torch.", "") for t in ts),
+            flops=op_flops(func, args, kwargs, result), bytes=moved))
         return result
 
     def kernel(self, name: str, plan_of, fn, args, kwargs):
         """One kernel wrapper call as one record (``ops._recorded``)."""
         if self._frames:                     # a wrapper inside a wrapper
-            self._frames[-1] += 1
+            self._frames[-1][0] += 1
             return fn(*args, **kwargs)
         ts, sids, in_ptrs = self._inputs(args, kwargs)
         launches = plan_of(self.n_sms, *args, **kwargs)
@@ -209,35 +297,85 @@ class Recorder(TorchDispatchMode):
                      in_devices=tuple(t.device.type for t in ts), outs=[],
                      launches=list(launches))
         self.records.append(rec)
-        self._frames.append(0)
+        self._frames.append([0, 0.0])
         try:
             result = fn(*args, **kwargs)
         except Exception as e:
             rec.raised = f"{type(e).__name__}: {e}"
             raise
         finally:
-            rec.inner = self._frames.pop()
+            rec.inner, rec.flops = self._frames.pop()
         rec.outs = self._outs(result, in_ptrs)
+        rec.bytes = float(sum(_nbytes(t) for t in ts)
+                          + sum(_nbytes(t) for t in tensors_of(result)))
         return result
 
 
-def record(fn, args, device=None) -> Trace:
+def _propagator():
+    """DTensor's ``ShardingPropagator`` class where DTensor is loaded and
+    has the tensor-meta hook, else None."""
+    import sys
+    mod = sys.modules.get("torch.distributed.tensor._sharding_prop")
+    cls = getattr(mod, "ShardingPropagator", None)
+    if cls is None or not hasattr(cls, "_propagate_tensor_meta_non_cached"):
+        return None
+    return cls
+
+
+@contextlib.contextmanager
+def quiet_propagation(rec: "Recorder"):
+    """Pause ``rec`` while DTensor infers an op's output metadata by
+    running it on fake tensors of its own (uncached calls only), so
+    those ops are not counted as the program's."""
+    cls = _propagator()
+    if cls is None:
+        yield
+        return
+    orig = cls._propagate_tensor_meta_non_cached
+
+    def paused(self, *a, **k):
+        rec.paused += 1
+        try:
+            return orig(self, *a, **k)
+        finally:
+            rec.paused -= 1
+
+    cls._propagate_tensor_meta_non_cached = paused
+    try:
+        yield
+    finally:
+        cls._propagate_tensor_meta_non_cached = orig
+
+
+def can_quiet_propagation() -> bool:
+    """Whether :func:`quiet_propagation` has its hook (else warm up)."""
+    import torch.distributed.tensor._sharding_prop  # noqa: F401
+    return _propagator() is not None
+
+
+def record(fn, args, device=None, warmup: bool = False,
+           fake: bool = False, max_records: Optional[int] = None) -> Trace:
     """Run ``fn(*args)`` once under a :class:`Recorder`; the trace keeps the
     call's exception instead of raising it (a refused launch is a finding,
-    not a crash of the analyzer)."""
+    not a crash of the analyzer).  ``warmup`` runs it once before,
+    unrecorded (module doc; the call must leave its arguments fit for a
+    second run); ``fake`` says the call runs on fake tensors;
+    ``max_records`` stops the call (``TraceBudgetExceeded``, kept in the
+    trace) past that many records."""
     if device is None:
         ts = tensors_of(args)
         device = ts[0].device if ts else torch.device("cpu")
     device = torch.device(device)
-    rec = Recorder(device)
+    if warmup:
+        fn(*args)
+    rec = Recorder(device, fake, max_records)
     prev, kops.recorder = kops.recorder, rec
-    raised, outputs = None, ()
+    raised, outputs, arg_sids = None, (), frozenset()
     try:
-        with rec:
-            for t in tensors_of(args):
-                rec.sid_of(t)
+        with quiet_propagation(rec), rec:
+            arg_sids = frozenset(rec.sid_of(t) for t in _locals_of(args))
             result = fn(*args)
-            outputs = tuple(rec.sid_of(t) for t in tensors_of(result))
+            outputs = tuple(rec.sid_of(t) for t in _locals_of(result))
     except Exception as e:  # noqa: BLE001 - kept in the trace, see above
         raised = f"{type(e).__name__}: {e}"
     finally:
@@ -245,7 +383,7 @@ def record(fn, args, device=None) -> Trace:
         for f in rec._finalizers:  # what dies after the call is not ours
             f.detach()
     return Trace(rec.records, dict(rec.roots), outputs, device.type,
-                 rec.n_sms, rec.smem_optin, raised, dict(rec.died))
+                 rec.n_sms, rec.smem_optin, raised, dict(rec.died), arg_sids)
 
 
 # ------------------------------------------------------------- helpers --
@@ -307,7 +445,8 @@ def kernel_block_records(trace: Trace) -> List[dict]:
             for r in iter_ops(trace, "kernel") for l in r.launches]
 
 
-def liveness(trace: Trace, device: Optional[str] = None) -> dict:
+def liveness(trace: Trace, device: Optional[str] = None,
+             deaths: bool = True, args_only: bool = False) -> dict:
     """Straight-line liveness estimate of one call (``repro.analysis.walk
     .liveness_peak_bytes``, for eager PyTorch): values from outside the
     call (roots) live throughout; each record allocates its new outputs,
@@ -317,7 +456,13 @@ def liveness(trace: Trace, device: Optional[str] = None) -> dict:
     parameter tree passed to a loss stays until the loss returns), where
     XLA frees a buffer at its last use.  The call's outputs live to the
     end.  Views and in-place results count zero bytes.  Only storages on
-    ``device`` (a device type) count when it is given.
+    ``device`` (a device type) count when it is given.  ``deaths=False``
+    frees every value at its last use alone, as XLA's liveness does: what
+    the dry run reports, since when a Python name lets go of a tensor
+    differs between fake tensors and real ones.  ``args_only`` counts of
+    the values from outside only the call's own arguments, not the
+    constants and caches it first meets inside (a cache a library filled
+    on an earlier call).
 
     Returns ``{peak_bytes, input_bytes}``; ``peak_bytes - input_bytes`` is
     what the call adds to what was resident before it, the number to hold
@@ -344,14 +489,17 @@ def liveness(trace: Trace, device: Optional[str] = None) -> dict:
         for sid, d in zip(r.ins, r.in_devices):
             if sid in trace.roots:
                 root_dev.setdefault(sid, d)
-    inputs = sum(b for sid, b in trace.roots.items()
+    roots = {sid: b for sid, b in trace.roots.items()
+             if not args_only or sid in trace.args}
+    inputs = sum(b for sid, b in roots.items()
                  if device is None or root_dev.get(sid) == device)
 
     free_at = {}
     for sid, i in last.items():
         if sid in size and counts(sid):
             # died before record j: the last record it was alive for is j-1
-            i = max(i, trace.died.get(sid, n + 1) - 1)
+            if deaths:
+                i = max(i, trace.died.get(sid, n + 1) - 1)
             free_at.setdefault(i, []).append(sid)
     live = peak = inputs
     for i, r in enumerate(trace.records):
@@ -361,6 +509,12 @@ def liveness(trace: Trace, device: Optional[str] = None) -> dict:
         for sid in free_at.get(i, []):
             live -= size[sid]
     return dict(peak_bytes=peak, input_bytes=inputs)
+
+
+def cost(trace: Trace) -> dict:
+    """``{flops, bytes}`` of the whole call, one device's."""
+    return dict(flops=float(sum(r.flops for r in trace.records)),
+                bytes=float(sum(r.bytes for r in trace.records)))
 
 
 def liveness_peak_bytes(trace: Trace) -> int:

@@ -14,6 +14,11 @@ the space's ``[n]`` sparse vectors into the flat coordinate system:
 * ``restrict(flat)``    dense ``[n_pad]`` -> ``[n]`` values at the coords
 * ``scatter_into``      refresh the coords of a dense buffer in place
 
+Parameters that are DTensors (the tensor-parallel compute view,
+``sharding/fl.py``) get a :class:`ShardedBacking` instead: the same layout
+over each rank's local shards, so the fused kernels run on those shards
+with no collective.
+
 Backend selection (``resolve_backend``): ``"kernel"`` — the flat route
 through ``zo_dual_perturb_flat`` / ``zo_fused_update_flat``; ``"ref"`` — the
 tree route through ``space.add``; ``"auto"`` — kernel when the layout
@@ -26,7 +31,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
+from repro_torch.core.spaces import has_dtensors, shard_layout_key, sharded
+from repro_torch.utils.tree import (is_dtensor, tree_flatten, tree_leaves,
+                                    tree_unflatten)
 
 # flat vectors are carried at a multiple of 1024 elements (repro's (8, 128)
 # tile quantum), so every flat operand is 16-byte aligned for packed loads
@@ -130,20 +137,85 @@ class FlatBacking:
         return buf
 
 
+class ShardedBacking:
+    """:class:`FlatBacking` over this rank's local shards of DTensor
+    parameters: ``flatten``, ``unflatten`` (each segment wrapped back into
+    a DTensor of its leaf's placement), ``expand`` and ``scatter_into``
+    over the local tensors, at the space's coordinates that fall inside
+    them (``core/spaces.ShardedMask``).  On a one-rank model mesh the
+    shards are the whole leaves and every vector equals
+    :class:`FlatBacking`'s, bit for bit.  A rank holds only its own
+    coordinates, so there is no ``restrict``: the callers carry the [n]
+    vectors themselves."""
+
+    def __init__(self, space, template):
+        sm = sharded(space, template)
+        self.n_space = space.n
+        leaves, self.treedef = tree_flatten(template)
+        self.meta = [(p.device_mesh, p.placements, p.shape, p.stride())
+                     if is_dtensor(p) else None for p in leaves]
+        local = [p.to_local() if is_dtensor(p) else p for p in leaves]
+        self.device = local[0].device
+        self.shapes = [tuple(l.shape) for l in local]
+        self.dtypes = [l.dtype for l in local]
+        self.sizes = [l.numel() for l in local]
+        self.offsets = [0, *np.cumsum(self.sizes).tolist()]
+        self.n_flat = int(self.offsets[-1])
+        self.n_pad = -(-self.n_flat // _TILE) * _TILE
+        self.dtype = self.dtypes[0] if len(set(self.dtypes)) == 1 else None
+        self.index = torch.cat([i + off for i, off in
+                                zip(sm.lidx, self.offsets[:-1])]).to(
+                                    self.device)
+        self.sel = torch.cat(sm.vsel).to(self.device)
+
+    supported = FlatBacking.supported
+
+    def flatten(self, params):
+        return FlatBacking.flatten(self, [p.to_local() if is_dtensor(p)
+                                          else p
+                                          for p in tree_leaves(params)])
+
+    def unflatten(self, flat):
+        from torch.distributed.tensor import DTensor
+        out = []
+        for leaf, meta in zip(tree_leaves(FlatBacking.unflatten(self, flat)),
+                              self.meta):
+            out.append(leaf if meta is None else DTensor.from_local(
+                leaf, meta[0], meta[1], run_check=False, shape=meta[2],
+                stride=meta[3]))
+        return tree_unflatten(self.treedef, out)
+
+    def expand(self, vec):
+        buf = torch.zeros(self.n_pad, dtype=torch.float32, device=self.device)
+        return self.scatter_into(buf, vec)
+
+    def scatter_into(self, buf, vec):
+        buf.index_copy_(0, self.index, vec.to(torch.float32)[self.sel])
+        return buf
+
+
 def _layout_key(template):
     leaves, treedef = tree_flatten(template)
     return (repr(treedef), tuple((tuple(l.shape), str(l.dtype), str(l.device))
                                  for l in leaves))
 
 
-def get_backing(space, template) -> FlatBacking:
+def get_backing(space, template):
     """FlatBacking for (space, template), cached on the space instance (it
-    depends on shapes, dtypes and the index tree, never on values)."""
-    key = _layout_key(template)
+    depends on shapes, dtypes and the index tree, never on values); a
+    :class:`ShardedBacking` where the template's leaves are DTensors."""
+    if has_dtensors(template):
+        # the meshes by identity too: unflatten wraps the shards on them
+        # (the cached backing holds them, so no id is reused meanwhile)
+        meshes = tuple(id(p.device_mesh) if is_dtensor(p) else None
+                       for p in tree_leaves(template))
+        key, cls = (shard_layout_key(template), meshes), ShardedBacking
+    else:
+        key, cls = _layout_key(template), FlatBacking
     cached = getattr(space, "_flat_backing", None)
     if cached is not None and cached[0] == key:
         return cached[1]
-    backing = FlatBacking(space, template)
+    backing = cls(space, template)
     space._flat_backing = (key, backing)
     return backing
 

@@ -28,6 +28,15 @@ with a mesh-ordered ``psum``; the port keeps the client order (ROADMAP
 C21), and row-split forwards may differ from the whole batch's in the
 last bits, so the route is held to the JAX tool's tolerance.
 
+Under ``rule="tp"`` the compute view's leaves are DTensors (Megatron
+shards on the model sub-mesh): each step perturbs, and then updates, this
+rank's local shards with no collective beyond the forwards' own: the
+flat route runs its kernels on a flat vector of the rank's shards
+(``core/dispatch.ShardedBacking``), the ``ref`` route adds at the mask
+coordinates in place (``core/spaces.ShardedMask``; the placed parameters
+are updated in place, as JAX donates them).  The batch rows split over the
+batch axes only.
+
 Left out against the JAX package: ``stack_forwards=True`` (``jax.vmap``
 over the (w+, w-) pair; the ctypes-bound kernels cannot be vmapped, so the
 two forwards always run in sequence, ROADMAP C).
@@ -43,6 +52,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.dispatch import get_backing, resolve_backend
+from repro_torch.core.spaces import has_dtensors, sharded
 from repro_torch.kernels.ops import zo_dual_perturb_flat, zo_fused_update_flat
 
 
@@ -88,12 +98,14 @@ def _rank_rows(plan, n_clients: int):
 def _step_bodies(per_example_loss: Callable, space, eps: float, lr: float,
                  n_clients: int, quantize=None, plan=None):
     """The T=1 step on each route, shared by the step and the loop:
-    ``ref(p, z, batch, mask, key)`` over the parameter tree and
-    ``flat(backing, w_flat, z_flat, batch, mask, key)`` over the flat
-    vector; each returns (the new params or flat vector, g_clients [K], g,
-    loss).  ``key`` is the step's, for the quantizer's rounding draw.
-    Under a ``plan`` the batch holds the rank's rows, and the per-example
-    losses of every rank's rows are gathered before the scalars."""
+    ``ref(p, z, batch, mask, key)`` over the parameter tree (on DTensor
+    parameters, in place on the shards) and ``flat(backing, w_flat, z_flat,
+    batch, mask, key)`` over the flat vector (of the rank's shards, on a
+    ``ShardedBacking``); each returns (the new params or flat vector,
+    g_clients [K], g, loss).  ``key`` is the step's, for the quantizer's
+    rounding draw.  Under a ``plan`` the batch holds the rank's rows, and
+    the per-example losses of every rank's rows are gathered before the
+    scalars."""
     per_example = per_example_loss
     if plan is not None:
         def per_example(p, batch):
@@ -106,7 +118,17 @@ def _step_bodies(per_example_loss: Callable, space, eps: float, lr: float,
         return (g_clients, _masked_mean(g_clients, mask),
                 (l_plus + l_minus).mean() / 2.0)
 
+    def tp(p, z, batch, mask, key):
+        """``ref`` on the DTensor shards, in place (module docstring)."""
+        sm = sharded(space, p)
+        l_plus = per_example(sm.add_(p, eps * z), batch)
+        l_minus = per_example(sm.add_(p, (-2.0 * eps) * z), batch)
+        g_clients, g, loss = finish(l_plus, l_minus, mask, key)
+        return sm.add_(p, (eps - lr * g) * z), g_clients, g, loss
+
     def ref(p, z, batch, mask, key):
+        if has_dtensors(p):
+            return tp(p, z, batch, mask, key)
         w_plus = space.add(p, eps * z)
         l_plus = per_example(w_plus, batch)
         w_minus = space.add(w_plus, (-2.0 * eps) * z)
@@ -149,8 +171,8 @@ def make_fl_train_step(per_example_loss: Callable, space, *, eps: float,
         if plan is not None:
             params = plan.compute_view(params)
         batch = rows(batch)
-        backing = get_backing(space, params)
         z = space.sample_z(key)
+        backing = get_backing(space, params)
         if resolve_backend(backend, backing) == "ref":
             new_params, g_clients, g, loss = ref(params, z, batch,
                                                  report_mask, key)
@@ -202,13 +224,13 @@ def make_fl_train_loop(per_example_loss: Callable, space, *, eps: float,
     def loop(params, key, batches, report_masks=None):
         if plan is not None:
             params = plan.compute_view(params)  # once a burst
-        backing = get_backing(space, params)
         keys = prng.split(key, n_steps)
         masks = ([None] * n_steps if report_masks is None
                  else list(report_masks))
         steps = [(rows({k: v[i] for k, v in batches.items()}), keys[i],
                   masks[i]) for i in range(n_steps)]
         gs, losses = [], []
+        backing = get_backing(space, params)
         if resolve_backend(backend, backing) == "ref":
             p = params
             for b, k, mask in steps:

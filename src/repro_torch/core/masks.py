@@ -120,3 +120,36 @@ def random_mask(params, density: float, seed: int = 0,
     return MaskedSpace(tree_unflatten(treedef, [
         torch.as_tensor(np.asarray(i, np.int64), device=l.device)
         for i, l in zip(picks, leaves)]))
+
+
+def abstract_mask(abstract_params, density: float,
+                  max_coords: int = 8_388_608):
+    """The index tree of a balanced mask on the meta device, for the dry
+    run (``repro.core.masks.abstract_mask``): leaf i holds
+    ``max(1, int(n_i * eff_density))`` int32 indices, the density clamped
+    so that the coordinates stay <= ``max_coords`` (the paper validates
+    densities down to 5e-5, Table 7).  Returns (idx tree, eff_density)."""
+    leaves, treedef = tree_flatten(abstract_params)
+    sizes = [int(np.prod(l.shape)) for l in leaves]
+    eff = min(density, max_coords / sum(sizes))
+    return tree_unflatten(treedef, [
+        torch.empty((max(1, int(s * eff)),), dtype=torch.int32,
+                    device="meta") for s in sizes]), eff
+
+
+def concrete_balanced_mask_like(abstract_idx_tree, abstract_params, seed=0,
+                                device="cpu"):
+    """Random concrete indices of :func:`abstract_mask`'s shapes, drawn as
+    the JAX package draws them (numpy ``default_rng(seed)``, sorted), as
+    int64 tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    p_leaves = tree_flatten(abstract_params)[0]
+    i_leaves, treedef = tree_flatten(abstract_idx_tree)
+    out = []
+    for p, i in zip(p_leaves, i_leaves):
+        size = int(np.prod(p.shape))
+        k = min(int(i.shape[0]), size)
+        out.append(torch.as_tensor(
+            np.sort(rng.choice(size, size=k, replace=False)).astype(np.int64),
+            device=device))
+    return tree_unflatten(treedef, out)

@@ -9,11 +9,14 @@ reconstruction of the uploaded scalars.
 
 **Mesh route** (``plan=``, a :class:`repro_torch.sharding.fl.FLShardPlan`):
 every rank of the plan's mesh holds a server.  Parameters rest as DTensors
-placed by the plan (FSDP by default); each round gathers them once, every
-rank runs its block of each T-group's clients through the same client loop
-as the unsharded server (same routes and kernels), the decoded uploads are
+placed by the plan (FSDP by default); each round gathers them once, every rank
+runs its block of each T-group's clients through the same client loop as the
+unsharded server (same routes and kernels), the decoded uploads are
 ``all_gather``-ed in cohort order, and every rank replays, aggregates and
-applies the identical update, then re-places it.  Cohorts, faults, data
+applies the identical update, then re-places it.  Under ``rule="tp"`` the round
+computes on the Megatron shards instead (``FLShardPlan.compute_view``):
+clients over the batch axes, the masked perturbation and the update in place on
+each rank's shards (``core/spaces.ShardedMask``).  Cohorts, faults, data
 pointers, GradIP and ``CommLog`` are computed on every rank from the shared
 seed, so the sharded round is bit-identical to the unsharded one.
 
@@ -47,6 +50,7 @@ from repro_torch.core import zo as ZO
 from repro_torch.core.gradip import gradip_trajectory
 from repro_torch.core.quantize import make_codec
 from repro_torch.core.sampling import ClientSampler
+from repro_torch.core.spaces import has_dtensors, sharded
 from repro_torch import fault
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_leaves
@@ -132,8 +136,6 @@ class FederatedZO:
             if p.device.type != self.device.type:
                 raise ValueError(f"params live on {p.device}, not "
                                  f"{self.device}")
-        if plan is not None:
-            plan.check_compute()
         self.loss_fn = loss_fn
         self.plan = plan
         self.params = params if plan is None else plan.place_params(params)
@@ -170,8 +172,16 @@ class FederatedZO:
 
     def full_params(self):
         """The parameters as full tensors: the plan's gather
-        (``FLShardPlan.compute_view``, a collective every rank joins), or
-        the tree itself without a plan."""
+        (``FLShardPlan.full``, a collective every rank joins), or the tree
+        itself without a plan."""
+        if self.plan is None:
+            return self.params
+        return self.plan.full(self.params)
+
+    def _compute_params(self):
+        """What a round computes with: the plan's compute view (the full
+        tensors, or under ``rule="tp"`` the Megatron shards,
+        ``FLShardPlan.compute_view``), or the tree itself."""
         if self.plan is None:
             return self.params
         return self.plan.compute_view(self.params)
@@ -246,7 +256,7 @@ class FederatedZO:
         land in ``self.last_round_info``."""
         f = faults if faults is not None else fault.NO_FAULTS
         r = self.round
-        params = self.full_params()  # under a plan: the gather at entry
+        params = self._compute_params()  # under a plan: the gather at entry
         cohort = self._cohort(r)
         in_cohort = set(cohort)
         f = f.restrict(in_cohort)
@@ -325,7 +335,10 @@ class FederatedZO:
                              else self.fl.server_momentum * self.velocity
                              + agg)
             agg = self.velocity
-        params = self.space.add(params, agg)
+        if has_dtensors(params):   # tp: the shards, in place
+            params = sharded(self.space, params).add_(params, agg)
+        else:
+            params = self.space.add(params, agg)
         self.params = (params if self.plan is None
                        else self.plan.place_params(params))
         del params
@@ -353,7 +366,8 @@ class FederatedZO:
         ids, trajectories [GradIP [T_cali] arrays])."""
         T = T_cali or self.fl.vp_calibration_steps
         keys = S.round_keys(self.fl.seed, -1, T)
-        gs = self._run_clients(self.clients, keys, T, self.full_params())
+        gs = self._run_clients(self.clients, keys, T,
+                               self._compute_params())
         trajs = []
         for c, g in zip(self.clients, gs):
             trajs.append(self._gradip(keys, g, gp_vec))

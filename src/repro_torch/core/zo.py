@@ -16,6 +16,14 @@ Every entry point dispatches between two routes (``core/dispatch.py``):
 * ``backend=None``/"auto" picks the kernel route whenever the flat layout
   supports it and fits the device's budget.
 
+Parameters that are DTensors (the tensor-parallel compute view,
+``sharding/fl.py``) run :func:`make_local_run` on each rank's local shards,
+with no collective beyond the forwards' own: the kernel route launches the
+same kernels over a flat vector of the shards
+(``core/dispatch.ShardedBacking``) and carries the [n] delta, the ``ref``
+route sets the shards' coordinates in place (``core/spaces.ShardedMask``)
+and restores them after each step.
+
 Everything here runs under ``torch.no_grad()``: a ZO step takes no
 gradients, and the attention dispatch then may route to its forward kernel.
 """
@@ -27,6 +35,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.dispatch import get_backing, resolve_backend
+from repro_torch.core.spaces import has_dtensors, sharded
 from repro_torch.kernels.ops import zo_dual_perturb_flat, zo_fused_update_flat
 
 
@@ -55,18 +64,20 @@ def _dual_losses(loss_fn, backing, base_flat, z_flat, eps, batch):
 
 
 def _multi_dir_update(loss_fn, backing, space, base_flat, key, eps: float,
-                      n_dirs: int, batch, quantize=None):
+                      n_dirs: int, batch, quantize=None, dense=True):
     """K-direction fused estimator at ``base_flat``: splits the step key
     into K direction keys (matching ``reconstruct_delta``'s [T, K] replay)
-    and returns (mean_k g_k * z_k as a dense flat vector, gs [K])."""
-    acc = torch.zeros(backing.n_pad, dtype=torch.float32,
-                      device=backing.device)
+    and returns (mean_k g_k * z_k as a dense flat vector, or with ``dense``
+    off as the [n] vector, gs [K])."""
+    acc = torch.zeros(backing.n_pad if dense else space.n,
+                      dtype=torch.float32, device=backing.device)
     gs = []
     for k in prng.split(key, n_dirs):
-        z_flat = backing.expand(space.sample_z(k))
+        z = space.sample_z(k)
+        z_flat = backing.expand(z)
         lp, lm = _dual_losses(loss_fn, backing, base_flat, z_flat, eps, batch)
         g = _maybe_quantize((lp - lm) / (2.0 * eps), k, quantize)
-        acc = acc + g * z_flat
+        acc = acc + g * (z_flat if dense else z)
         gs.append(g)
     return acc / n_dirs, torch.stack(gs)
 
@@ -154,7 +165,11 @@ def make_local_run(loss_fn: Callable, space, eps: float, lr: float,
         step_batches = [{k: v[t] for k, v in batches.items()}
                         for t in range(T)]
         backing = get_backing(space, params)
-        if resolve_backend(backend, backing) == "ref":
+        route = resolve_backend(backend, backing)
+        if route == "ref" and has_dtensors(params):
+            return _run_sharded(loss_fn, params, space, keys, step_batches,
+                                delta0, eps, lr, n_dirs, quantize)
+        if route == "ref":
             delta, gs = delta0, []
             for key, batch in zip(keys, step_batches):
                 delta, g = _local_step_ref(loss_fn, params, space, delta,
@@ -168,25 +183,61 @@ def make_local_run(loss_fn: Callable, space, eps: float, lr: float,
         # so each step refreshes the sparse values in place (scatter_into)
         z_buf = torch.zeros(backing.n_pad, dtype=torch.float32,
                             device=backing.device)
-        delta_dense = backing.expand(delta0)
+        # the delta is carried dense, or on a rank's shards (which hold only
+        # that rank's coordinates) as the [n] vector, updated by the same
+        # kernel element for element
+        dense = not has_dtensors(params)
+        delta = backing.expand(delta0) if dense else delta0
         gs = []
         for key, batch in zip(keys, step_batches):
-            base = w_flat + delta_dense
+            base = w_flat + (delta if dense else backing.expand(delta))
             if n_dirs == 1:
-                z_flat = backing.scatter_into(z_buf, space.sample_z(key))
+                z = space.sample_z(key)
+                z_flat = backing.scatter_into(z_buf, z)
                 lp, lm = _dual_losses(loss_fn, backing, base, z_flat, eps,
                                       batch)
                 del base
                 g = _maybe_quantize((lp - lm) / (2.0 * eps), key, quantize)
-                delta_dense = zo_fused_update_flat(delta_dense, z_flat, None,
-                                                   -lr * g)
+                delta = zo_fused_update_flat(delta, z_flat if dense else z,
+                                             None, -lr * g)
             else:
                 upd, g = _multi_dir_update(loss_fn, backing, space, base,
-                                           key, eps, n_dirs, batch, quantize)
+                                           key, eps, n_dirs, batch, quantize,
+                                           dense)
                 del base
-                delta_dense = zo_fused_update_flat(delta_dense, upd, None,
-                                                   -lr)
+                delta = zo_fused_update_flat(delta, upd, None, -lr)
             gs.append(g)
-        return backing.restrict(delta_dense), torch.stack(gs)
+        return (backing.restrict(delta) if dense else delta), torch.stack(gs)
 
     return run
+
+
+def _run_sharded(loss_fn, params, space, keys, step_batches, delta, eps, lr,
+                 n_dirs, quantize):
+    """:func:`make_local_run`'s T steps on DTensor parameters by the ref
+    route: each forward sets this rank's coordinates to ``base + (delta +-
+    eps z)`` in place (``space.add``'s value, element for element) and the
+    step restores them, so ``params`` leave as they came."""
+    sm = sharded(space, params)
+    base = sm.values(params)
+    gs = []
+    try:
+        for key, batch in zip(keys, step_batches):
+            gz, gk = [], []
+            for k in ([key] if n_dirs == 1 else prng.split(key, n_dirs)):
+                z = space.sample_z(k)
+                lp = loss_fn(sm.set_(params, base, delta + eps * z), batch)
+                lm = loss_fn(sm.set_(params, base, delta - eps * z), batch)
+                g = _maybe_quantize((lp - lm) / (2.0 * eps), k, quantize)
+                gz.append(z)
+                gk.append(g)
+            if n_dirs == 1:     # _local_step_ref's association
+                delta = delta - lr * gk[0] * gz[0]
+                gs.append(gk[0])
+            else:
+                gz = [g * z for g, z in zip(gk, gz)]
+                delta = delta - lr * torch.stack(gz).mean(0)
+                gs.append(torch.stack(gk))
+    finally:
+        sm.set_(params, base)
+    return delta, torch.stack(gs)

@@ -18,6 +18,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.utils.tree import is_dtensor
+
 
 @dataclass(frozen=True)
 class TaskSpec:
@@ -65,6 +67,10 @@ def sample_dataset(spec: TaskSpec, n: int, seed: int = 0,
     return {"tokens": toks, "label": labels.astype(np.int32)}
 
 
+def _whole(t):
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def make_task_fns(model, spec: TaskSpec):
     """(loss_fn, per_example_loss_fn, eval_fn) closing over the model.
 
@@ -76,7 +82,9 @@ def make_task_fns(model, spec: TaskSpec):
     def _logits(params, batch):
         tokens = torch.as_tensor(batch["tokens"], device=model.device)
         logits, aux = model.forward(params, {"tokens": tokens})
-        return logits[:, -1, :C], aux
+        # tensor-parallel parameters give DTensor logits: the verbalizer's
+        # columns whole on every rank
+        return _whole(logits[:, -1, :C]), _whole(aux)
 
     def _labels(batch):
         return torch.as_tensor(batch["label"], device=model.device).long()

@@ -17,6 +17,11 @@ them:
 * :func:`process_group` joins the calling process as one rank: the lone
   rank of a one-device mesh (``"1x1"``), a rank that :func:`spawn` started,
   or a rank that ``torchrun`` started (its environment gives the address).
+
+The dry run needs no devices at all: :func:`fake_mesh` makes the calling
+process rank 0 of a ``"fake"`` process group of any size (its collectives
+move nothing), with a ``DeviceMesh`` over it, so one process can trace
+what one device of the production mesh runs (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -68,6 +73,35 @@ def parse_mesh_spec(spec: str) -> MeshConfig:
 
 def mesh_config(*, multi_pod: bool = False) -> MeshConfig:
     return MeshConfig(data=16, model=16, pods=2 if multi_pod else 1)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The 16x16 single-pod (256 devices) or 2x16x16 multi-pod (512
+    devices) mesh over the default process group, which must have that
+    many ranks (:func:`fake_mesh` gives one without devices)."""
+    return make_mesh_from_config(mesh_config(multi_pod=multi_pod))
+
+
+@contextlib.contextmanager
+def fake_mesh(mc: MeshConfig, rank: int = 0):
+    """Make this process rank ``rank`` of a ``"fake"`` process group of
+    ``mc.n_devices`` ranks (``torch.testing``'s ``FakeStore``: no peer, no
+    device, and collectives that return at once with their output
+    buffers as they are) and yield a CPU ``DeviceMesh`` of ``mc.shape``
+    named ``mc.axis_names`` over it.  The group is destroyed on exit.
+
+    Raises if a process group exists already: a group left behind would
+    break the next ``spawn`` or ``process_group`` of the same process."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists already; fake_mesh "
+                           "makes its own")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=mc.n_devices)
+    try:
+        yield make_mesh_from_config(mc, "cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def group_device_type() -> str:

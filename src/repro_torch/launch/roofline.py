@@ -8,7 +8,8 @@ card's peaks.
 
 ``analyze`` and ``collect`` read records in the JAX dry run's JSON schema
 (``repro.launch.dryrun``: per-device ``cost``, ``collectives`` and
-``memory``); the port's dry run (ROADMAP A item 8) will write them.
+``memory``), which the port's dry run writes (``launch/dryrun.py``, into
+``runs/dryrun_torch/``).
 MODEL_FLOPS uses the analytic active-parameter count: a ZO step = 2
 forwards, prefill = 1, decode = one token a row.
 
@@ -18,8 +19,8 @@ the card as ``nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`` prints it.  A card set below 700 W runs slower.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.roofline [--dir runs/dryrun]
-      [--md runs/roofline.md] [--mesh single]
+  PYTHONPATH=src python -m repro_torch.launch.roofline \
+      [--dir runs/dryrun_torch] [--md runs/roofline.md] [--mesh single]
 """
 from __future__ import annotations
 
@@ -129,8 +130,11 @@ def step_model_flops(cfg, B: int, S: int, step: str) -> float:
 
 
 def model_flops_per_device(rec: dict) -> float:
-    """Analytic 'useful' FLOPs per device for the lowered step."""
-    B, S = SHAPE_TOKENS[rec["shape"]]
+    """Analytic 'useful' FLOPs per device for the lowered step (the
+    port's records of shapes off the registry carry ``global_batch`` and
+    ``seq_len``)."""
+    B, S = SHAPE_TOKENS.get(rec["shape"]) or (rec["global_batch"],
+                                              rec["seq_len"])
     n_act = rec["n_active_params"]
     tokens = B * S
     if rec["step"] in ("zo_fl", "zo_dp"):
@@ -232,7 +236,7 @@ def to_markdown(rows: List[dict]) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="runs/dryrun")
+    ap.add_argument("--dir", default="runs/dryrun_torch")
     ap.add_argument("--mesh", default="single")
     ap.add_argument("--md", default=None)
     ap.add_argument("--json", default=None)

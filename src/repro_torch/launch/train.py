@@ -14,8 +14,11 @@ config sets one).  Runs on the CUDA card unless ``--device`` says otherwise.
 (``sharding/fl.FLShardPlan``; ``--mesh-rule``, FSDP by default): started
 alone, the CLI spawns the mesh's ranks itself (``launch/mesh.spawn``: gloo
 ranks with ``--device cpu``, else one card a rank); under ``torchrun`` it
-runs as one of its ranks.  Rank 0 alone prints and writes; the final
-checkpoint is the unsharded run's, byte for byte.
+runs as one of its ranks.  Rank 0 alone prints and writes; under ``fsdp``
+and ``replicate`` the final checkpoint is the unsharded run's, byte for
+byte.  ``--mesh-rule tp`` computes tensor-parallel (Megatron shards over
+the ``model`` axis, clients over the others), within the JAX tool's
+tolerance of the unsharded run (bit-equal on ``1x1``).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --rounds 4
@@ -96,7 +99,8 @@ def main(argv=None):
                     choices=["fsdp", "tp", "replicate"],
                     help="parameter sharding rule under --mesh "
                          "(sharding/fl.py; fsdp and replicate are bit-exact "
-                         "against the unsharded run; tp is not ported)")
+                         "against the unsharded run; tp computes "
+                         "tensor-parallel)")
     ap.add_argument("--vp", action="store_true",
                     help="MEERKAT-VP: calibrate GradIP + early-stop")
     ap.add_argument("--eval-every", type=int, default=5)
@@ -143,8 +147,6 @@ def main(argv=None):
         mc = M.parse_mesh_spec(a.mesh)
     except ValueError as e:
         ap.error(str(e))
-    from repro_torch.sharding.fl import FLShardPlan
-    FLShardPlan(None, mc, a.mesh_rule).check_compute()
     device_type = "cpu" if a.device == "cpu" else "cuda"
     if torch.distributed.is_initialized() or M.torchrun_env() is not None:
         with M.process_group(device_type) as dev:
@@ -172,8 +174,10 @@ def train(a, device, plan=None):
     if plan is not None:
         say(f"mesh: {a.mesh} ({plan.mesh_cfg.n_devices} ranks, "
             f"rule={a.mesh_rule}, client axis over {plan.batch_axes})")
-    model = Model(cfg, ctx=ModelCtx(attn_backend=a.attn_backend),
-                  device=device)
+    ctx = ModelCtx(attn_backend=a.attn_backend)
+    if plan is not None and plan.rule == "tp":
+        ctx = plan.model_ctx(ctx)  # tensor-parallel forwards on the shards
+    model = Model(cfg, ctx=ctx, device=device)
     say(f"arch={cfg.name} params={model.n_params:,} method={a.method} "
           f"device={model.device}")
 

@@ -251,6 +251,12 @@ def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
     return params
 
 
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16):
+    """The parameter tree on the meta device: every leaf's shape, in
+    ``dtype``, with no bytes (``repro.models.init.abstract_params``)."""
+    return init_params(0, cfg, dtype=dtype, device="meta")
+
+
 def param_count(cfg: ModelConfig) -> int:
     from repro_torch.utils.tree import tree_leaves
     tree = init_params(0, cfg, device="meta")

@@ -37,6 +37,7 @@ from repro_torch.kernels import plans, ref
 from repro_torch.kernels.ops import (BWD_HEAD_DIMS, DECODE_HEAD_DIMS,
                                      DECODE_MAX_G, KERNEL_HEAD_DIMS,
                                      flash_decode)
+from repro_torch.utils.tree import is_dtensor
 
 NEG_INF = -1e9  # large-negative for masking (bf16-safe)
 
@@ -71,6 +72,50 @@ def softcap(x, cap: float):
     if not cap:
         return x
     return torch.tanh(x / cap) * cap
+
+
+def replicated(y):
+    """A layer's output ready for the residual add: under tensor
+    parallelism a row-parallel product is a partial sum on each rank, and
+    Megatron all-reduces it here, so the residual stream stays whole on
+    every rank (left to itself DTensor may reduce-scatter it over the
+    hidden dim instead, and every later column-parallel product would
+    then gather its weight).  A plain tensor passes as it is."""
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate
+    mesh = y.device_mesh
+    want = [Replicate()] * mesh.ndim
+    return y if list(y.placements) == want else y.redistribute(mesh, want)
+
+
+def merge_heads(out, *shape):
+    """``out`` [B,S,H,hd] reshaped to ``shape`` (heads merged).  A DTensor
+    sharded on any dim but the heads (the head_dim or the sequence of a
+    sharded cache) is gathered on that dim first, so the merged dim keeps
+    a plain placement."""
+    if is_dtensor(out) and any(p.is_shard() and p.dim != 2
+                               for p in out.placements):
+        from torch.distributed.tensor import Replicate
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_shard() and p.dim != 2 else p
+            for p in out.placements])
+    return out.reshape(*shape)
+
+
+def split_heads(t, *shape):
+    """``t.reshape(*shape)``, splitting a dim into heads.  A DTensor whose
+    sharded dim does not split evenly over its mesh (KV heads fewer than
+    the model axis) is replicated first, as GSPMD would gather it."""
+    if not is_dtensor(t):
+        return t.reshape(*shape)
+    try:
+        return t.reshape(*shape)
+    except RuntimeError:
+        from torch.distributed.tensor import Replicate
+        mesh = t.device_mesh
+        return t.redistribute(mesh, [Replicate()] * mesh.ndim).reshape(
+            *shape)
 
 
 # ----------------------------------------------------------------- RoPE ----
@@ -120,33 +165,39 @@ def _project_qkv(x, p, cfg):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = x @ p["wq"]
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    k = split_heads(x @ p["wk"], B, S, cfg.n_kv_heads, hd)
     v = x @ p["wv"]
     if "lora_qa" in p:
         s = cfg.lora_alpha / cfg.lora_rank
         q = q + s * ((x @ p["lora_qa"]) @ p["lora_qb"])
         v = v + s * ((x @ p["lora_va"]) @ p["lora_vb"])
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_heads(q, B, S, cfg.n_heads, hd)
+    v = split_heads(v, B, S, cfg.n_kv_heads, hd)
     if cfg.qkv_bias:
-        q = q + p["bq"].reshape(cfg.n_heads, hd)
-        k = k + p["bk"].reshape(cfg.n_kv_heads, hd)
-        v = v + p["bv"].reshape(cfg.n_kv_heads, hd)
+        q = q + split_heads(p["bq"], cfg.n_heads, hd)
+        k = k + split_heads(p["bk"], cfg.n_kv_heads, hd)
+        v = v + split_heads(p["bv"], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
-def gqa_attention(q, k, v, mask, cfg):
+def gqa_attention(q, k, v, mask, cfg, ctx=None):
     """q: [B,Sq,H,hd]; k,v: [B,Sk,KV,hd]; mask: [B|1, Sq, Sk] bool or None.
 
     Scores use the grouped [B, KV, G, Sq, Sk] layout, so K/V are never
-    repeated G-fold."""
+    repeated G-fold.  Under a mesh q is constrained at its H heads and K/V
+    at their KV heads (``ModelCtx.attn_head_spec``), as in the JAX
+    package."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
-    qg = q.reshape(B, Sq, KV, G, hd)  # head h -> (kv h//G, g h%G)
+    if ctx is not None and getattr(ctx, "mesh", None) is not None:
+        q = ctx.constrain(q, ctx.attn_head_spec(B, Sq, H))
+        kv_spec = ctx.attn_head_spec(B, k.shape[1], KV)
+        k, v = ctx.constrain(k, kv_spec), ctx.constrain(v, kv_spec)
+    qg = split_heads(q, B, Sq, KV, G, hd)  # head h -> (kv h//G, g h%G)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
                           k.float()) * (hd ** -0.5)
     scores = softcap(scores, cfg.attn_softcap)
@@ -170,7 +221,7 @@ def causal_mask(S: int, window: int = 0, device=None, *, Sk: int = 0,
 
 
 def blocked_gqa_attention(q, k, v, cfg, *, window: int, q_block: int,
-                          kv_mask=None):
+                          kv_mask=None, ctx=None):
     """Query-block-chunked causal attention: scores are materialized per
     block [B, H, q_block, S] instead of [B, H, S, S]; one full block when
     ``q_block`` does not divide S or is not smaller than it.
@@ -181,14 +232,15 @@ def blocked_gqa_attention(q, k, v, cfg, *, window: int, q_block: int,
         mask = causal_mask(S, window, device=q.device)
         if kv_mask is not None:
             mask = mask & kv_mask
-        return gqa_attention(q, k, v, mask, cfg)
+        return gqa_attention(q, k, v, mask, cfg, ctx)
     outs = []
     for off in range(0, S, q_block):
         mask = causal_mask(q_block, window, device=q.device, Sk=S,
                            offset=off)
         if kv_mask is not None:
             mask = mask & kv_mask
-        outs.append(gqa_attention(q[:, off:off + q_block], k, v, mask, cfg))
+        outs.append(gqa_attention(q[:, off:off + q_block], k, v, mask, cfg,
+                                  ctx))
     return torch.cat(outs, dim=1)
 
 
@@ -231,7 +283,7 @@ def online_gqa_attention(q, k, v, cfg, *, window: int = 0,
         else:
             kvv = F.pad(kvv, (0, pad))
     Sp = S + pad
-    qg = q.reshape(B, Sp, KV, G, hd).float()
+    qg = split_heads(q, B, Sp, KV, G, hd).float()
     kf = k.float()
     ki_base = torch.arange(kv_block, device=dev)[None, :]
     qi_base = torch.arange(q_block, device=dev)[:, None]
@@ -297,7 +349,8 @@ def kernel_supports(cfg, differentiable: bool = False) -> bool:
 
 
 def resolve_attn_backend(backend, cfg, *, S: int = 0,
-                         differentiable: bool = False) -> str:
+                         differentiable: bool = False,
+                         mesh: bool = False) -> str:
     """Map a requested forward-attention backend to 'kernel' | 'online' |
     'dense'.
 
@@ -315,13 +368,20 @@ def resolve_attn_backend(backend, cfg, *, S: int = 0,
     autotune table and, off the TPU or for head dims off its 128-lane tile
     (Llama-3.2-1B's 64), takes its ``online`` route; the port's kernels
     take head_dim 64 and 128 alike, so it takes the kernel there, and
-    ``online`` only for the layouts the kernels do not take."""
+    ``online`` only for the layouts the kernels do not take.
+
+    Under a mesh (``mesh``: the tensor-parallel layout, DTensor operands)
+    "auto" resolves as the JAX package resolves it: "dense" below
+    ``ATTN_AUTO_MIN_S``, else "online".  An explicit "kernel" is honoured
+    there too, on each rank's local heads (:func:`forward_attention`)."""
     backend = backend or "auto"
     if backend not in ATTN_BACKENDS:
         raise ValueError(
             f"attn backend must be one of {ATTN_BACKENDS}, got {backend!r}")
     if backend != "auto":
         return backend
+    if mesh:
+        return "dense" if S < ATTN_AUTO_MIN_S else "online"
     if S < ATTN_AUTO_MIN_S:
         return "dense"
     return "kernel" if kernel_supports(cfg, differentiable) else "online"
@@ -341,12 +401,36 @@ def forward_attention(q, k, v, cfg, ctx=None, *, window: int = 0,
     route's scores where it divides S and is smaller
     (:func:`blocked_gqa_attention`); the kernel route ignores it, as the
     JAX package's Pallas route does.  The online route's key block is
-    ``ONLINE_KV_BLOCK``."""
+    ``ONLINE_KV_BLOCK``.
+
+    DTensor operands (the tensor-parallel layout) run every route on each
+    rank's local heads (:func:`local_heads_attention`) wherever the model
+    axis divides the query heads, so the explicit ``kernel`` route runs
+    the flash kernel there; other head counts take the dense or online
+    route through DTensor's own ops."""
     B, S = q.shape[:2]
     q_block = getattr(ctx, "attn_q_block", 0)
     grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    sharded = is_dtensor(q)
     be = resolve_attn_backend(getattr(ctx, "attn_backend", None), cfg, S=S,
-                              differentiable=grad)
+                              differentiable=grad, mesh=sharded)
+    if sharded and q.device_mesh.ndim == 1 and \
+            q.shape[2] % q.device_mesh.size() == 0:
+        return local_heads_attention(
+            q, k, v, lambda ql, kl, vl: _attention_route(
+                be, ql, kl, vl, cfg, ctx, window, kv_mask, lengths, q_block))
+    if be == "kernel" and sharded:
+        raise ValueError("the kernel route under a mesh runs on local "
+                         "heads: it needs the model axis to divide the "
+                         f"query heads ({q.shape[2]})")
+    return _attention_route(be, q, k, v, cfg, ctx, window, kv_mask, lengths,
+                            q_block)
+
+
+def _attention_route(be, q, k, v, cfg, ctx, window, kv_mask, lengths,
+                     q_block):
+    """:func:`forward_attention` on the resolved route ``be``."""
+    B, S = q.shape[:2]
     if be == "kernel":
         from repro_torch.kernels.ops import flash_attention
         L = lengths
@@ -368,7 +452,44 @@ def forward_attention(q, k, v, cfg, ctx=None, *, window: int = 0,
                    < L[:, None])[:, None, :]
     return blocked_gqa_attention(
         q, k, v, cfg, window=window, q_block=q_block,
-        kv_mask=None if kv_mask is None else kv_mask.reshape(B, 1, S))
+        kv_mask=None if kv_mask is None else kv_mask.reshape(B, 1, S),
+        ctx=ctx)
+
+
+def local_heads_attention(q, k, v, fn):
+    """Attention on each rank's local heads: q [B,S,H,hd] and k, v
+    [B,S,KV,hd] are DTensors on the 1-D model sub-mesh, and ``fn(q, k, v)``
+    any route on plain tensors (the flash kernel, row 3, or a plain
+    route).  Megatron shards q/k/v over heads, so no head crosses a rank:
+    rank r holds query heads [r H/tp, (r+1) H/tp) and takes the KV heads
+    they read (its own shard where tp divides KV; where it does not, K/V
+    are gathered once and the rank slices its group's heads).  Returns the
+    DTensor [B,S,H,hd] sharded over heads."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    tp, r = mesh.size(), mesh.get_local_rank()
+    h_loc = H // tp
+    if KV % tp == 0:
+        kv_pl, kv_sl = [Shard(2)], None
+    elif h_loc % G == 0 or G % h_loc == 0:
+        kv_pl = [Replicate()]
+        k0 = r * h_loc // G
+        kv_sl = slice(k0, k0 + max(1, h_loc // G))
+    else:
+        raise ValueError(f"{H} query heads over {KV} KV heads do not split "
+                         f"into {tp} local groups")
+    ql = q.redistribute(mesh, [Shard(2)]).to_local()
+    kl = k.redistribute(mesh, kv_pl).to_local()
+    vl = v.redistribute(mesh, kv_pl).to_local()
+    if kv_sl is not None:
+        kl, vl = kl[:, :, kv_sl], vl[:, :, kv_sl]
+    out = fn(ql, kl, vl).contiguous()
+    return DTensor.from_local(out, mesh, [Shard(2)], run_check=False,
+                              shape=(B, S, H, hd),
+                              stride=(S * H * hd, H * hd, hd, 1))
 
 
 def self_attention(x, p, cfg, positions, *, local: bool, ctx=None):
@@ -380,23 +501,23 @@ def self_attention(x, p, cfg, positions, *, local: bool, ctx=None):
     q, k = rope(q, k, positions, cfg)
     window = cfg.sliding_window if local else 0
     out = forward_attention(q, k, v, cfg, ctx, window=window)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return merge_heads(out, B, S, -1) @ p["wo"]
 
 
 def bidir_attention(x, p, cfg):
     """Encoder (non-causal) self-attention. x: [B,S,D] -> [B,S,D]."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
-    return gqa_attention(q, k, v, None, cfg).reshape(B, S, -1) @ p["wo"]
+    return merge_heads(gqa_attention(q, k, v, None, cfg), B, S, -1) @ p["wo"]
 
 
 def cross_attention(x, enc_kv, p, cfg):
     """Decoder cross-attention. x: [B,S,D]; enc_kv: (k, v) each
     [B,Senc,KV,hd] (:func:`encode_kv`) -> [B,S,D]."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+    q = split_heads(x @ p["wq"], B, S, cfg.n_heads, cfg.resolved_head_dim)
     k, v = enc_kv
-    return gqa_attention(q, k, v, None, cfg).reshape(B, S, -1) @ p["wo"]
+    return merge_heads(gqa_attention(q, k, v, None, cfg), B, S, -1) @ p["wo"]
 
 
 def encode_kv(enc_out, p, cfg):
@@ -404,8 +525,8 @@ def encode_kv(enc_out, p, cfg):
     once per request at prefill and kept in the decode cache."""
     B, Se, _ = enc_out.shape
     shape = (B, Se, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return (enc_out @ p["wk"]).reshape(shape), \
-        (enc_out @ p["wv"]).reshape(shape)
+    return (split_heads(enc_out @ p["wk"], *shape),
+            split_heads(enc_out @ p["wv"], *shape))
 
 
 # -------------------------------------------------- decode-mode attention ----
@@ -418,16 +539,16 @@ def decode_kernel_supports(cfg) -> bool:
     return cfg.resolved_head_dim in DECODE_HEAD_DIMS and G <= DECODE_MAX_G
 
 
-def resolve_decode_backend(backend, cfg) -> str:
+def resolve_decode_backend(backend, cfg, mesh: bool = False) -> str:
     """Map a requested decode-attention backend to 'kernel' | 'ref'.
 
     Explicit backends are honoured; "auto" takes the flash-decode kernel
     whenever it takes the head layout, else its plain version.  This
     is the port's own rule and naming: the JAX package says "pallas" for
     the kernel and also sends a sharded mesh, or on a compiled TPU a
-    head_dim off the 128-lane tile, to "ref"; no route of the port depends
-    on a mesh (ROADMAP C20) and its kernel takes head_dim 64, 128 and
-    256."""
+    head_dim off the 128-lane tile, to "ref"; the port's kernel takes
+    head_dim 64, 128 and 256, and under a mesh (``mesh``: DTensor
+    operands, the tensor-parallel layout) "auto" takes "ref", as JAX's."""
     backend = backend or "auto"
     if backend not in DECODE_BACKENDS:
         raise ValueError(
@@ -435,6 +556,8 @@ def resolve_decode_backend(backend, cfg) -> str:
             f"{backend!r}")
     if backend != "auto":
         return backend
+    if mesh:
+        return "ref"
     return "kernel" if decode_kernel_supports(cfg) else "ref"
 
 
@@ -459,29 +582,58 @@ def decode_self_attention(x1, p, cfg, cache_k, cache_v, cur_pos, *,
     q, k = rope(q, k, pos[:, None], cfg)
     rolling = bool(local and cfg.sliding_window)
     slot = torch.remainder(pos, W) if rolling else torch.clamp(pos, max=W - 1)
-    rows = torch.arange(B, device=x1.device)
     k_new, v_new = k[:, 0].to(cache_k.dtype), v[:, 0].to(cache_v.dtype)
-    if active is not None:
-        keep = active.reshape(B, 1, 1)
-        k_new = torch.where(keep, k_new, cache_k[rows, slot])
-        v_new = torch.where(keep, v_new, cache_v[rows, slot])
-    cache_k[rows, slot] = k_new
-    cache_v[rows, slot] = v_new
+    if is_dtensor(cache_k):
+        # a sharded cache (over KV heads, or over W under seq_shard) takes
+        # the new row as an elementwise select, which DTensor computes on
+        # each rank's shard with no index arithmetic
+        hit = torch.arange(W, device=x1.device)[None, :] == slot[:, None]
+        if active is not None:
+            hit = hit & active.reshape(B, 1)
+        hit = hit[:, :, None, None]
+        cache_k.copy_(torch.where(hit, k_new[:, None], cache_k))
+        cache_v.copy_(torch.where(hit, v_new[:, None], cache_v))
+    else:
+        rows = torch.arange(B, device=x1.device)
+        if active is not None:
+            keep = active.reshape(B, 1, 1)
+            k_new = torch.where(keep, k_new, cache_k[rows, slot])
+            v_new = torch.where(keep, v_new, cache_v[rows, slot])
+        cache_k[rows, slot] = k_new
+        cache_v[rows, slot] = v_new
     # both cache layouts hold a per-row live *prefix*: a global cache
     # positions [0, pos], a rolling one min(pos + 1, W) slots
     lengths = torch.clamp(pos + 1, max=W)
     KV = cfg.n_kv_heads
-    qg = q[:, 0].reshape(B, KV, cfg.n_heads // KV, hd)  # a view, no copy
+    qg = split_heads(q[:, 0], B, KV, cfg.n_heads // KV, hd)  # a view
     backend = resolve_decode_backend(getattr(ctx, "decode_backend", None),
-                                     cfg)
+                                     cfg, mesh=is_dtensor(q))
     if backend == "kernel":
         out = flash_decode(qg, cache_k, cache_v, lengths,
                            softcap=cfg.attn_softcap)
     else:
-        out = ref.decode_attention_ref(qg, cache_k, cache_v, lengths,
-                                       cfg.attn_softcap)
+        out = _decode_ref(qg, cache_k, cache_v, lengths, cfg.attn_softcap)
     out = out.to(cache_v.dtype)
-    return out.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v
+    return merge_heads(out, B, 1, -1) @ p["wo"], cache_k, cache_v
+
+
+def _decode_ref(qg, cache_k, cache_v, lengths, softcap):
+    """The plain decode route; on each rank's local KV heads where q
+    [B, KV, G, hd] and the cache [B, W, KV, hd] are DTensors sharded over
+    the KV heads on the model sub-mesh (its grouped einsum would flatten
+    the sharded heads into its batch, which DTensor refuses)."""
+    if is_dtensor(qg) and qg.device_mesh.ndim == 1 \
+            and qg.placements[0].is_shard(1) \
+            and cache_k.placements[0].is_shard(2):
+        from torch.distributed.tensor import DTensor
+        out = ref.decode_attention_ref(qg.to_local(), cache_k.to_local(),
+                                       cache_v.to_local(), lengths, softcap)
+        B, KV, G, hd = qg.shape
+        return DTensor.from_local(out.contiguous(), qg.device_mesh,
+                                  qg.placements, run_check=False,
+                                  shape=qg.shape,
+                                  stride=(KV * G * hd, G * hd, hd, 1))
+    return ref.decode_attention_ref(qg, cache_k, cache_v, lengths, softcap)
 
 
 # ------------------------------------------------------------------ MLP ----

@@ -1,12 +1,16 @@
-"""Public model facade and random model inputs (``repro.models.model``)."""
+"""Public model facade, per-shape input specs and random model inputs
+(``repro.models.model``)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from typing import Dict
+
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import decode as D
 from repro_torch.models import transformer as T
-from repro_torch.models.init import init_params, param_count
+from repro_torch.models.init import (abstract_params, active_param_count,
+                                     init_params, param_count)
 from repro_torch.utils.device import resolve_device
 
 
@@ -51,11 +55,48 @@ class Model:
                              self.ctx, active=self._on(active))
 
     def init_cache(self, B: int, S_max: int, dtype=torch.bfloat16):
-        return D.init_cache(self.cfg, B, S_max, dtype, device=self.device)
+        return D.init_cache(self.cfg, B, S_max, dtype, device=self.device,
+                            ctx=self.ctx)
+
+    def abstract_params(self, dtype=torch.bfloat16):
+        """The parameters on the meta device (shapes and dtypes only)."""
+        return abstract_params(self.cfg, dtype=dtype)
+
+    def abstract_cache(self, B: int, S_max: int, dtype=torch.bfloat16):
+        """The cache on the meta device (shapes and dtypes only)."""
+        return D.abstract_cache(self.cfg, B, S_max, dtype)
 
     @property
     def n_params(self):
         return param_count(self.cfg)
+
+    @property
+    def n_active_params(self):
+        return active_param_count(self.cfg)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Meta-device stand-ins for every model input of ``shape``
+    (``repro.models.model.input_specs``): train and prefill take tokens
+    [B, S] int32 (and the frontend stub's embeddings in ``dtype``:
+    Whisper's ``audio_embeds`` [B, n_frames, D], Pixtral's
+    ``patch_embeds`` [B, n_patches, D]); decode takes token [B] int32 (the
+    cache is built apart)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind == "decode":
+        return {"token": meta((B,), torch.int32)}
+    specs = {"tokens": meta((B, S), torch.int32)}
+    if cfg.frontend == "audio_stub":
+        nf = cfg.encoder.n_frames if cfg.encoder else 1500
+        specs["audio_embeds"] = meta((B, nf, cfg.d_model), dtype)
+    elif cfg.frontend == "vision_stub":
+        specs["patch_embeds"] = meta((B, cfg.n_patches, cfg.d_model), dtype)
+    return specs
 
 
 def concrete_inputs(cfg: ModelConfig, batch: int, seq_len: int, gen=None,

@@ -16,6 +16,12 @@ of two routes of the same function (``ModelCtx.mamba_mode``, resolved by
   ``ShardCtx.remat``), so the [B, chunk, E, N] pairs of one chunk at a time
   are alive, not those of every chunk and layer.
 
+The dry run (``launch/dryrun.py``) takes a third route, ``"stub"``, the
+JAX package's stand-in for the kernel's memory traffic: it reads dt, B, C
+and x once and writes y once (``y = dt x sum(B C)``), with a zero final
+state.  It is not the selective scan; it is what a per-device count of the
+kernel's bytes needs.
+
 Serving prefills through :func:`mamba_forward` with ``return_state`` and
 ``valid``, and decodes one token at a time through :func:`mamba_decode`,
 the recurrence written out in plain torch, as the JAX package computes it
@@ -32,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 
-MAMBA_MODES = ("auto", "kernel", "scan")
+MAMBA_MODES = ("auto", "kernel", "scan", "stub")
 
 
 def _dt_rank(cfg_d_model: int, scfg: SSMConfig) -> int:
@@ -115,15 +121,13 @@ def _chunk(h0, dt_i, B_i, C_i, x_i, A):
 
 
 def resolve_mamba_mode(mode, *, differentiable: bool) -> str:
-    """Map a requested route to 'kernel' | 'scan' (ROADMAP C7, the port's
-    rule).  "auto" takes the kernel when autograd does not record through
-    the layer and the scan when it does; an explicit route is honoured, and
-    an explicit "kernel" under autograd then raises in the kernel's wrapper,
-    as ``jax.grad`` through the Pallas kernel fails."""
+    """Map a requested route to 'kernel' | 'scan' | 'stub' (ROADMAP C7, the
+    port's rule).  "auto" takes the kernel when autograd does not record
+    through the layer and the scan when it does; an explicit route is
+    honoured, and an explicit "kernel" under autograd then raises in the
+    kernel's wrapper, as ``jax.grad`` through the Pallas kernel fails.
+    "stub" is the dry run's traffic stand-in (module doc)."""
     mode = mode or "auto"
-    if mode == "stub":
-        raise ValueError("mamba mode 'stub' is dry-run tooling of the JAX "
-                         "package, not ported")
     if mode not in MAMBA_MODES:
         raise ValueError(f"mamba mode must be one of {MAMBA_MODES}, got "
                          f"{mode!r}")
@@ -142,7 +146,7 @@ def mamba_forward(x, p, scfg: SSMConfig, *, chunk: int = 64,
     which freezes the recurrence exactly (decay exp(0*A)=1, input dt*x*B=0)
     on both routes: the final state equals the state after the last valid
     token, and the conv history buffer is gathered per row at its own
-    length.  ``mode``: auto | kernel | scan (module doc)."""
+    length.  ``mode``: auto | kernel | scan | stub (module doc)."""
     B, S, D = x.shape
     E = scfg.expand * D
     N = scfg.d_state
@@ -162,8 +166,15 @@ def mamba_forward(x, p, scfg: SSMConfig, *, chunk: int = 64,
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (dt, B_in, C_in, xf, A))
 
-    if resolve_mamba_mode(mode, differentiable=grad) == "kernel":
+    route = resolve_mamba_mode(mode, differentiable=grad)
+    if route == "kernel":
         y, h_fin = ops.mamba_scan(dt, B_in, C_in, xf, A)
+        return _finish(y, xs, xs_raw, z, x, p, B, E, h_fin, return_state,
+                       lengths=lengths)
+    if route == "stub":
+        # the kernel's footprint: dt/B/C/x read once, y written once
+        y = dt * xf * torch.sum(B_in * C_in, dim=-1, keepdim=True)
+        h_fin = torch.zeros((B, E, N), dtype=torch.float32, device=x.device)
         return _finish(y, xs, xs_raw, z, x, p, B, E, h_fin, return_state,
                        lengths=lengths)
 

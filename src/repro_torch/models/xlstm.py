@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import XLSTMConfig
+from repro_torch.models.layers import split_heads
+from repro_torch.utils.tree import is_dtensor
 from repro_torch.models.ssm import softplus
 
 
@@ -30,6 +32,18 @@ def log_sigmoid(x):
 
 
 # ------------------------------------------------------------------ mLSTM --
+def _cummax(G):
+    """Running max over dim 1.  DTensor has no rule for ``cummax``: a
+    DTensor's is taken on the whole tensor ([B, S, H], small), replicated."""
+    if not is_dtensor(G):
+        return torch.cummax(G, dim=1).values
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = G.device_mesh
+    return DTensor.from_local(torch.cummax(G.full_tensor(), dim=1).values,
+                              mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def _mlstm_parallel(q, k, v, logi, logf, block: int = 0):
     """q, k, v: [B,S,H,dh]; logi, logf: [B,S,H] f32.  Returns [B,S,H,dh]
     in v's dtype.  ``block`` (dividing S) tiles the queries: the same
@@ -37,7 +51,7 @@ def _mlstm_parallel(q, k, v, logi, logf, block: int = 0):
     B, S, H, dh = q.shape
     Fc = torch.cumsum(logf, dim=1)                  # [B,S,H]
     G = logi - Fc                                   # log i_s - F_s
-    M = torch.cummax(G, dim=1).values               # running max
+    M = _cummax(G)                                  # running max
     qf = q.float() * dh ** -0.5
     kf, vf = k.float(), v.float()
     Gt = G.transpose(1, 2)[:, :, None, :]           # [B,H,1,S]
@@ -67,7 +81,8 @@ def _mlstm_qkv(x, p, H):
     B, S, _ = x.shape
     xi, z = torch.chunk(x @ p["up_proj"], 2, dim=-1)     # [B,S,E] each
     dh = xi.shape[-1] // H
-    q, k, v = ((xi @ p[w]).reshape(B, S, H, dh) for w in ("wq", "wk", "wv"))
+    q, k, v = (split_heads(xi @ p[w], B, S, H, dh)
+               for w in ("wq", "wk", "wv"))
     return q, k, v, xi.float(), z
 
 
@@ -80,9 +95,13 @@ def _group_norm(h, scale, dtype):
 
 
 def mlstm_forward(x, p, xcfg: XLSTMConfig, *, block: int = 0,
-                  return_state: bool = False, valid=None):
+                  return_state: bool = False, valid=None, ctx=None):
     """mLSTM block. x: [B,S,D] -> [B,S,D]; with ``return_state`` also the
     final (C [B,H,dh,dh], n [B,H,dh], m [B,H]), all f32.
+
+    ``block``: the parallel form's query block (0: the whole sequence);
+    when it is 0, ``ctx.mlstm_block`` sets it (``ModelCtx``), as the JAX
+    package's model code passes ``ShardCtx.mlstm_block``.
 
     ``valid``: [B,S] bool for right-padded prefill.  Invalid steps get
     input gate 0 (logi = -1e30) and forget gate 1 (logf = 0), so they add
@@ -90,6 +109,8 @@ def mlstm_forward(x, p, xcfg: XLSTMConfig, *, block: int = 0,
     after the last valid token."""
     B, S, D = x.shape
     H = xcfg.n_heads
+    if not block and ctx is not None:
+        block = ctx.mlstm_block
     q, k, v, xf, z = _mlstm_qkv(x, p, H)
     E = xf.shape[-1]
     dh = E // H
@@ -123,7 +144,7 @@ def mlstm_decode(x1, p, xcfg: XLSTMConfig, C, n, m):
     q, k, v, xf, z = _mlstm_qkv(x1, p, H)
     E = xf.shape[-1]
     dh = E // H
-    q, k, v = (t.reshape(B, H, dh) for t in (q, k, v))
+    q, k, v = (split_heads(t, B, H, dh) for t in (q, k, v))
     logi = xf[:, 0] @ p["w_i"] + p["b_i"]
     logf = log_sigmoid(xf[:, 0] @ p["w_f"] + p["b_f"])
     m_new = torch.maximum(logf + m, logi)
@@ -149,7 +170,8 @@ def _slstm_cell(carry, gates_x, R, heads: int):
     c, n, h, m = carry
     B, E = c.shape
     dh = E // heads
-    rec = torch.einsum("bhd,hdgf->bghf", h.reshape(B, heads, dh), R)
+    rec = torch.einsum("bhd,hdgf->bghf", split_heads(h, B, heads, dh),
+                       R.to(h.dtype))
     gi, gf, gz, go = torch.chunk(gates_x + rec.reshape(B, 4 * E), 4, dim=-1)
     m_new = torch.maximum(gf + m, gi)
     i = torch.exp(gi - m_new)
@@ -177,8 +199,16 @@ def slstm_forward(x, p, xcfg: XLSTMConfig, *, return_state: bool = False,
     E = p["w_gates"].shape[1] // 4
     gates_x = (x @ p["w_gates"]).float() + p["b_gates"]   # [B,S,4E]
     R = p["r_gates"]
-    state = tuple(torch.zeros((B, E), dtype=torch.float32, device=x.device)
-                  for _ in range(4))
+    mesh = None
+    if is_dtensor(gates_x):
+        # tensor-parallel: the S serial steps run on whole local tensors,
+        # one op a step and not one DTensor dispatch (the gates and the
+        # block-diagonal recurrence are small next to the projections)
+        mesh = gates_x.device_mesh
+        gates_x = gates_x.full_tensor()
+        R = R.full_tensor() if is_dtensor(R) else R
+    state = tuple(torch.zeros((B, E), dtype=torch.float32,
+                              device=gates_x.device) for _ in range(4))
     hs = []
     for t in range(S):
         new = _slstm_cell(state, gates_x[:, t], R, xcfg.n_heads)
@@ -187,7 +217,14 @@ def slstm_forward(x, p, xcfg: XLSTMConfig, *, return_state: bool = False,
             new = tuple(torch.where(vt, a, b) for a, b in zip(new, state))
         state = new
         hs.append(state[2])
-    out = _slstm_out(torch.stack(hs, dim=1), p, x.dtype)
+    h = torch.stack(hs, dim=1)
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Replicate
+        rep = [Replicate()] * mesh.ndim
+        h = DTensor.from_local(h, mesh, rep, run_check=False)
+        state = tuple(DTensor.from_local(t, mesh, rep, run_check=False)
+                      for t in state)
+    out = _slstm_out(h, p, x.dtype)
     if return_state:
         return out, state
     return out

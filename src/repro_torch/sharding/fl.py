@@ -22,9 +22,19 @@ ZeRO-3-sharded at rest, and only scalars crossing the wire.
   order; every rank then replays, aggregates and applies the identical
   update and re-places the parameters.
 
-``rule="tp"`` (Megatron specs, :func:`rules.param_specs`) has its specs
-here, but its tensor-parallel compute is not ported (ROADMAP A item 8):
-gathering its parameters raises.
+``rule="tp"`` computes tensor-parallel (Megatron specs,
+:func:`rules.param_specs`): clients split over the batch axes only, and
+the ``'model'`` axis splits each matmul.  At rest a leaf also carries the
+rules' ZeRO-3 second axis; :meth:`FLShardPlan.compute_view` gathers that
+axis once a round and leaves each leaf a DTensor on the 1-D ``'model'``
+sub-mesh with its Megatron placement (:func:`compute_placements`), and the
+model code runs on those DTensors (``models/transformer.ModelCtx``).  Each
+rank's batch rows are its own, so no DTensor op ever splits or gathers
+over a batch axis.  The masked perturbation and update work on each
+rank's local shard in place, with no collective
+(``core/spaces.ShardedMask``).  Row-parallel contractions reorder float
+sums, so on more than one model rank the round is held to the JAX tool's
+tolerance (ROADMAP C21); on ``1x1`` it is bit-equal.
 """
 from __future__ import annotations
 
@@ -52,8 +62,8 @@ class FLShardPlan:
     ``mesh``     — a ``DeviceMesh`` (``launch/mesh.make_mesh_from_config``).
     ``mesh_cfg`` — its :class:`MeshConfig` (axis sizes/names).
     ``rule``     — parameter sharding rule: ``"fsdp"`` (default, bit-exact
-    against the unsharded round), ``"replicate"``, or ``"tp"`` (specs
-    only; its compute raises, ROADMAP A item 8).
+    against the unsharded round), ``"replicate"``, or ``"tp"``
+    (tensor-parallel compute, module docstring).
     """
     mesh: Any
     mesh_cfg: MeshConfig
@@ -63,16 +73,6 @@ class FLShardPlan:
         if self.rule not in PARAM_RULES:
             raise ValueError(
                 f"rule must be one of {PARAM_RULES}, got {self.rule!r}")
-
-    def check_compute(self):
-        """Raise unless the port computes under this plan's rule: ``"tp"``
-        computes tensor-parallel (Megatron specs over the 'model' axis),
-        which the port does not have yet."""
-        if self.rule == "tp":
-            raise NotImplementedError(
-                "rule='tp' needs tensor-parallel compute, which the port "
-                "does not have yet (ROADMAP A item 8); use rule='fsdp' or "
-                "'replicate'")
 
     # -- basic wrappers ------------------------------------------------------
     @property
@@ -115,16 +115,18 @@ class FLShardPlan:
         fn = fsdp_only_specs if self.rule == "fsdp" else param_specs
         return fn(None, params, self.mesh_cfg)
 
-    def _local(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
+    def _local(self, t: torch.Tensor, spec: Spec,
+               skip=()) -> torch.Tensor:
         """This rank's shard of the full tensor ``t`` under ``spec`` (the
-        rules shard only dims their axes divide): ``t`` itself where the
-        spec leaves it whole here, else a copy of the shard (so the full
-        tensor can go)."""
+        rules shard only dims their axes divide), leaving the axes in
+        ``skip`` whole: ``t`` itself where nothing is cut, else a copy of
+        the shard (so the full tensor can go)."""
         sizes = dict(zip(self.mesh_cfg.axis_names, self.mesh_cfg.shape))
         out = t
         for d, entry in enumerate(spec):
             axes = () if entry is None else (
                 (entry,) if isinstance(entry, str) else entry)
+            axes = tuple(a for a in axes if a not in skip)
             n = math.prod(sizes[a] for a in axes)
             if n > 1:
                 chunk = t.shape[d] // n
@@ -132,35 +134,77 @@ class FLShardPlan:
         return out if out.shape == t.shape else out.clone()
 
     def place_params(self, params):
-        """Distribute a full parameter tree as DTensors at rest (ZeRO-3),
-        each leaf placed per its spec (``rules.to_placements``, the
-        counterpart of JAX's ``param_shardings``), one shard a rank; a leaf
-        the rule leaves whole here is not copied."""
+        """Distribute a parameter tree as DTensors at rest (ZeRO-3), each
+        leaf placed per its spec (``rules.to_placements``, the counterpart
+        of JAX's ``param_shardings``), one shard a rank.  The leaves are
+        full tensors (a leaf the rule leaves whole here is not copied,
+        but under ``"tp"``, whose round updates the shards in place, it
+        is), or under ``"tp"`` :meth:`compute_view`'s DTensors, whose
+        local shards are cut down to the rest layout here."""
         from torch.distributed.tensor import DTensor
         leaves, treedef = tree_flatten(params)
         specs, _ = tree_flatten(self.param_specs(params))
-        return tree_unflatten(treedef, [
-            DTensor.from_local(self._local(t, spec), self.mesh,
-                               to_placements(spec, self.mesh),
-                               run_check=False, shape=t.shape,
-                               stride=t.stride())
-            for t, spec in zip(leaves, specs)])
+        model = self.mesh_cfg.axis_names[-1]
+        out = []
+        for t, spec in zip(leaves, specs):
+            if isinstance(t, DTensor):      # a tp compute view's leaf
+                local = self._local(t.to_local(), spec, skip=(model,))
+            else:
+                local = self._local(t, spec)
+                if self.rule == "tp" and local is t:
+                    local = t.clone()
+            out.append(DTensor.from_local(
+                local, self.mesh, to_placements(spec, self.mesh),
+                run_check=False, shape=t.shape, stride=t.stride()))
+        return tree_unflatten(treedef, out)
 
-    def compute_view(self, params):
-        """The full parameters the round body computes with: each leaf
-        gathered once (``full_tensor()``), the ZeRO-3 gather at round
-        entry.  ``"tp"`` raises (ROADMAP A item 8)."""
-        self.check_compute()
+    def full(self, params):
+        """Every leaf gathered whole (``full_tensor()``): what a checkpoint
+        or an evaluation reads."""
         from torch.distributed.tensor import DTensor
         return tree_map(lambda t: t.full_tensor()
                         if isinstance(t, DTensor) else t, params)
 
+    def compute_view(self, params):
+        """The parameters the round body computes with.  ``"fsdp"`` and
+        ``"replicate"``: each leaf gathered once (``full_tensor()``), the
+        ZeRO-3 gather at round entry.  ``"tp"``: each leaf's ZeRO-3 axis
+        gathered once, the leaf left a DTensor on the ``'model'`` sub-mesh
+        with its Megatron placement (:func:`compute_placements`); its
+        local shard is the rest layout's storage where no axis was
+        gathered, so the round's in-place work updates it (JAX donates
+        the parameters)."""
+        if self.rule != "tp":
+            return self.full(params)
+        from torch.distributed.tensor import DTensor, Replicate
+        specs = tree_flatten(self.param_specs(params))[0]
+        leaves, treedef = tree_flatten(params)
+        out = []
+        for t, spec in zip(leaves, specs):
+            sub, pl = compute_placements(self.mesh, spec)
+            if not isinstance(t, DTensor):
+                t = DTensor.from_local(t, self.mesh,
+                                       [Replicate()] * self.mesh.ndim,
+                                       run_check=False)
+            want = [Replicate()] * (self.mesh.ndim - 1) + pl
+            if list(t.placements) != want:
+                t = t.redistribute(self.mesh, want)
+            out.append(DTensor.from_local(t.to_local(), sub, pl,
+                                          run_check=False, shape=t.shape,
+                                          stride=t.stride()))
+        return tree_unflatten(treedef, out)
+
     def constrain_params_fn(self):
-        """``params -> params`` re-placing full parameters per the plan's
+        """``params -> params`` re-placing the parameters per the plan's
         rule: the ``constrain_params`` of ``core/fl_step``'s mesh route,
         which reads the plan from it (``.plan``)."""
-        self.check_compute()
         return _Constrain(self)
+
+    def model_ctx(self, base_ctx):
+        """``base_ctx`` (a ``models.transformer.ModelCtx``) with this
+        plan's mesh and batch axes: JAX's ``FLShardPlan.shard_ctx``."""
+        return dataclasses.replace(base_ctx, mesh=self.mesh,
+                                   batch_axes=tuple(self.batch_axes))
 
     # -- the client axis -----------------------------------------------------
     def client_block(self, n_clients: int) -> range:
@@ -179,12 +223,13 @@ class FLShardPlan:
         client)."""
         if n_clients % self.dp:
             return local
-        self.check_compute()
-        # fsdp/replicate: the batch axes are the whole mesh, whose
-        # row-major coordinate is the rank (launch/mesh.py)
-        parts = [torch.empty_like(local) for _ in range(self.dp)]
+        # the batch axes lead the mesh, whose row-major coordinate is the
+        # rank (launch/mesh.py): rank = dp_index * tp + model index, so
+        # the ranks of model index 0 hold the blocks in client order
+        tp = self.mesh_cfg.n_devices // self.dp
+        parts = [torch.empty_like(local) for _ in range(self.dp * tp)]
         dist.all_gather(parts, local.contiguous())
-        return torch.cat(parts)
+        return torch.cat(parts[::tp])
 
     def broadcast(self, tree):
         """Rank 0's tree of tensors on every rank, each leaf on the device
@@ -254,3 +299,52 @@ def make_fl_plan(mesh_cfg: Optional[MeshConfig] = None, *,
         mesh_cfg = parse_mesh_spec(spec)
     return FLShardPlan(make_mesh_from_config(mesh_cfg, device_type),
                        mesh_cfg, rule)
+
+
+def compute_placements(mesh, spec: Spec, full: bool = False):
+    """(mesh, placements) a leaf of ``spec`` computes with under
+    tensor parallelism: by default the 1-D ``'model'`` sub-mesh of
+    ``mesh``, ``Shard(d)`` where dim ``d``'s entry holds ``'model'`` and
+    ``Replicate()`` otherwise (a batch-axis entry holds by construction:
+    each rank keeps its own rows); with ``full`` the whole mesh
+    (``rules.to_placements``), where every rank holds the same rows (the
+    B=1 ``seq_shard`` decode)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if full:
+        return mesh, to_placements(spec, mesh)
+    model = mesh.mesh_dim_names[-1]
+    pl = [Replicate()]
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else entry)
+        if model in axes:
+            pl = [Shard(d)]
+    return mesh[model], pl
+
+
+def local_shape(shape, mesh, placements) -> tuple:
+    """The shape of one rank's shard of a ``shape`` tensor under
+    ``placements`` on ``mesh`` (the rules shard only dims that divide)."""
+    out = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            out[p.dim] //= mesh.size(i)
+    return tuple(out)
+
+
+def tp_params(params, mesh, mesh_cfg: MeshConfig, full: bool = False):
+    """A full parameter tree as the tensor-parallel compute layout that
+    serving reads (Megatron specs without the ZeRO-3 axis,
+    ``rules.param_specs(train=False)``): DTensors on the ``'model'``
+    sub-mesh, or with ``full`` on the whole mesh (the B=1 ``seq_shard``
+    decode, :func:`compute_placements`), each rank keeping its shard."""
+    from torch.distributed.tensor import DTensor, Replicate
+    leaves, treedef = tree_flatten(params)
+    specs = tree_flatten(param_specs(None, params, mesh_cfg, train=False))[0]
+    out = []
+    for t, spec in zip(leaves, specs):
+        m, pl = compute_placements(mesh, spec, full)
+        whole = DTensor.from_local(t, m, [Replicate()] * m.ndim,
+                                   run_check=False)
+        out.append(whole.redistribute(m, pl))
+    return tree_unflatten(treedef, out)

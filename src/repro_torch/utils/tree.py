@@ -73,3 +73,11 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     others = [tree_leaves(r) for r in rest]
     return tree_unflatten(treedef,
                           [fn(*args) for args in zip(leaves, *others)])
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed`` DTensor, without importing
+    DTensor where nothing has (its first import takes seconds)."""
+    import sys
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)

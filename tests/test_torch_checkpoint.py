@@ -447,7 +447,8 @@ def test_train_cli_kill_and_resume_bitexact(tmp_path):
 
 def test_train_cli_refuses_unported_options(tmp_path):
     """``--mesh`` runs (2 gloo ranks) and writes the unsharded run's final
-    checkpoint byte for byte; its ``tp`` rule is what stays unported."""
+    checkpoint byte for byte; so does its ``tp`` rule on a one-rank
+    ``1x1`` mesh (tensor-parallel compute, ROADMAP A item 8)."""
     from repro_torch.launch import train
     args = ["--device", "cpu", "--rounds", "2", "--T", "2", "--clients",
             "4", "--batch", "4", "--eval-every", "1", "--drop-rate", "0.2",
@@ -457,5 +458,8 @@ def test_train_cli_refuses_unported_options(tmp_path):
     train.main(args + [str(tmp_path / "mesh"), "--mesh", "1x2"])
     a = (tmp_path / "one" / FINAL_NAME).read_bytes()
     assert a == (tmp_path / "mesh" / FINAL_NAME).read_bytes()
-    with pytest.raises(NotImplementedError, match="A item 8"):
-        train.main(["--device", "cpu", "--mesh", "1x2", "--mesh-rule", "tp"])
+    from repro_torch.launch import mesh as M
+    with M.process_group("cpu"):    # this process, the one rank of 1x1
+        train.main(args + [str(tmp_path / "tp"), "--mesh", "1x1",
+                           "--mesh-rule", "tp"])
+    assert a == (tmp_path / "tp" / FINAL_NAME).read_bytes()

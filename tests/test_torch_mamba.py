@@ -234,13 +234,14 @@ def test_scan_route_gradient_matches_jax(mixer):
 def test_mamba_mode_rule(mixer, monkeypatch):
     """auto: the kernel without autograd, the scan under it; an explicit
     kernel under autograd raises (the kernel has no backward, as in JAX);
-    stub and unknown modes are refused."""
+    the dry run's stub is honoured; unknown modes are refused."""
     assert ssm.resolve_mamba_mode("auto", differentiable=False) == "kernel"
     assert ssm.resolve_mamba_mode(None, differentiable=False) == "kernel"
     assert ssm.resolve_mamba_mode("auto", differentiable=True) == "scan"
     assert ssm.resolve_mamba_mode("kernel", differentiable=True) == "kernel"
     assert ssm.resolve_mamba_mode("scan", differentiable=False) == "scan"
-    for bad in ("stub", "pallas"):
+    assert ssm.resolve_mamba_mode("stub", differentiable=False) == "stub"
+    for bad in ("pallas", "dense"):
         with pytest.raises(ValueError):
             ssm.resolve_mamba_mode(bad, differentiable=False)
 

@@ -165,12 +165,26 @@ def test_unsharded_round_matches_jax(world):
 
 
 def test_tp_rule_raises():
-    from repro_torch.configs.base import MeshConfig
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="A item 8"):
-        train.main(["--device", "cpu", "--mesh", "2x2", "--mesh-rule", "tp"])
-    plan = FLShardPlan(None, MeshConfig(data=2, model=2), rule="tp")
-    with pytest.raises(NotImplementedError, match="A item 8"):
-        plan.compute_view({})
-    with pytest.raises(NotImplementedError, match="A item 8"):
-        plan.constrain_params_fn()
+    """``rule="tp"`` computes (it raised until the port had
+    tensor-parallel compute, ROADMAP A item 8): on a one-rank ``1x1``
+    group the plan's compute view is the Megatron shards, its forward is
+    the unsharded forward bit for bit, and its ``constrain_params``
+    re-places the shards (the train CLI's ``--mesh-rule tp``:
+    ``test_torch_checkpoint.py``)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.tiny import TINY
+    from repro_torch.models import Model
+    from repro_torch.sharding.fl import make_fl_plan
+    with M.process_group("cpu"):
+        plan = make_fl_plan(spec="1x1", rule="tp")
+        model = Model(TINY, device="cpu")
+        params = model.init(seed=0)
+        view = plan.compute_view(plan.place_params(params))
+        leaf = view["stack"]["p0"]["wq"]
+        assert isinstance(leaf, DTensor) and leaf.device_mesh.ndim == 1
+        batch = {"tokens": torch.arange(32).reshape(2, 16) % TINY.vocab}
+        want, _ = model.forward(params, batch)
+        got, _ = model.forward(view, batch)
+        assert torch.equal(got.full_tensor(), want)
+        rest = plan.constrain_params_fn()(view)
+        assert torch.equal(plan.full(rest)["embed"], params["embed"])

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 import repro_torch.core as C
-from repro_torch.configs.base import FLConfig
+from repro_torch.configs.base import FLConfig, InputShape
 from repro_torch.configs.tiny import TINY
 from repro_torch.convert import params_from_numpy, space_from_numpy
 from repro_torch.core import prng
@@ -117,9 +117,9 @@ def run_fleet(prob, plan, bundle):
     return dict(state(srv), sampler=srv.sampler.state_dict())
 
 
-def run_plain(prob, plan, bundle):
+def run_plain(prob, plan, bundle, fl=PLAIN):
     """Two plain rounds with GradIP (the round held against JAX's)."""
-    srv = server(prob, plan, FLConfig(**PLAIN), clients(bundle, "parts4", 4))
+    srv = server(prob, plan, FLConfig(**fl), clients(bundle, "parts4", 4))
     for _ in range(2):
         srv.run_round(gp_vec=prob["gp"])
     return state(srv)
@@ -165,7 +165,7 @@ def run_loop(prob, plan, bundle):
     batches = {k: torch.as_tensor(v, device=prob["dev"])
                for k, v in bundle["loop"].items()}
     p, gs, m = loop(params, prng.key(11), batches)
-    p = p if plan is None else plan.compute_view(p)
+    p = p if plan is None else plan.full(p)
     return dict(params=flat(p), gs=gs.cpu().numpy(), loss=float(m["loss"]))
 
 
@@ -201,4 +201,143 @@ def scenarios(dev, bundle, spec, unsharded=True):
             to_unsharded=run_reshape(prob, plan, bundle, tag),
             to_mesh=run_reshape(prob, None, dict(bundle, plan=plan),
                                 f"{tag}-u{rank}"))
+    return out
+
+
+# ------------------------------------------------ tensor parallelism (tp) --
+# tests/test_torch_tp.py: the tp round and loop, TINY served on tp shards
+# (seq_shard decode at B=1 too), moe_sharded against JAX's, and one dry-run
+# step's counts on a real rank
+MOE = dict(E=4, k=2, F=16, D=32, Fs=24, B=4, S=8, cfs=(2.0, 0.5))
+# the tp round: the plain scenario at T=1 (its forwards run on DTensors),
+# and at T=2 on the kernel route (the flat kernels on each rank's shards)
+TP_PLAIN = dict(PLAIN, local_steps=1)
+TP_KERNEL = dict(PLAIN, zo_backend="kernel")
+# the dry run's records of a TINY ZO step: 2 rows a rank on a 2x2 mesh
+TEST_SHAPE = InputShape("train_test", seq_len=32, global_batch=4,
+                        kind="train")
+SERVE_PROMPT, SERVE_STEPS = 12, 3
+
+
+def make_tp_bundle(ckpt_dir: str) -> dict:
+    """:func:`make_bundle` plus the MoE layer's inputs (numpy, from
+    seeds): x [B, S, D] and a gated layer with a shared expert."""
+    b = make_bundle(ckpt_dir)
+    m = MOE
+    rng = np.random.default_rng(11)
+
+    def w(*shape):
+        return (0.2 * rng.standard_normal(shape)).astype(np.float32)
+
+    b["moe"] = dict(
+        x=w(m["B"], m["S"], m["D"]), E=m["E"], k=m["k"], F=m["F"],
+        cfs=np.asarray(m["cfs"]), p_router=w(m["D"], m["E"]),
+        p_w1=w(m["E"], m["D"], m["F"]), p_w2=w(m["E"], m["F"], m["D"]),
+        p_w3=w(m["E"], m["D"], m["F"]), p_sw1=w(m["D"], m["Fs"]),
+        p_sw2=w(m["Fs"], m["D"]), p_sw3=w(m["D"], m["Fs"]))
+    return b
+
+
+def tp_serve(prob, plan, bundle, seq_shard=False):
+    """TINY's prefill of SERVE_PROMPT tokens and SERVE_STEPS decode steps,
+    unsharded and on the plan's tp shards (``seq_shard``: B=1, the cache
+    sequence over the batch axes, the parameters on the whole mesh);
+    returns the logits of both and the forward's max |logit|."""
+    import dataclasses
+    from repro_torch.models import decode as D
+    from repro_torch.models.transformer import ModelCtx
+    from repro_torch.sharding.fl import tp_params
+    dev = prob["dev"]
+    B = 1 if seq_shard else 2
+    S_max = SERVE_PROMPT + 2 * SERVE_STEPS + 2   # even: splits over data
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, TINY.vocab, (B, SERVE_PROMPT)), device=dev)
+    ctx = dataclasses.replace(plan.model_ctx(ModelCtx()), seq_shard=seq_shard)
+    out = {}
+    for name, params, c in (
+            ("unsharded", prob["params"], ModelCtx()),
+            ("tp", tp_params(prob["params"], plan.mesh, plan.mesh_cfg,
+                             full=seq_shard), ctx)):
+        lg, cache = D.prefill(params, {"tokens": toks}, TINY, c,
+                              S_max=S_max)
+        seq = [lg]
+        tok = lg.argmax(-1).to(torch.int32)
+        for _ in range(SERVE_STEPS):
+            lg, cache = D.decode_step(params, tok, cache, TINY, c)
+            seq.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+        out[name] = torch.stack(seq).cpu().numpy()
+    fwd, _ = Model(TINY, device=dev).forward(prob["params"],
+                                             {"tokens": toks})
+    out["scale"] = float(fwd.abs().max())
+    return out
+
+
+def tp_moe(plan, bundle, dev):
+    """``moe_sharded`` on the plan's mesh: each rank's rows of x (by its
+    data index), the experts and the shared expert sharded over 'model';
+    returns this rank's rows of y and the aux loss per capacity factor."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import moe_sharded
+    from repro_torch.models.transformer import ModelCtx
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    m = bundle["moe"]
+    sub = plan.mesh["model"]
+    dims = {"router": None, "w1": 0, "w2": 0, "w3": 0, "sw1": 1, "sw2": 0,
+            "sw3": 1}
+    p = {}
+    for k, d in dims.items():
+        whole = DTensor.from_local(torch.as_tensor(m["p_" + k], device=dev),
+                                   sub, [Replicate()], run_check=False)
+        p[k] = whole.redistribute(sub, [Replicate() if d is None
+                                        else Shard(d)])
+    ctx = plan.model_ctx(ModelCtx(use_sharded_moe=True))
+    blk = plan.client_block(m["x"].shape[0])
+    x = torch.as_tensor(m["x"][blk.start:blk.stop], device=dev)
+    out = []
+    for cf in m["cfs"]:
+        mcfg = MoEConfig(n_experts=int(m["E"]), top_k=int(m["k"]),
+                         d_ff_expert=int(m["F"]), capacity_factor=float(cf))
+        y, aux = moe_sharded(x, p, mcfg, "silu", ctx)
+        out.append((blk.start, y.cpu().numpy(), float(aux)))
+    return out
+
+
+def tp_trace_counts(dev, spec):
+    """The dry run's TINY ZO step recorded on this real rank
+    (``launch.dryrun.trace_step(fake=False)``): FLOPs, bytes, collective
+    bytes and the liveness peak."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_from_config, parse_mesh_spec
+    mc = parse_mesh_spec(spec)
+    mesh = make_mesh_from_config(mc)
+    trace, _ = dryrun.trace_step(TINY, TEST_SHAPE, mesh, mc, "zo_fl",
+                                 dryrun.mask_indices(TINY)[0], fake=False)
+    return dict(dryrun.counts(trace), memory=dryrun._memory(trace))
+
+
+def tp_scenarios(dev, bundle, spec, unsharded=False):
+    """Every tp scenario on ``spec``'s mesh, and with ``unsharded`` the
+    unsharded round and loop they are held to (one thread: every process
+    computes their bits alike)."""
+    from repro_torch.sharding.fl import make_fl_plan
+    torch.set_num_threads(1)  # the same GEMM bits in every process
+    prob = problem(bundle, dev)
+    plan = make_fl_plan(spec=spec, rule="tp")
+    out = {}
+    if unsharded:
+        out["unsharded"] = dict(plain=run_plain(prob, None, bundle,
+                                                TP_PLAIN),
+                                kernel=run_plain(prob, None, bundle,
+                                                 TP_KERNEL),
+                                loop=run_loop(prob, None, bundle))
+    out.update(
+        plain=run_plain(prob, plan, bundle, TP_PLAIN),
+        kernel=run_plain(prob, plan, bundle, TP_KERNEL),
+        loop=run_loop(prob, plan, bundle),
+        serve=tp_serve(prob, plan, bundle),
+        serve_seq=tp_serve(prob, plan, bundle, seq_shard=True),
+        moe=tp_moe(plan, bundle, dev))
+    if spec != "1x1":
+        out["trace"] = tp_trace_counts(dev, spec)
     return out
