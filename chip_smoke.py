@@ -109,10 +109,11 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 step under torch.profiler;
 6. serve        serving on the same model: the continuous-batching engine
                 (8 slots, 2048 positions) over 24 requests of 32-1536
-                prompt tokens, greedy; every token held against the request
-                replayed alone, the kernel and ref decode routes against
-                each other, and the naive engine on 8 of the requests; then
-                one decode burst under torch.profiler;
+                prompt tokens, greedy, its waves and bursts CUDA graphs;
+                every token held against the request replayed alone, the
+                kernel and ref decode routes against each other, and the
+                naive engine on 8 of the requests; then one decode burst
+                under torch.profiler, replayed and eager;
 7. serve_gemma  Gemma-2-2b at full width, 2 periods (4 layers): one prompt
                 past the 4096-position window (rolling local cache) and one
                 short one, prefilled together through the flash forward at
@@ -186,10 +187,14 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -200,6 +205,13 @@ ROOT = Path(__file__).resolve().parent
 
 # the slice: examples/quickstart.py's calls plus MEERKAT-VP, at full size
 SEED = 0
+# every phase but autotune reads an empty tiling table (the kernels'
+# default tilings, as in the parent commit); autotune writes and reads its
+# own (both under build/, git-ignored, and removed at the end)
+EMPTY_TABLE = ROOT / "build" / f"autotune_empty_{os.getpid()}"
+TUNED_TABLE = ROOT / "build" / f"autotune_tuned_{os.getpid()}"
+AUTOTUNE_REPS = 3
+AUTOTUNE_TURNS = 2
 N_CLIENTS = 8
 CLIENT_BATCH = 16
 SEQ_LEN = 512
@@ -399,7 +411,7 @@ KERNEL_SOURCES = {
 # the flat and GradIP sizes of phases lora and slice_qwen3
 # (check_elementwise, check_gradip)
 KERNEL_LINE_EXTRAS = ("pair_ms_in_turns", "gemma", "qwen3", "chatglm3",
-                      "lora", "jamba_serve", "whisper")
+                      "lora", "jamba_serve", "whisper", "tilings")
 # the forward's (G, head_dim) layouts: Llama's and Gemma's, Jamba's G 8 at
 # 128, and G 64 (one query a block) at 64 and at 256
 FLASH_LAYOUTS = ((1, 64), (4, 64), (1, 128), (4, 128), (2, 256), (8, 128),
@@ -778,7 +790,10 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
     its blocks (heaviest query tiles first) and the one-pass TF32 control
     (``ops.flash_attention_fwd_probe``)."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import plans
     gen = torch.Generator(device=dev).manual_seed(3)
+    check_tiling_variants(torch, ops, ref, dev)
     n_var = 0
     for dtype in (torch.float32, torch.bfloat16):
         for G, dh in FLASH_LAYOUTS:
@@ -847,11 +862,15 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
                       lambda: F.scaled_dot_product_attention(
                           qh, kh, vh, is_causal=True, enable_gqa=True), 10)
     shape = f"q [{B},{S},{KV * G},{dh}] f32, causal, G={G}"
+    tilings = {"llama": dict(shape=shape, **tiling_rows(
+        torch, ops, (q, k, v, L), dict(window=0, softcap=0.0), (ro, rlse),
+        dh, G, 10, 1e-4, "the slice shape"))}
     out = {"flash_attention": dict(
         max_abs_err=err, bound_ms=tf_ms, bound_by=tf_by, **row,
         plain_ms=timed(lambda: ref.flash_attention_ref(
             q, k, v, L, window=0, softcap=0.0, causal=True), 5),
-        shape=shape, gflop=flop / 1e9, mbytes=n_bytes / 1e6)}
+        shape=shape, gflop=flop / 1e9, mbytes=n_bytes / 1e6,
+        tilings=tilings)}
     emit("kernels.flash_fwd_turns", ok=True, shape=shape, ms=row["ms"],
          sdpa_ms=row["library_ms"],
          at_or_under_sdpa=row["ms"] <= row["library_ms"],
@@ -864,14 +883,17 @@ def check_flash(torch, ops, ref, dev, cfg, batch: int):
          gflop=flop / 1e9, mbytes=n_bytes / 1e6, tol=1e-4,
          three_pass_abs_err=err, **blocks)
     # the launcher sets the shared-memory attribute only through its
-    # high-water mark: at most once for each of the 6 instantiations
-    # (f32 and bf16, head_dim 64, 128, 256) in all the launches above
-    sets = attribute_sets("flash_attn_fwd_smem_state", 64, 0)
-    if sets > 6:
+    # high-water mark: at most once for each instantiation (f32 and bf16,
+    # head_dim 64, 128, 256, each head_dim's tilings) in all the launches
+    # above and check_tiling_variants'
+    n_inst = 2 * sum(map(len, plans.FLASH_FWD_TILINGS.values()))
+    sets = attribute_sets("flash_attn_fwd_smem_state", 64, 0,
+                          *plans.FLASH_FWD_TILINGS[64][0])
+    if sets > n_inst:
         fail(f"the flash forward set its shared-memory attribute {sets} "
              f"times")
     emit("kernels.flash_fwd_attribute", ok=True, attribute_sets=sets,
-         instantiations=6)
+         instantiations=n_inst)
     return out
 
 
@@ -937,6 +959,8 @@ def check_flash_prefill(torch, ops, ref, dev, cfg, lengths):
                  f"({name}): {err}")
         blocks = fwd_blocks(torch, ops, (q, k, v, L), window,
                             cfg.attn_softcap, (o, lse), (ro, rlse))
+        tilings = tiling_rows(torch, ops, (q, k, v, L), kw, (ro, rlse), dh,
+                              G, 3, 1e-4, f"the gemma prefill ({name})")
         del o, lse, ro, rlse
         live = int(ref.attention_valid(S, L, window=window,
                                        causal=True).sum()) * KV * G
@@ -952,10 +976,11 @@ def check_flash_prefill(torch, ops, ref, dev, cfg, lengths):
             share_of_f32_bound=f32_ms / ms,
             plain_ms=timed(lambda: ref.flash_attention_ref(
                 q, k, v, L, causal=True, **kw), 2),
-            gflop=4.0 * dh * live / 1e9, **blocks)
+            gflop=4.0 * dh * live / 1e9, **blocks, tilings=tilings)
     emit("kernels.flash_gemma_prefill", ok=True, tol=1e-4,
          shape=f"q [{B},{S},{KV * G},{dh}] f32, lengths {list(lengths)}, "
                f"softcap {cfg.attn_softcap}", **out)
+    return out
 
 
 def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int, gemma):
@@ -1029,6 +1054,8 @@ def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int, gemma):
     # control, which must miss the tolerance the 3xTF32 split keeps
     blocks = bwd_blocks(torch, ops, args, kw, got, (B, KV))
     one_pass = bwd_one_pass(ops, args, kw, want, rel_err)
+    bwd_tilings = {"llama": bwd_tiling_rows(
+        torch, ops, ref, args, kw, want, dh, G, 10, "the first-order shape")}
     del got, want
     dkv_tiles = blocks["flash_attention_bwd_dkv"]
     if dkv_tiles["tiles_max"] > 1.2 * dkv_tiles["tiles_mean"]:
@@ -1064,15 +1091,18 @@ def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int, gemma):
     gem = check_flash_bwd_gemma(torch, ops, ref, dev, gemma, inputs, both,
                                 rel_err)
     # the launchers set the shared-memory attribute only through their
-    # high-water mark: at most once for each of the 12 instantiations
-    # (dQ and dK/dV, f32 and bf16, head_dim 64, 128, 256) in all the
-    # launches above
-    sets = attribute_sets("flash_attn_bwd_smem_state", 0, 64, 0)
-    if sets > 12:
+    # high-water mark: at most once for each instantiation (dQ and dK/dV,
+    # f32 and bf16, head_dim 64, 128, 256, each head_dim's tilings) in all
+    # the launches above and check_tiling_variants'
+    from repro_torch.kernels import plans
+    n_inst = 4 * sum(map(len, plans.FLASH_BWD_TILINGS.values()))
+    sets = attribute_sets("flash_attn_bwd_smem_state", 0, 64, 0,
+                          *plans.FLASH_BWD_TILINGS[64][0])
+    if sets > n_inst:
         fail(f"the flash backward set its shared-memory attribute {sets} "
              f"times")
     emit("kernels.flash_bwd_attribute", ok=True, attribute_sets=sets,
-         instantiations=12)
+         instantiations=n_inst)
     out, detail = {}, {}
     for name, dkv, n_ops, sl, fn, plain in (
             ("flash_attention_bwd_dq", False, 6.0, slice(0, 1),
@@ -1092,6 +1122,7 @@ def check_flash_bwd(torch, ops, ref, dev, cfg, batch: int, gemma):
             bound_ms=tf_ms, bound_by=tf_by, **row,
             plain_ms=timed(lambda: plain(*args, **kw), 5),
             library_ms=pair["library_ms"], pair_ms_in_turns=pair["ms"],
+            tilings=bwd_tilings,
             gemma={layer: {k_: r[k_] for k_ in (
                 "shape", "max_rel_err", "ms", "bound_ms", "bound_by")}
                 for layer, r in gem[name].items()})
@@ -1156,6 +1187,157 @@ def attribute_sets(state: str, *args) -> int:
     if rc:
         fail(f"{state}: CUDA error {rc}")
     return out[1]
+
+
+def ptxas_spills(text: str) -> dict:
+    """{kernel: spill-store bytes} of each function ``-Xptxas -v`` reports
+    with spills in ``text`` (build/.../ptxas.log); the flash kernels named
+    by type, head_dim and tiling (``flash_fwd<f32,64,64x32>``), the others
+    by their mangled names."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn and int(m.group(1)):
+            out[flash_name(fn)] = int(m.group(1))
+    return out
+
+
+def flash_name(mangled: str) -> str:
+    """A flash kernel's mangled name as plans.py names its launch (the
+    one-pass probe variants marked), else the name itself."""
+    m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv)I(f|13__nv_bfloat16)"
+                  r"Li(\d+)ELi(\d+)E(?:Li(\d+)E)?Lb([01])E", mangled)
+    if not m:
+        return mangled
+    kind, t, dh, rows, bk, one = m.groups()
+    bk = bk or "32"  # the backward's keys a tile
+    name = f"{kind}<{'f32' if t == 'f' else 'bf16'},{dh},{rows}x{bk}>"
+    return name + (" one_pass" if one == "1" else "")
+
+
+def tiling_is_default(name: str) -> bool:
+    """Whether a flash kernel named as :func:`flash_name` names it is its
+    head_dim's default tiling (what the kernel had before its tilings)."""
+    from repro_torch.kernels import plans
+    m = re.match(r"flash_(fwd|bwd_dq|bwd_dkv)<\w+,(\d+),(\d+)x(\d+)>", name)
+    if not m:
+        return False
+    table = plans.FLASH_FWD_TILINGS if m.group(1) == "fwd" \
+        else plans.FLASH_BWD_TILINGS
+    return table[int(m.group(2))][0] == (int(m.group(3)), int(m.group(4)))
+
+
+def tiling_rows(torch, ops, args, kw, want, dh, G, iters, tol,
+                tag) -> dict:
+    """Every forward tiling at ``args`` (q, k, v, L; ``kw`` the mask),
+    pinned through (block_q, block_k): {"bqxbk": its max abs error
+    against the plain version's ``want`` (O, lse), its ms (CUDA events)}.
+    Fails past ``tol``."""
+    from repro_torch.kernels import plans
+    out = {}
+    for t in plans.flash_tilings(dh, G):
+        bq, bk = plans.tiling_blocks(t, G)
+        o, lse = ops.flash_attention(*args, block_q=bq, block_k=bk,
+                                     return_lse=True, **kw)
+        err = max(float((o - want[0]).abs().max()),
+                  float((lse - want[1]).abs().max()))
+        del o, lse
+        if err > tol:
+            fail(f"flash forward tiling {t} differs from plain at {tag}: "
+                 f"{err}")
+        out[f"{bq}x{bk}"] = dict(
+            tiling=list(t), default=t == plans.FLASH_FWD_TILINGS[dh][0],
+            max_abs_err=err, ms=timed(lambda: ops.flash_attention(
+                *args, block_q=bq, block_k=bk, **kw), iters))
+    return out
+
+
+def bwd_tiling_rows(torch, ops, ref, args, kw, want, dh, G, iters,
+                    tag) -> dict:
+    """Every backward tiling at ``args`` (q, k, v, L, lse, delta, dO): {"bq
+    xbk": dQ, dK, dV relative errors against the plain versions' ``want``
+    and the dQ and dK/dV ms}.  Fails past BWD_REL_TOL."""
+    from repro_torch.kernels import plans
+    out = {}
+    for t in plans.flash_tilings(dh, G, bwd=True):
+        got = (ops.flash_attention_bwd_dq(*args, tiling=t, **kw),
+               *ops.flash_attention_bwd_dkv(*args, tiling=t, **kw))
+        errs = [float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+                for g, w in zip(got, want)]
+        del got
+        if max(errs) > BWD_REL_TOL:
+            fail(f"flash backward tiling {t} differs from plain at {tag}: "
+                 f"{errs}")
+        bq, bk = plans.tiling_blocks(t, G)
+        out[f"{bq}x{bk}"] = dict(
+            tiling=list(t), default=t == plans.FLASH_BWD_TILINGS[dh][0],
+            max_rel_err=errs,
+            dq_ms=timed(lambda: ops.flash_attention_bwd_dq(
+                *args, tiling=t, **kw), iters),
+            dkv_ms=timed(lambda: ops.flash_attention_bwd_dkv(
+                *args, tiling=t, **kw), iters))
+    return out
+
+
+def check_tiling_variants(torch, ops, ref, dev):
+    """Every forward and backward tiling, f32 and bf16, pinned, against
+    the plain versions on a ragged-length and a window+softcap+length-1
+    problem (the variant grid's second and fourth), and two calls
+    bit-equal."""
+    from repro_torch.kernels import plans
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in (64, 128, 256):
+            G = 2 if dh == 256 else 4
+            for S, window, softcap, lens in FLASH_VARIANTS[1::2]:
+                q, k, v = _attn(torch, dev, gen, 2, S, 2, G, dh, dtype)
+                L = torch.tensor(lens, device=dev, dtype=torch.int32)
+                kw = dict(window=window, softcap=softcap)
+                ro, rlse = ref.flash_attention_ref(q, k, v, L, causal=True,
+                                                   **kw)
+                atol = 1e-4 if dtype == torch.float32 else 1.6e-2
+                for t in plans.flash_tilings(dh, G):
+                    bq, bk = plans.tiling_blocks(t, G)
+                    got = [ops.flash_attention(
+                        q, k, v, L, block_q=bq, block_k=bk, return_lse=True,
+                        **kw) for _ in range(2)]
+                    e_o = float((got[0][0].float() - ro.float()).abs().max())
+                    e_l = float((got[0][1] - rlse).abs().max())
+                    if e_o > atol or e_l > 1e-4 or not all(
+                            torch.equal(a, b) for a, b in zip(*got)):
+                        fail(f"flash forward tiling {t} {dtype} dh={dh} "
+                             f"S={S}: O {e_o}, lse {e_l} or not bit-equal")
+                    n += 1
+                do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+                args = (q, k, v, L, rlse,
+                        ref.flash_attention_delta(ro, do, 2), do)
+                kwc = dict(kw, causal=True)
+                want = (ref.flash_attn_bwd_dq_ref(*args, **kwc),
+                        *ref.flash_attn_bwd_dkv_ref(*args, **kwc))
+                for t in plans.flash_tilings(dh, G, bwd=True):
+                    got = [(ops.flash_attention_bwd_dq(*args, tiling=t,
+                                                       **kwc),
+                            *ops.flash_attention_bwd_dkv(*args, tiling=t,
+                                                         **kwc))
+                           for _ in range(2)]
+                    errs = [float((g - w).abs().max())
+                            / max(1.0, float(w.abs().max()))
+                            for g, w in zip(got[0], want)]
+                    if max(errs) > BWD_REL_TOL or not all(
+                            torch.equal(a, b) for a, b in zip(*got)):
+                        fail(f"flash backward tiling {t} {dtype} dh={dh} "
+                             f"S={S}: {errs} or not bit-equal")
+                    n += 1
+    emit("kernels.flash_tiling_variants", ok=True, checked=n,
+         fwd_tilings={dh: [list(t) for t in ts]
+                      for dh, ts in plans.FLASH_FWD_TILINGS.items()},
+         bwd_tilings={dh: [list(t) for t in ts]
+                      for dh, ts in plans.FLASH_BWD_TILINGS.items()})
 
 
 def bwd_work(ref, q, k, L, dkv: bool, n_ops: float, window: int):
@@ -1349,14 +1531,15 @@ def check_flash_decode(torch, ops, ref, dev, cfg, slots: int, S: int,
 
 
 def flash_forward_row(torch, ops, ref, dev, gen, tag, B, S, KV, G, dh,
-                      lens):
+                      lens, tilings=False):
     """Row 3 at q [B, S, KV*G, dh] f32, causal, each row ``lens[b]`` long:
     held against its plain version (O and lse within 1e-4), timed (CUDA
     events) beside its plain version and SDPA's f32 call (is_causal where
     every row is full, else a boolean causal and length mask), with its
     bound over every live pair and, beside it, the bound over the pairs of
     real queries alone (the pad queries' outputs are dropped by the
-    prefill)."""
+    prefill).  With ``tilings``, every tiling of the kernel too
+    (:func:`tiling_rows`)."""
     import torch.nn.functional as F
     q, k, v = _attn(torch, dev, gen, B, S, KV, G, dh, torch.float32)
     L = torch.tensor(lens, device=dev, dtype=torch.int32)
@@ -1364,6 +1547,9 @@ def flash_forward_row(torch, ops, ref, dev, gen, tag, B, S, KV, G, dh,
     ro, rlse = ref.flash_attention_ref(q, k, v, L, window=0, softcap=0.0,
                                        causal=True)
     err = max(float((o - ro).abs().max()), float((lse - rlse).abs().max()))
+    by_tiling = tiling_rows(torch, ops, (q, k, v, L), dict(), (ro, rlse),
+                            dh, G, 10, 1e-4, f"{tag}'s shape") \
+        if tilings else None
     del o, lse, ro, rlse
     if err > 1e-4:
         fail(f"flash differs from plain at {tag}'s shape: {err}")
@@ -1397,7 +1583,8 @@ def flash_forward_row(torch, ops, ref, dev, gen, tag, B, S, KV, G, dh,
                                 else "boolean causal and length mask"),
         bound_ms=b_ms, bound_by=b_by,
         real_query_pair_share=live_real / live,
-        bound_real_queries_ms=rb_ms, bound_real_queries_by=rb_by)
+        bound_real_queries_ms=rb_ms, bound_real_queries_by=rb_by,
+        **({"tilings": by_tiling} if tilings else {}))
     del q, k, v, qh, kh, vh, mask
     return row
 
@@ -1458,7 +1645,8 @@ def check_new_shapes(torch, ops, ref, dev, qwen3, chatglm3):
     for tag, cfg, B, S in (("qwen3", qwen3, CLIENT_BATCH, SEQ_LEN),
                            ("chatglm3", chatglm3, OPTIONS_B, OPTIONS_S)):
         out["flash_attention"][tag] = flash_forward_row(
-            torch, ops, ref, dev, gen, tag, B, S, *layout(cfg), [S] * B)
+            torch, ops, ref, dev, gen, tag, B, S, *layout(cfg), [S] * B,
+            tilings=True)
 
     # the backward pair at Qwen3's pre-training gradient
     KV, G, dh = layout(qwen3)
@@ -1478,6 +1666,11 @@ def check_new_shapes(torch, ops, ref, dev, qwen3, chatglm3):
     lib_ms = timed(lambda: torch.autograd.grad(o_sdpa, (qh, kh, vh), doh,
                                                retain_graph=True), 10)
     del o_sdpa, qh, kh, vh, doh
+    want = (ref.flash_attn_bwd_dq_ref(*args, **kw),
+            *ref.flash_attn_bwd_dkv_ref(*args, **kw))
+    bwd_tilings = bwd_tiling_rows(torch, ops, ref, args, kw, want, dh, G, 10,
+                                  "qwen3's shape")
+    del want
     for name, dkv, n_ops, fn, plain in (
             ("flash_attention_bwd_dq", False, 6.0,
              ops.flash_attention_bwd_dq, ref.flash_attn_bwd_dq_ref),
@@ -1497,7 +1690,7 @@ def check_new_shapes(torch, ops, ref, dev, qwen3, chatglm3):
             max_rel_err=rel, ms=timed(lambda: fn(*args, **kw), 10),
             plain_ms=timed(lambda: plain(*args, **kw), 3),
             library_ms=lib_ms, library="SDPA f32 backward, dQ+dK+dV",
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by, tilings=bwd_tilings)
     del q, k, v, do, o, lse, args
 
     # decode at ChatGLM3's served cache: both rows at their last step
@@ -3080,19 +3273,19 @@ def timed_engine(torch, base):
     admission wave (prefill) and each decode burst: one sync per wave and
     per burst, none per token."""
     class Timed(base):
-        prefill_s = decode_s = 0.0
+        prefill_s = decode_s = 0.0  # each engine's own sums
 
         def _admit(self):
             t0 = time.perf_counter()
             super()._admit()
             torch.cuda.synchronize()
-            Timed.prefill_s += time.perf_counter() - t0
+            self.prefill_s += time.perf_counter() - t0
 
         def _decode(self, n_steps, remaining, key):
             t0 = time.perf_counter()
             out = super()._decode(n_steps, remaining, key)
             torch.cuda.synchronize()
-            Timed.decode_s += time.perf_counter() - t0
+            self.decode_s += time.perf_counter() - t0
             return out
     return Timed
 
@@ -3159,18 +3352,85 @@ def inactive_rows_kept(torch, model, params, cache) -> dict:
     return kept
 
 
+def replay_matches_eager(torch, engine) -> dict:
+    """One decode burst of ``engine``'s graph cache replayed against the
+    same burst run eagerly (the entry's body) from the same state: {"toks",
+    "logits", each cache leaf: bit-equal}.  The burst is the cache's
+    longest captured one (every slot live for the whole burst where it is
+    tailed); the engine's state is left as the eager burst leaves it."""
+    from repro_torch.utils import tree_map
+    from repro_torch.utils.tree import tree_leaves
+    keys = [k for k, fn in engine.compile_cache._fns.items()
+            if k[0] == "decode" and getattr(fn, "graph", None) is not None]
+    if not keys:
+        return {}
+    key = max(keys)
+    fn = engine.compile_cache._fns[key]
+    n, tailed = key[1], key[2]
+    dev = engine.device
+    inputs = dict(
+        remaining=torch.full((engine.max_slots,), n, dtype=torch.int32,
+                             device=dev) if tailed else None,
+        key=engine._key.clone() if engine.temperature > 0 else None)
+    state = (tree_map(torch.clone, engine.cache), engine.last_logits.clone())
+    toks = fn(**inputs).clone()  # the replay
+    replayed = (tree_map(torch.clone, engine.cache),
+                engine.last_logits.clone())
+    for dst, src in zip(tree_leaves(engine.cache), tree_leaves(state[0])):
+        dst.copy_(src)
+    engine.last_logits.copy_(state[1])
+    eager = fn.body(**inputs)
+    same = {"toks": bool(torch.equal(toks, eager)),
+            "logits": bool(torch.equal(replayed[1], engine.last_logits))}
+    for (name, a), (_, b) in zip(named_leaves(replayed[0]),
+                                 named_leaves(engine.cache)):
+        same[name] = bool(torch.equal(a, b))
+    return same
+
+
+def serve_pass(engine, prompts, news) -> tuple:
+    """The requests through ``engine`` (submitted in order, then run):
+    (tokens, host seconds)."""
+    for p, m in zip(prompts, news):
+        engine.submit(p, max_new_tokens=m)
+    t0 = time.perf_counter()
+    outs = engine.run()
+    return outs, time.perf_counter() - t0
+
+
+def profiled_bursts(torch, label, graphed, eager, prompts, slots):
+    """One decode burst under torch.profiler on the graph engine (its
+    keys captured by an unprofiled run of the same traffic first, so the
+    profiled burst is a replay) and on the eager one: fill every slot,
+    a warm step (admission and a 32-token burst), a profiled 8-token
+    burst.  Emits profile.{label}_decode_burst (graphs) and
+    profile.{label}_decode_burst_eager."""
+    for p in prompts[:slots]:
+        graphed.submit(p[:64], max_new_tokens=40)
+    graphed.run()
+    for tag, engine in (("", graphed), ("_eager", eager)):
+        for p in prompts[:slots]:
+            engine.submit(p[:64], max_new_tokens=40)
+        profile_step(torch, f"{label}_decode_burst{tag}", engine.step)
+        engine.run()
+
+
 def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
               naive_reqs, label, outs_out=None, route_steps=None,
               profile=True):
     """Serving on ``cfg`` through the port's public API: the
-    continuous-batching engine over ``prompts`` (greedy), then its checks:
+    continuous-batching engine over ``prompts`` (greedy), its compile
+    cache as CUDA graphs on the card, twice over (the second pass all
+    hits), and the same requests on an eager twin (graphs off) first;
+    then its checks: the tokens of both passes and the twin's equal,
     every token against the request replayed alone, the kernel and ref
     decode routes (over the first ``route_steps`` tokens, all when None),
-    the naive engine, and one decode step with every other row inactive
-    that must leave those rows' cache leaves bit-equal.  Returns (launch
-    counts over the engine's run, the counts the run implies);
-    ``outs_out``, a dict, gets the model, its parameters, the engine and
-    its tokens."""
+    the naive engine, one decode step with every other row inactive that
+    must leave those rows' cache leaves bit-equal, and on the card one
+    burst replayed from the cache bit-equal to the same burst run eagerly.
+    Returns (launch counts over the graph engine's two passes, the counts
+    they imply); ``outs_out``, a dict, gets the model, its parameters,
+    the engine and its tokens."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -3186,18 +3446,39 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
     params = model.init(seed=SEED)
     Engine = timed_engine(torch, ContinuousBatchingEngine) if on_card \
         else ContinuousBatchingEngine
-    engine = Engine(model, params, max_slots=slots, S_max=S_max,
-                    bucket=SERVE_BUCKET)
-    for p, m in zip(prompts, news):
-        engine.submit(p, max_new_tokens=m)
+    kw = dict(max_slots=slots, S_max=S_max, bucket=SERVE_BUCKET)
+    eager = Engine(model, params, graphs=False, **kw)
     phase_done("setup", t0)
+
+    # the eager twin first, so that each run's peak is its own
+    t0 = time.perf_counter()
+    eager_outs, _ = serve_pass(eager, prompts, news)
+    eager_s = dict(prefill_s=getattr(eager, "prefill_s", None),
+                   decode_s=getattr(eager, "decode_s", None))
+    phase_done("eager", t0)
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    engine = Engine(model, params, **kw)
 
     ops.reset_launches()  # the path starts here
     t0 = time.perf_counter()
-    outs = engine.run()
+    outs, _ = serve_pass(engine, prompts, news)
     phase_done("engine", t0)
+    first = dict(engine.stats, capture_s=engine.capture_s,
+                 prefill_s=getattr(engine, "prefill_s", None),
+                 decode_s=getattr(engine, "decode_s", None))
+    t0 = time.perf_counter()
+    again, _ = serve_pass(engine, prompts, news)
+    phase_done("engine_again", t0)
     counts = ops.launches()  # the path ends here
     stats = engine.stats
+    second = {k: (stats[k] - first[k]) for k in
+              ("decode_steps", "compile_hits", "compile_misses")}
+    if on_card:
+        second.update(prefill_s=engine.prefill_s - first["prefill_s"],
+                      decode_s=engine.decode_s - first["decode_s"])
     n_tok = sum(len(o) for o in outs)
     kernel_decode = L.resolve_decode_backend("auto", cfg) == "kernel"
     # a wave's prefill runs over its padded tokens behind any patch prefix
@@ -3213,6 +3494,8 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
     # the selective scan once per Mamba layer per wave (no grad: kernel)
     expected["mamba_scan"] = n_mixers(cfg, "mamba") * len(
         engine.prefill_waves)
+    same_passes = all(np.array_equal(a, b) and np.array_equal(a, c)
+                      for a, b, c in zip(outs, again, eager_outs))
 
     t0 = time.perf_counter()
     worst, ties = 0.0, 0
@@ -3227,6 +3510,7 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
                         len(prompts[i]) + len(outs[i])) for i in route_reqs)
     phase_done("check_routes", t0)
     t0 = time.perf_counter()
+    replay = replay_matches_eager(torch, engine) if on_card else None
     kept = inactive_rows_kept(torch, model, params, engine.cache)
     phase_done("check_inactive", t0)
     naive_worst, naive_ties, naive_same = 0.0, 0, None
@@ -3249,16 +3533,33 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
         phase_done("check_naive", t0)
 
     engine_s = times["engine"]
+    capture = first["capture_s"]
+    step_ms = None
+    if on_card:
+        step_ms = dict(
+            eager=eager_s["decode_s"] * 1e3 / eager.stats["decode_steps"],
+            graphs_first_pass=(first["decode_s"] - capture["decode"]) * 1e3
+            / first["decode_steps"],
+            graphs_second_pass=second["decode_s"] * 1e3
+            / second["decode_steps"])
     emit(label, model=cfg.name, n_layers=cfg.n_layers, n_params=model.n_params,
          requests=len(prompts), slots=slots, S_max=S_max,
          prompt_tokens=int(sum(len(p) for p in prompts)),
-         generated_tokens=n_tok, decode_steps=stats["decode_steps"],
-         prefill_waves=engine.prefill_waves,
-         prefill_s=getattr(engine, "prefill_s", None),
-         decode_s=getattr(engine, "decode_s", None), engine_s=engine_s,
-         tokens_per_s=n_tok / engine_s, ttft_mean_s=stats["ttft_mean_s"],
-         decode_step_ms=(getattr(engine, "decode_s", None) or 0.0) * 1e3
-         / max(1, stats["decode_steps"]),
+         generated_tokens=n_tok, decode_steps=first["decode_steps"],
+         prefill_waves=engine.prefill_waves[:len(engine.prefill_waves) // 2],
+         prefill_s=first["prefill_s"], decode_s=first["decode_s"],
+         capture_s=capture, engine_s=engine_s,
+         tokens_per_s=n_tok / engine_s, ttft_mean_s=first["ttft_mean_s"],
+         compile_hits=first["compile_hits"],
+         compile_misses=first["compile_misses"],
+         compile_entries=engine.compile_cache.n_entries,
+         second_pass=dict(second, engine_s=times["engine_again"],
+                          tokens_per_s=n_tok / times["engine_again"]),
+         eager=dict(eager_s, engine_s=times["eager"],
+                    tokens_per_s=n_tok / times["eager"],
+                    peak_gb=peaks.get("eager")),
+         decode_step_ms=step_ms, passes_and_eager_same_tokens=same_passes,
+         replay_bit_equal_to_eager=replay,
          inactive_rows_bit_equal=kept,
          single_worst_gap=worst, single_near_ties=ties,
          tie_bound=SERVE_TIE_REL, route_gap=gap, route_bound=SERVE_ROUTE_REL,
@@ -3270,6 +3571,15 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
     if len(outs) != len(prompts) or any(len(o) != m
                                         for o, m in zip(outs, news)):
         fail(f"{label}: the engine returned the wrong number of tokens")
+    if not same_passes:
+        fail(f"{label}: the graph engine's two passes and the eager "
+             f"engine gave different tokens")
+    if second["compile_misses"]:
+        fail(f"{label}: the second pass of the same requests missed the "
+             f"compile cache {second['compile_misses']} times")
+    if on_card and (not replay or not all(replay.values())):
+        fail(f"{label}: a replayed burst differs from the eager burst: "
+             f"{replay}")
     if worst > SERVE_TIE_REL or naive_worst > SERVE_TIE_REL:
         fail(f"{label}: a token is not the argmax of the request replayed "
              f"alone (engine {worst}, naive {naive_worst} > {SERVE_TIE_REL})")
@@ -3279,11 +3589,7 @@ def run_serve(torch, dev, cfg, *, prompts, news, S_max, slots, route_reqs,
         fail(f"{label}: an inactive row's cache changed in a decode step: "
              f"{[k for k, v in kept.items() if not v]}")
     if on_card and kernel_decode and profile:
-        # one burst under the profiler: fill every slot, then a warm step
-        # (admission and a 32-token burst) and a profiled 8-token burst
-        for p in prompts[:slots]:
-            engine.submit(p[:64], max_new_tokens=40)
-        profile_step(torch, f"{label}_decode_burst", engine.step)
+        profiled_bursts(torch, label, engine, eager, prompts, slots)
     if outs_out is not None:
         outs_out.update(model=model, params=params, outs=outs, engine=engine)
     return counts, expected
@@ -3747,8 +4053,9 @@ def run_serve_jamba(torch, dev, cfg):
            for k in ("conv", "state")}
     del leaves
     weights = 4.0 * (served["model"].n_params - cfg.vocab * cfg.d_model)
-    step_ms = engine.decode_s * 1e3 / max(1, engine.stats["decode_steps"]) \
-        if dev.type == "cuda" else None
+    # the graph engine's two passes, capture seconds taken out
+    step_ms = (engine.decode_s - engine.capture_s["decode"]) * 1e3 \
+        / max(1, engine.stats["decode_steps"]) if dev.type == "cuda" else None
     emit("serve_jamba.checks", mamba_prefill_rel=rel, tol=MAMBA_STATE_REL,
          wave_lengths=lens.tolist(), wave_S_pad=S_pad,
          routes_s=time.perf_counter() - t0, decode_step_ms=step_ms,
@@ -3832,6 +4139,181 @@ def run_families(torch, dev, cfgs):
     return counts, expected
 
 
+# ---------------------------------------------------------------- autotune --
+def use_table(table) -> None:
+    """Point the port's autotune lookups at ``table`` (a directory)."""
+    from repro_torch.kernels import autotune
+    os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = str(table)
+    autotune.clear_cache()
+
+
+def autotune_keys(cfgs) -> list:
+    """(op, S, head_dim, G, kv_heads, batch) the autotune phase tunes: the
+    forward at the ZO steps of Llama-3.2-1B and Qwen3-4B, at ChatGLM3-6B's
+    loss and at Gemma-2-2b's prefill wave; the gradient at Llama's mask
+    and Adam steps and at Gemma's 4352-token batch."""
+    llama, qwen3, chatglm3, gemma = cfgs
+
+    def lay(cfg):
+        return (cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads,
+                cfg.n_kv_heads)
+
+    S_gemma = -(-max(GEMMA_PROMPTS) // SERVE_BUCKET) * SERVE_BUCKET
+    return [("fwd", SEQ_LEN, *lay(llama), CLIENT_BATCH),
+            ("grad", SEQ_LEN, *lay(llama), PRETRAIN_BATCH),
+            ("fwd", SEQ_LEN, *lay(qwen3), CLIENT_BATCH),
+            ("fwd", OPTIONS_S, *lay(chatglm3), OPTIONS_B),
+            ("fwd", S_gemma, *lay(gemma), len(GEMMA_PROMPTS)),
+            ("grad", GEMMA_GRAD_TOKENS, *lay(gemma), 1)]
+
+
+def autotune_cli(keys, *extra) -> tuple:
+    """``python -m repro_torch.kernels.autotune`` over ``keys`` into
+    TUNED_TABLE, in this process: (exit codes, printed lines)."""
+    from repro_torch.kernels import autotune
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rcs = [autotune.main([
+            "--ops", op, "--s-list", str(S), "--head-dim", str(hd), "--g",
+            str(G), "--kv-heads", str(kv), "--batch", str(B), "--reps",
+            str(AUTOTUNE_REPS), "--table-dir", str(TUNED_TABLE), *extra])
+            for op, S, hd, G, kv, B in keys]
+    return rcs, buf.getvalue().splitlines()
+
+
+def run_autotune(torch, dev, cfgs):
+    """kernels/autotune.py on the card: tune ``fwd`` and ``grad`` at the
+    full-width keys of the models the other phases drive into a table of
+    its own (TUNED_TABLE), print each entry, and check that a second CLI
+    run over the same keys is all cached (``--require-cached`` exits 0);
+    then one Llama-3.2-1B ZO step (CLIENT_BATCH x SEQ_LEN, the auto
+    attention route) and the forward at each tuned ``fwd`` key's shape
+    (Gemma-2-2b's [2, 4208, 8, 256] prefill wave with its lengths and
+    softcap), each with the default tiling (the empty table) beside the
+    tuned table: counted, held against each other (the step's g) and the
+    plain version (the forwards), then timed in turns.  Returns (launch
+    counts over the counted runs, the counts they imply)."""
+    import repro_torch.core as C
+    from repro_torch.data import TaskSpec, make_task_fns, sample_dataset
+    from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+
+    llama, qwen3, chatglm3, gemma = cfgs
+    keys = autotune_keys(cfgs)
+    shutil.rmtree(TUNED_TABLE, ignore_errors=True)
+    t0 = time.perf_counter()
+    rcs, lines = autotune_cli(keys)
+    tune_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rcs_again, lines_again = autotune_cli(keys, "--require-cached")
+    cached_s = time.perf_counter() - t0
+    table = autotune.load_table(str(TUNED_TABLE))
+    for key in sorted(table):
+        emit("autotune.entry", key=key, **table[key])
+    emit("autotune.cli", keys=[list(k) for k in keys], exit_codes=rcs,
+         require_cached_exit_codes=rcs_again, tune_s=tune_s,
+         cached_s=cached_s, lines=lines, require_cached_lines=lines_again)
+    want = {autotune.key_for(op, S, hd, G) for op, S, hd, G, _, _ in keys}
+    if any(rcs) or any(rcs_again) or set(table) != want:
+        fail(f"autotune: exit codes {rcs}, then with --require-cached "
+             f"{rcs_again}, entries {sorted(table)} for keys {sorted(want)}")
+
+    # the Llama ZO step and each tuned forward on both tables
+    sync = torch.cuda.synchronize
+    model = Model(llama, device=dev)
+    params = model.init(seed=SEED)
+    spec = TaskSpec(vocab=512, seq_len=SEQ_LEN)
+    loss, _, _ = make_task_fns(model, spec)
+    space = C.random_mask(params, DENSITY, seed=SEED)
+    run = C.make_local_run(loss, space, 1e-3, 1e-3, backend="kernel")
+    step_keys = C.round_keys(SEED, 0, 1)
+    client = C.Client(0, sample_dataset(spec, CLIENT_BATCH, seed=1),
+                      batch_size=CLIENT_BATCH)
+    batches = {k: torch.as_tensor(v, device=dev)
+               for k, v in client.next_batches(1).items()}
+    zeros = torch.zeros(space.n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    attn = {}
+    for (op, S, hd, G, KV, B), cfg in zip(keys, (llama, None, qwen3,
+                                                 chatglm3, gemma, None)):
+        if op != "fwd":
+            continue
+        q, k, v = _attn(torch, dev, gen, B, S, KV, G, hd, torch.float32)
+        lens = GEMMA_PROMPTS if cfg is gemma else (S,) * B
+        L_ = torch.tensor(lens, device=dev, dtype=torch.int32)
+        kw = dict(window=0, softcap=cfg.attn_softcap)
+        attn[cfg.name] = dict(
+            args=(q, k, v, L_), kw=kw, want=ref.flash_attention_ref(
+                q, k, v, L_, causal=True, **kw),
+            shape=f"q [{B},{S},{KV * G},{hd}] f32, G={G}"
+                  + ("" if cfg is not gemma else
+                     f", lengths {list(lens)}, softcap {cfg.attn_softcap}"))
+    tables = (("default", EMPTY_TABLE), ("tuned", TUNED_TABLE))
+    n_attn = n_mixers(llama, "attn", "local_attn")
+    expected = {name: 0 for name in ops.launches()}
+    routes, gs = {}, {}
+    ops.reset_launches()  # the path starts here
+    for tag, tdir in tables:
+        use_table(tdir)
+        routes[tag] = L.resolve_attn_backend("auto", llama, S=SEQ_LEN)
+        _, g = run(params, step_keys, batches, zeros)
+        gs[tag] = float(g[0])
+        for name, a in attn.items():
+            q = a["args"][0]
+            a.setdefault("tiling", {})[tag] = list(ops.fwd_tiling(
+                q.shape[1], q.shape[3], q.shape[2] // a["args"][1].shape[2]))
+            o, lse = ops.flash_attention(*a["args"], return_lse=True,
+                                         **a["kw"])
+            a.setdefault("max_abs_err", {})[tag] = max(
+                float((o - a["want"][0]).abs().max()),
+                float((lse - a["want"][1]).abs().max()))
+        for name in ("zo_dual_perturb_flat", "zo_fused_update_flat"):
+            expected[name] += 1
+        expected["flash_attention"] += len(attn) + (
+            2 * n_attn if routes[tag] == "kernel" else 0)
+    sync()
+    counts = ops.launches()  # the path ends here
+
+    # in turns: default, tuned, tuned, default
+    step_s = {tag: [] for tag, _ in tables}
+    for _ in range(AUTOTUNE_TURNS):
+        for tag, tdir in tables + tables[::-1]:
+            use_table(tdir)
+            sync()
+            t = time.perf_counter()
+            run(params, step_keys, batches, zeros)
+            sync()
+            step_s[tag].append(time.perf_counter() - t)
+            for a in attn.values():
+                a.setdefault("ms_turns", {}).setdefault(tag, []).append(
+                    timed(lambda: ops.flash_attention(*a["args"],
+                                                      **a["kw"]), 5))
+    use_table(EMPTY_TABLE)
+    forwards = {name: dict(shape=a["shape"], tiling=a["tiling"],
+                           max_abs_err=a["max_abs_err"], tol=1e-4,
+                           ms={t: statistics.median(v)
+                               for t, v in a["ms_turns"].items()},
+                           ms_turns=a["ms_turns"])
+                for name, a in attn.items()}
+    emit("autotune", platform=autotune.platform_key(), entries=len(table),
+         routes=routes,
+         zo_step=dict(shape=f"{llama.name}, {CLIENT_BATCH} x {SEQ_LEN}",
+                      g=gs, g_rel_diff=abs(gs["default"] - gs["tuned"])
+                      / max(abs(gs["default"]), 1e-30),
+                      seconds={t: statistics.median(v)
+                               for t, v in step_s.items()},
+                      seconds_turns=step_s),
+         forwards=forwards, launches=counts, expected_launches=expected)
+    worst = max(max(f["max_abs_err"].values()) for f in forwards.values())
+    if worst > 1e-4:
+        fail(f"autotune: a tuned forward differs from plain: {forwards}")
+    if not all(map(math.isfinite, gs.values())):
+        fail(f"autotune: a non-finite ZO scalar {gs}")
+    del model, params, space, attn
+    return counts, expected
+
+
 # ---------------------------------------------------------------- analysis --
 def plan_cases(n_flat: int, n_mask: int):
     """(plan function, shape) of every kernel at the shapes of the registry
@@ -3857,6 +4339,15 @@ def plan_cases(n_flat: int, n_mask: int):
                                       bf16=b))
               for G, dh, b in ((64, 64, False), (64, 256, True),
                                (3, 128, False), (8, 64, True))]
+    # every tiling of the forward and the backward, f32 and bf16
+    cases += [(P.flash_attn_fwd, dict(B=2, S=300, KVH=2, G=2, dh=dh, bf16=b,
+                                      tiling=t))
+              for dh, ts in P.FLASH_FWD_TILINGS.items() for t in ts
+              for b in (False, True)]
+    cases += [(P.flash_attn_bwd, dict(B=2, S=300, KVH=2, G=2, dh=dh, bf16=b,
+                                      dkv=d, tiling=t))
+              for dh, ts in P.FLASH_BWD_TILINGS.items() for t in ts
+              for b in (False, True) for d in (False, True)]
     # fused_update's chunks: below, at and above one, packed and not
     ch = P.zo_update_chunk(True)
     cases += [(P.zo_update, dict(n=n, bf16=b, has_m=m, vec=v, update=True))
@@ -4284,6 +4775,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing ran", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    EMPTY_TABLE.mkdir(parents=True, exist_ok=True)
+    try:
+        return _main(torch)
+    finally:
+        shutil.rmtree(EMPTY_TABLE, ignore_errors=True)
+        shutil.rmtree(TUNED_TABLE, ignore_errors=True)
+
+
+def _main(torch) -> int:
+    use_table(EMPTY_TABLE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4307,9 +4808,16 @@ def main() -> int:
     text = log.read_text() if log.exists() else ""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
     spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", text)]
+    by_kernel = ptxas_spills(text)
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=build.build_seconds, kernel_functions=len(regs),
-         max_registers=max(regs, default=None), spill_bytes=sum(spills))
+         max_registers=max(regs, default=None), spill_bytes=sum(spills),
+         spills_by_kernel=by_kernel,
+         source_seconds=dict(re.findall(r"== (\S+) ([\d.]+) s", text)))
+    spilled = sorted(k for k in by_kernel if k.startswith("flash_")
+                     and not tiling_is_default(k))
+    if spilled:
+        fail(f"flash tilings past the default spill registers: {spilled}")
 
     from repro_torch.models.init import param_count
     n_flat = param_count(LLAMA32_1B)
@@ -4330,7 +4838,9 @@ def main() -> int:
     rows.update(check_gradip(torch, ops, ref, dev, n_mask, gradip_extra))
     gemma = GEMMA2_2B.replace(n_layers=GEMMA2_2B.period * 2)
     rows.update(check_flash(torch, ops, ref, dev, LLAMA32_1B, CLIENT_BATCH))
-    check_flash_prefill(torch, ops, ref, dev, gemma, GEMMA_PROMPTS)
+    pre = check_flash_prefill(torch, ops, ref, dev, gemma, GEMMA_PROMPTS)
+    rows["flash_attention"]["tilings"]["gemma_prefill"] = {
+        name: r["tilings"] for name, r in pre.items()}
     rows.update(check_flash_bwd(torch, ops, ref, dev, LLAMA32_1B, FO_BATCH,
                                 gemma))
     rows.update(check_flash_decode(torch, ops, ref, dev, LLAMA32_1B,
@@ -4372,7 +4882,9 @@ def main() -> int:
                             ("jamba_moe", run_jamba_moe, moe_layer),
                             ("serve_jamba", run_serve_jamba, jamba_serve),
                             ("families", run_families, families),
-                            ("analysis", run_analysis_phase, LLAMA32_1B)):
+                            ("analysis", run_analysis_phase, LLAMA32_1B),
+                            ("autotune", run_autotune,
+                             (LLAMA32_1B, qwen3, chatglm3, gemma))):
         t0 = time.perf_counter()
         counts, expected = run(torch, dev, cfg)
         if counts != expected:

@@ -232,11 +232,14 @@ def build_prefill(dev) -> Built:
 def build_decode_burst(dev) -> Built:
     """The continuous-batching engine's decode burst
     (``ContinuousBatchingEngine._decode``), tailed: 4 steps over 2 slots
-    against an S_max=320 cache, the steady-state serving inner loop."""
+    against an S_max=320 cache, the steady-state serving inner loop.  The
+    engine runs its bursts eagerly here (``graphs=False``): those are the
+    ops each of its CUDA graphs captures on the card, and a replay shows
+    the recorder none."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
     cfg, model, params, _ = _tiny_lm(dev)
     eng = ContinuousBatchingEngine(model, params, max_slots=2, S_max=S,
-                                   bucket=16)
+                                   bucket=16, graphs=False)
 
     def fn(remaining):
         with torch.no_grad():

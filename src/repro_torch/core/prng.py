@@ -4,7 +4,9 @@ JAX releases this port is held against).
 
 A key is an int64 tensor of shape ``[..., 2]`` holding two uint32 words — the
 ``jax.random.key_data`` of the matching JAX key.  Key derivation (``key``,
-``fold_in``, ``split``) runs on the CPU: keys are a handful of words.  Bits,
+``fold_in``, ``split``) runs on the CPU: keys are a handful of words; a key
+moved to the card splits there (the serving engine's sampling key, which a
+CUDA graph reads from a static buffer).  Bits,
 uniforms and normals are generated on the caller's device.
 
 uint32 arithmetic is carried in int64 and masked to 32 bits after every add
@@ -76,8 +78,9 @@ def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
 
 def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` (partitionable): key i hashes the counter
-    [0, i] — the same as ``fold_in(k, i)``.  Returns [num, 2]."""
-    counts = torch.arange(num, dtype=torch.int64)
+    [0, i] — the same as ``fold_in(k, i)``.  Returns [num, 2] on k's
+    device (a key on the card splits there, without a host sync)."""
+    counts = torch.arange(num, dtype=torch.int64, device=k.device)
     y0, y1 = threefry2x32(k[0], k[1], torch.zeros_like(counts), counts)
     return torch.stack([y0, y1], dim=-1)
 

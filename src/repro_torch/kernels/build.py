@@ -34,17 +34,18 @@ SIGNATURES = {
     "zo_dual_perturb": ([_P, _P, _P, _P, _P, _P, _LL, _I, _P], _I),
     "zo_fused_update": ([_P, _P, _P, _P, _P, _LL, _I, _P], _I),
     "gradip_reduce": ([_P, _P, _F, _P, _P, _LL, _P], _I),
+    # the flash kernels take their tiling (rows, keys a tile) after is_bf16
     "flash_attn_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                        _I, _F, _I, _P], _I),
+                        _I, _F, _I, _I, _I, _P], _I),
     "flash_attn_fwd_probe": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _F, _I, _F, _I, _P, _P], _I),
+                              _I, _I, _F, _I, _F, _I, _I, _I, _P, _P], _I),
     "flash_attn_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _F, _I, _F, _I, _P], _I),
+                           _I, _I, _F, _I, _F, _I, _I, _I, _P], _I),
     "flash_attn_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _F, _I, _F, _I, _P], _I),
+                            _I, _I, _I, _F, _I, _F, _I, _I, _I, _P], _I),
     "flash_attn_bwd_probe": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _P,
-                              _P], _I),
+                              _P, _I, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I,
+                              _I, _P, _P], _I),
     "flash_decode": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
                       _P], _I),
     "mamba_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
@@ -52,8 +53,8 @@ SIGNATURES = {
     # launch-plan queries (kernels/plans.py): shapes in, launches out
     "zo_update_plan": ([_I, _LL, _I, _I, _I, _P], _I),
     "gradip_reduce_plan": ([_LL, _I, _P], _I),
-    "flash_attn_fwd_plan": ([_I, _I, _I, _I, _I, _I, _P], _I),
-    "flash_attn_bwd_plan": ([_I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "flash_attn_fwd_plan": ([_I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+    "flash_attn_bwd_plan": ([_I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     "flash_decode_plan": ([_I, _I, _I, _I, _I, _I, _P], _I),
     "mamba_scan_plan": ([_I, _I, _I, _I, _P], _I),
     "fixture_double_plan": ([_I, _I, _I, _I, _P], _I),
@@ -61,8 +62,8 @@ SIGNATURES = {
     "fixture_double_smem_state": ([_P], _I),
     # the flash and decode kernels' grants: one instantiation's bytes,
     # attribute calls
-    "flash_attn_fwd_smem_state": ([_I, _I, _P], _I),
-    "flash_attn_bwd_smem_state": ([_I, _I, _I, _P], _I),
+    "flash_attn_fwd_smem_state": ([_I, _I, _I, _I, _P], _I),
+    "flash_attn_bwd_smem_state": ([_I, _I, _I, _I, _I, _P], _I),
     "flash_decode_smem_state": ([_I, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
@@ -98,12 +99,14 @@ def _digest() -> str:
 
 def _compile(nvcc: str, out: Path) -> None:
     """One nvcc per source, all at once, then one link; the compilers'
-    output (ptxas register and shared-memory counts) goes to ptxas.log."""
+    output (ptxas register and shared-memory counts) and each source's
+    wall seconds go to ptxas.log."""
     global builds
     builds += 1
     tmp = out.parent / f"tmp_{os.getpid()}"
     tmp.mkdir(parents=True, exist_ok=True)
     procs = []
+    t0 = time.perf_counter()
     for src in _sources():
         obj = tmp / (src.stem + ".o")
         procs.append((src, obj, subprocess.Popen(
@@ -112,7 +115,7 @@ def _compile(nvcc: str, out: Path) -> None:
     log, failed = [], []
     for src, _, proc in procs:
         text, _ = proc.communicate()
-        log.append(f"== {src.name}\n{text}")
+        log.append(f"== {src.name} {time.perf_counter() - t0:.1f} s\n{text}")
         if proc.returncode:
             failed.append(src.name)
     (out.parent / "ptxas.log").write_text("\n".join(log))

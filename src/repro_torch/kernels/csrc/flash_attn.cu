@@ -21,12 +21,16 @@
 //   so with bf16 inputs q k^T takes one pass and p v two (p is f32).  A
 //   tile's p v sum is taken on the tensor cores, the long sum over key
 //   tiles as O = O * alpha + tile in one IEEE fmaf;
-// * one block per (KV head, batch row, query tile), 4 warps, R = 64 score
-//   rows: BQ = 64 / G queries times the G heads of a group folded, so k
-//   and v are loaded once per group (G <= 64 at every head_dim); the TPU's
-//   sequential KV grid axis becomes a loop over key tiles of 32 keys (16 at
-//   head_dim 128 and 256), pruned by the TPU kernel's predicate
-//   (_block_needed);
+// * one block per (KV head, batch row, query tile) of R score rows, R / 16
+//   warps: BQ = R / G queries times the G heads of a group folded, so k
+//   and v are loaded once per group (G <= R); the TPU's sequential KV grid
+//   axis becomes a loop over key tiles of BK keys, pruned by the TPU
+//   kernel's predicate (_block_needed).  (R, BK) is a tiling, chosen per
+//   call from a fixed set per head_dim (Tilings below, plans.py
+//   FLASH_FWD_TILINGS): the first of each set, R = 64 with BK = 32 at
+//   head_dim 64 and 16 at 128 and 256, is what a call that pins nothing
+//   and finds no tuned pick launches (kernels/autotune.py measures the
+//   others);
 // * each warp owns an m16 strip of rows across every key of a tile: its
 //   scores stay in the mma accumulators and the online softmax (running max
 //   m, normalizer l, rescale alpha) runs in registers with quad shuffles,
@@ -39,7 +43,9 @@
 //   keeps m = -1e30 and writes zeros;
 // * occupancy first: the kernel is bound by the latency of its dependent
 //   mma.sync chains more than by their issue, so the tiles are sized for
-//   blocks in flight (3 an SM at head_dim 64, 2 at 128, 1 at 256) and the
+//   blocks in flight (with the default tilings 3 an SM at head_dim 64, 2
+//   at 128, 1 at 256; kMinBlocks derives it from each tiling's shared
+//   memory and a register budget per (head_dim, BK)) and the
 //   f32 k and v tiles are split by the fragment loads, not once into lo
 //   planes, which would cost a block an SM; q stays resident for the
 //   block, split once into hi and lo planes in f32 when it lands; a bf16
@@ -58,11 +64,12 @@
 //   and must be 16-byte aligned; keys past lengths[b] are masked here;
 // * the dynamic shared memory (24-192 KB) is granted through the
 //   per-device high-water mark of common.cuh: one attribute call per
-//   instantiation and device, not one per launch;
+//   instantiation (type, head_dim, tiling) and device, not one per launch;
 // * flash_attn_fwd_probe, a launch outside the wrapped path, has each block
 //   record the key tiles it walked and its clocks, and runs the one-pass
 //   TF32 control of the split.
 #include <cstdint>
+#include <tuple>
 
 #include "common.cuh"
 #include "tf32_mma.cuh"
@@ -71,34 +78,72 @@ using namespace repro;
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // score rows per block: BQ x G
 constexpr float kNegInf = -1e30f;
 
-// keys per tile
+// A tiling: R score rows a block (R / 16 warps; BQ = R / G queries) and BK
+// keys a tile.
+template <int R_, int BK_>
+struct Tiling {
+  static constexpr int R = R_, BK = BK_;
+};
+// The tilings of each head dim, the default first (plans.py
+// FLASH_FWD_TILINGS repeats them).
 template <int DH>
-constexpr int kBKOf = DH == 64 ? 32 : 16;
+struct TilingsOf;
+template <>
+struct TilingsOf<64> {
+  using type = std::tuple<Tiling<64, 32>, Tiling<64, 64>, Tiling<128, 32>,
+                          Tiling<128, 64>>;
+};
+template <>
+struct TilingsOf<128> {
+  using type = std::tuple<Tiling<64, 16>, Tiling<64, 32>, Tiling<128, 16>,
+                          Tiling<128, 32>>;
+};
+template <>
+struct TilingsOf<256> {  // (32, 16) spills 152 bytes: not kept
+  using type = std::tuple<Tiling<64, 16>, Tiling<64, 8>, Tiling<32, 8>>;
+};
+constexpr int kTilings = 4;  // at most, per head dim
+
 // output n8 tiles per p v pass (its accumulators' count)
 template <int DH>
 constexpr int kUOf = DH == 256 ? 4 : 8;
-// blocks an SM is to hold: 3 at head_dim 64 (64 KB of shared memory each;
-// __launch_bounds__ then caps the registers at 170), 2 at 128 (96 KB), 1
-// at 256
-template <int DH>
-constexpr int kMinBlocks = DH == 64 ? 3 : DH == 128 ? 2 : 1;
 
 // q [R][DH] (f32: hi bits and a lo plane; bf16: as read); k and v
 // [2][BK][DH] (T).
-template <typename T, int DH>
+template <typename T, int DH, int R, int BK>
 constexpr size_t kSmem =
-    (kExactTf32<T> ? sizeof(T) : 2 * sizeof(uint32_t)) * kRows * DH +
-    sizeof(T) * 4 * kBKOf<DH> * DH;
+    (kExactTf32<T> ? sizeof(T) : 2 * sizeof(uint32_t)) * R * DH +
+    sizeof(T) * 4 * BK * DH;
+
+// registers a thread of the tiling needs without spilling: 168 at head
+// dim 64 with 32-key tiles (170 is the cap that three 4-warp blocks an SM
+// leave), all 255 otherwise
+template <int DH, int BK>
+constexpr int kRegs = DH == 64 && BK <= 32 ? 168 : 255;
+
+// Blocks an SM is to hold: as many as the shared memory (1 KB reserved a
+// block) and the registers allow, at least 1; __launch_bounds__ then caps
+// the registers at 65536 / (threads x blocks).
+constexpr int min_blocks(size_t smem, int threads, int regs) {
+  int blocks = int(233472 / (smem + 1024));
+  if (65536 / (threads * regs) < blocks) blocks = 65536 / (threads * regs);
+  return blocks < 1 ? 1 : blocks;
+}
+// The default tilings in f32: 3 at head_dim 64 (64 KB each, 170
+// registers), 2 at 128 (96 KB), 1 at 256.
+template <typename T, int DH, int R, int BK>
+constexpr int kMinBlocks = min_blocks(kSmem<T, DH, R, BK>, 2 * R,
+                                      kRegs<DH, BK>);
 
 constexpr size_t kSmemOptin = 232448;  // a Hopper block's opt-in limit
-static_assert(kSmem<float, 256> <= kSmemOptin, "tiles at head_dim 256");
-static_assert(2 * (kSmem<float, 128> + 1024) <= 233472, "two blocks an SM");
-static_assert(3 * (kSmem<float, 64> + 1024) <= 233472, "three blocks an SM");
+static_assert(kSmem<float, 64, 128, 64> <= kSmemOptin, "tiles at dh 64");
+static_assert(kSmem<float, 128, 128, 32> <= kSmemOptin, "tiles at dh 128");
+static_assert(kSmem<float, 256, 64, 16> <= kSmemOptin, "tiles at dh 256");
+static_assert(kMinBlocks<float, 64, 64, 32> == 3, "three blocks an SM");
+static_assert(kMinBlocks<float, 128, 64, 16> == 2, "two blocks an SM");
+static_assert(kMinBlocks<float, 256, 64, 16> == 1, "one block an SM");
 
 struct Params {
   const void* q;
@@ -140,20 +185,21 @@ __device__ __forceinline__ void store2(__nv_bfloat16* o, float x, float y) {
 
 // kOne (flash_attn_fwd_probe's precision control only): every product one
 // TF32 pass, hi*hi.
-template <typename T, int DH, bool kOne = false>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<DH>)
+template <typename T, int DH, int R, int BK, bool kOne = false>
+__global__ void __launch_bounds__(2 * R, kMinBlocks<T, DH, R, BK>)
     flash_fwd(Params p) {
-  constexpr int BK = kBKOf<DH>;
+  constexpr int kThreads = 2 * R;     // R / 16 warps
   constexpr int SN = BK / 8;          // score n8 tiles (p v k-steps) a tile
+  static_assert(SN <= 8, "ok_bits holds 32 lanes' masks");
   constexpr int ON = DH / 8;          // output n8 tiles
   constexpr int U = kUOf<DH>;         // output n8 tiles per p v pass
   constexpr int KS = SN < 4 ? 2 : 1;  // score accumulators per n8 tile
   constexpr bool kQf = !kExactTf32<T>;          // q as hi and lo planes
   constexpr bool kX = kExactTf32<T> || kOne;    // no operand lo terms
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);  // [kRows][DH]
-  uint32_t* sQl = reinterpret_cast<uint32_t*>(sQ + kRows * DH);  // f32
-  T* sK = reinterpret_cast<T*>(sQl + (kQf ? kRows * DH : 0));  // [2][BK*DH]
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [R][DH]
+  uint32_t* sQl = reinterpret_cast<uint32_t*>(sQ + R * DH);  // f32
+  T* sK = reinterpret_cast<T*>(sQl + (kQf ? R * DH : 0));  // [2][BK*DH]
   T* sV = sK + 2 * BK * DH;  // [2][BK*DH], rows as key_row<true>
   const Opnd<T, DH, kQf> oQ{sQ, sQl};
 
@@ -176,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH>)
     if (r >= rows || pos[hf] >= p.S) pos[hf] = -1;
   }
 
-  copy_rows<T, DH, kRows, kThreads>(sQ, p.q, p, b, h, q0, inv_g);
+  copy_rows<T, DH, R, kThreads>(sQ, p.q, p, b, h, q0, inv_g);
   int t = next_key_tile<BK>(p, L, q0, 0, n_k);
   if (t < n_k) {
     copy_keys<T, DH, BK, kThreads>(sK, p.k, p, b, h, t * BK);
@@ -202,7 +248,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH>)
     cp_wait<1>();  // this tile (and q) have landed
     if constexpr (kQf) {
       if (walked == 0) {
-        split_chunks<kRows, DH, kThreads>(reinterpret_cast<float*>(sQ), sQl);
+        split_chunks<R, DH, kThreads>(reinterpret_cast<float*>(sQ), sQl);
       }
     }
     __syncthreads();
@@ -336,149 +382,205 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH>)
 }
 
 // ------------------------------------------------------------- launchers --
-template <typename T, int DH, bool kOne = false>
+template <typename T, int DH, int R, int BK, bool kOne = false>
 LaunchPlan plan(const Params& p, int B) {
-  return {reinterpret_cast<const void*>(flash_fwd<T, DH, kOne>),
-          dim3(p.KVH, B, (p.S + p.BQ - 1) / p.BQ), kThreads, kSmem<T, DH>};
+  return {reinterpret_cast<const void*>(flash_fwd<T, DH, R, BK, kOne>),
+          dim3(p.KVH, B, (p.S + p.BQ - 1) / p.BQ), 2 * R,
+          kSmem<T, DH, R, BK>};
 }
 
-// Instantiations for the grant: f32 then bf16, head_dim 64, 128, 256.  The
-// probe's one-pass controls have grants of their own, so that the count of
-// attribute calls (flash_attn_fwd_smem_state) is the wrapped path's.
-constexpr int kInstances = 6;
+// Instantiations for the grant: (f32 then bf16) x (head_dim 64, 128, 256)
+// x the head dim's tilings in TilingsOf order.  The probe's one-pass
+// controls have grants of their own, so that the count of attribute calls
+// (flash_attn_fwd_smem_state) is the wrapped path's.
+constexpr int kInstances = 2 * 3 * kTilings;
 SmemGrants<kInstances> g_grants;
 SmemGrants<kInstances> g_one_pass_grants;
 
-int instance(int is_bf16, int dh) {
-  return 3 * (is_bf16 != 0) + (dh == 64 ? 0 : dh == 128 ? 1 : 2);
+int instance(int is_bf16, int dh, int tiling) {
+  return (3 * (is_bf16 != 0) + (dh == 64 ? 0 : dh == 128 ? 1 : 2)) *
+             kTilings + tiling;
 }
 
-template <typename T, int DH, bool kOne = false>
-cudaError_t launch(const Params& p, int B, cudaStream_t st) {
-  const LaunchPlan lp = plan<T, DH, kOne>(p, B);
+template <typename T, int DH, int R, int BK, bool kOne = false>
+cudaError_t launch(const Params& p, int B, int tiling, cudaStream_t st) {
+  const LaunchPlan lp = plan<T, DH, R, BK, kOne>(p, B);
   const cudaError_t e = (kOne ? g_one_pass_grants : g_grants)
-                            .grant(lp.fn, instance(kExactTf32<T>, DH),
+                            .grant(lp.fn, instance(kExactTf32<T>, DH, tiling),
                                    lp.smem);
   if (e != cudaSuccess) return e;
-  flash_fwd<T, DH, kOne><<<lp.grid, lp.threads, lp.smem, st>>>(p);
+  flash_fwd<T, DH, R, BK, kOne><<<lp.grid, lp.threads, lp.smem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T_, int DH_>
+template <typename T_, int DH_, int R_, int BK_>
 struct Inst {
   using T = T_;
-  static constexpr int DH = DH_;
+  static constexpr int DH = DH_, R = R_, BK = BK_;
 };
 
-// f(Inst<T, DH>{}) for head dim dh (64, 128 or 256) and the operand type.
-template <typename F>
-auto visit(int dh, int is_bf16, F&& f) {
-  if (dh == 64) {
-    return is_bf16 ? f(Inst<__nv_bfloat16, 64>{}) : f(Inst<float, 64>{});
-  }
-  if (dh == 128) {
-    return is_bf16 ? f(Inst<__nv_bfloat16, 128>{}) : f(Inst<float, 128>{});
-  }
-  return is_bf16 ? f(Inst<__nv_bfloat16, 256>{}) : f(Inst<float, 256>{});
+// f(Inst<T, DH, R, BK>{}, i) for the tiling (rows, bk) of head dim DH, i
+// its index in TilingsOf<DH>; cudaErrorInvalidValue where DH has no such
+// tiling (never a default).
+template <typename T, int DH, typename F, typename... Ts>
+cudaError_t visit_tilings(int rows, int bk, F& f, std::tuple<Ts...>*) {
+  cudaError_t e = cudaErrorInvalidValue;
+  bool found = false;
+  int i = 0;
+  auto one = [&](auto t) {
+    using Ti = decltype(t);
+    if (!found && rows == Ti::R && bk == Ti::BK) {
+      found = true;
+      e = f(Inst<T, DH, Ti::R, Ti::BK>{}, i);
+    }
+    ++i;
+  };
+  (one(Ts{}), ...);
+  return e;
 }
 
-// head_dim 64, 128 or 256, 1 <= G <= 64, and a grid the card takes.
-int check_shape(int B, int S, int G, int dh) {
+template <typename T, int DH, typename F>
+cudaError_t visit_dh(int rows, int bk, F& f) {
+  return visit_tilings<T, DH>(
+      rows, bk, f, static_cast<typename TilingsOf<DH>::type*>(nullptr));
+}
+
+// f(Inst{}, i) for head dim dh (64, 128 or 256), the operand type and the
+// tiling (rows, bk).
+template <typename F>
+cudaError_t visit(int dh, int is_bf16, int rows, int bk, F&& f) {
+  if (dh == 64) {
+    return is_bf16 ? visit_dh<__nv_bfloat16, 64>(rows, bk, f)
+                   : visit_dh<float, 64>(rows, bk, f);
+  }
+  if (dh == 128) {
+    return is_bf16 ? visit_dh<__nv_bfloat16, 128>(rows, bk, f)
+                   : visit_dh<float, 128>(rows, bk, f);
+  }
+  return is_bf16 ? visit_dh<__nv_bfloat16, 256>(rows, bk, f)
+                 : visit_dh<float, 256>(rows, bk, f);
+}
+
+// head_dim 64, 128 or 256, 1 <= G <= rows, and a grid the card takes (the
+// tiling itself is checked by visit).
+int check_shape(int B, int S, int G, int dh, int rows) {
   if (dh != 64 && dh != 128 && dh != 256) return cudaErrorInvalidValue;
-  if (G < 1 || G > kRows) return cudaErrorInvalidValue;
+  if (rows < 1 || G < 1 || G > rows) return cudaErrorInvalidValue;
   if (B == 0 || S == 0) return -1;  // nothing to launch
-  if (B > 65535 || (S + kRows / G - 1) / (kRows / G) > 65535) {
+  if (B > 65535 || (S + rows / G - 1) / (rows / G) > 65535) {
     return cudaErrorInvalidValue;
   }
   return 0;
 }
 
 Params params(const void* q, const void* k, const void* v, const int* lengths,
-              void* o, float* lse, int S, int KVH, int G, int window,
-              float softcap, int causal, float scale, long long* blocks) {
-  return Params{q, k, v, lengths, o, lse, S, KVH, G, kRows / G, window,
+              void* o, float* lse, int S, int KVH, int G, int rows,
+              int window, float softcap, int causal, float scale,
+              long long* blocks) {
+  return Params{q, k, v, lengths, o, lse, S, KVH, G, rows / G, window,
                 causal, softcap, scale, blocks};
 }
 
 }  // namespace
 
-// The launch flash_attn_fwd makes at these shapes (write_plans).
+// The launch flash_attn_fwd makes at these shapes and tiling (write_plans);
+// an unknown tiling is cudaErrorInvalidValue.
 extern "C" int flash_attn_fwd_plan(int B, int S, int KVH, int G, int dh,
-                                   int is_bf16, long long* out) {
-  const int rc = check_shape(B, S, G, dh);
+                                   int is_bf16, int rows, int bk,
+                                   long long* out) {
+  const int rc = check_shape(B, S, G, dh, rows);
   if (rc > 0) return rc;
-  if (rc < 0) return write_plans(nullptr, 0, out);
   const Params p = params(nullptr, nullptr, nullptr, nullptr, nullptr,
-                          nullptr, S, KVH, G, 0, 0.f, 1, 1.f, nullptr);
-  const LaunchPlan lp = visit(dh, is_bf16, [&](auto i) {
+                          nullptr, S, KVH, G, rows, 0, 0.f, 1, 1.f, nullptr);
+  LaunchPlan lp{};
+  const cudaError_t e = visit(dh, is_bf16, rows, bk, [&](auto i, int) {
     using I = decltype(i);
-    return plan<typename I::T, I::DH>(p, B);
+    lp = plan<typename I::T, I::DH, I::R, I::BK>(p, B);
+    return cudaSuccess;
   });
+  if (e != cudaSuccess) return e;
+  if (rc < 0) return write_plans(nullptr, 0, out);
   return write_plans(&lp, 1, out);
 }
 
 // q [B, S, KVH*G, dh], k and v [B, S, KVH, dh], contiguous and 16-byte
 // aligned, all f32 or all bf16; lengths [B] int32 (clamped to [0, S]
-// here); o like q; lse [B, KVH, S, G] f32.
+// here); o like q; lse [B, KVH, S, G] f32.  (rows, bk) one of the head
+// dim's tilings (TilingsOf), else cudaErrorInvalidValue.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               const int* lengths, void* o, float* lse, int B,
                               int S, int KVH, int G, int dh, int window,
                               float softcap, int causal, float scale,
-                              int is_bf16, void* stream) {
-  const int rc = check_shape(B, S, G, dh);
-  if (rc) return rc < 0 ? 0 : rc;
+                              int is_bf16, int rows, int bk, void* stream) {
+  const int rc = check_shape(B, S, G, dh, rows);
+  if (rc > 0) return rc;
   if (!(aligned(q, 16) && aligned(k, 16) && aligned(v, 16))) {
     return cudaErrorMisalignedAddress;
   }
-  const Params p = params(q, k, v, lengths, o, lse, S, KVH, G, window,
+  const Params p = params(q, k, v, lengths, o, lse, S, KVH, G, rows, window,
                           softcap, causal, scale, nullptr);
   const auto st = static_cast<cudaStream_t>(stream);
-  return visit(dh, is_bf16, [&](auto i) {
+  return visit(dh, is_bf16, rows, bk, [&](auto i, int tiling) {
     using I = decltype(i);
-    return launch<typename I::T, I::DH>(p, B, st);
+    if (rc < 0) return cudaSuccess;  // an empty call: nothing to launch
+    return launch<typename I::T, I::DH, I::R, I::BK>(p, B, tiling, st);
   });
 }
 
 // A measurement launch beside the wrapped path, on flash_attn_fwd's
-// operands: each block writes the key tiles it walked and the SM clocks it
-// took into blocks[2 * i] and blocks[2 * i + 1], i its linear index
-// (blockIdx.x fastest; the grid of flash_attn_fwd_plan).  With one_pass
-// (f32 at head_dim 64 or 256 only) both products take one TF32 pass,
-// hi*hi: the precision control of the 3xTF32 split.
+// operands and tiling: each block writes the key tiles it walked and the
+// SM clocks it took into blocks[2 * i] and blocks[2 * i + 1], i its linear
+// index (blockIdx.x fastest; the grid of flash_attn_fwd_plan).  With
+// one_pass (f32 at head_dim 64 or 256, the default tiling only) both
+// products take one TF32 pass, hi*hi: the precision control of the 3xTF32
+// split.
 extern "C" int flash_attn_fwd_probe(int one_pass, const void* q,
                                     const void* k, const void* v,
                                     const int* lengths, void* o, float* lse,
                                     int B, int S, int KVH, int G, int dh,
                                     int window, float softcap, int causal,
-                                    float scale, int is_bf16,
-                                    long long* blocks, void* stream) {
-  const int rc = check_shape(B, S, G, dh);
-  if (rc) return rc < 0 ? 0 : rc;
+                                    float scale, int is_bf16, int rows,
+                                    int bk, long long* blocks,
+                                    void* stream) {
+  const int rc = check_shape(B, S, G, dh, rows);
+  if (rc > 0) return rc;
   if (!(aligned(q, 16) && aligned(k, 16) && aligned(v, 16))) {
     return cudaErrorMisalignedAddress;
   }
-  if (one_pass && (is_bf16 || dh == 128)) return cudaErrorInvalidValue;
-  const Params p = params(q, k, v, lengths, o, lse, S, KVH, G, window,
+  const Params p = params(q, k, v, lengths, o, lse, S, KVH, G, rows, window,
                           softcap, causal, scale, blocks);
   const auto st = static_cast<cudaStream_t>(stream);
   if (!one_pass) {
-    return visit(dh, is_bf16, [&](auto i) {
+    return visit(dh, is_bf16, rows, bk, [&](auto i, int tiling) {
       using I = decltype(i);
-      return launch<typename I::T, I::DH>(p, B, st);
+      if (rc < 0) return cudaSuccess;
+      return launch<typename I::T, I::DH, I::R, I::BK>(p, B, tiling, st);
     });
   }
-  return dh == 64 ? launch<float, 64, true>(p, B, st)
-                  : launch<float, 256, true>(p, B, st);
+  if (is_bf16 || rows != 64 || !((dh == 64 && bk == 32) ||
+                                 (dh == 256 && bk == 16))) {
+    return cudaErrorInvalidValue;
+  }
+  if (rc < 0) return 0;
+  return dh == 64 ? launch<float, 64, 64, 32, true>(p, B, 0, st)
+                  : launch<float, 256, 64, 16, true>(p, B, 0, st);
 }
 
 // The launcher's grant for one instantiation on the current device:
-// out[0] the dynamic shared bytes granted to the kernel of that head dim
-// and type (0: none yet), out[1] the cudaFuncSetAttribute calls the
+// out[0] the dynamic shared bytes granted to the kernel of that head dim,
+// type and tiling (0: none yet), out[1] the cudaFuncSetAttribute calls the
 // forward's launches made in this process.
-extern "C" int flash_attn_fwd_smem_state(int dh, int is_bf16,
-                                         long long* out) {
+extern "C" int flash_attn_fwd_smem_state(int dh, int is_bf16, int rows,
+                                         int bk, long long* out) {
   if (dh != 64 && dh != 128 && dh != 256) return cudaErrorInvalidValue;
-  const cudaError_t e = g_grants.granted_here(instance(is_bf16, dh), out);
+  int tiling = -1;
+  const cudaError_t found = visit(dh, is_bf16, rows, bk, [&](auto, int i) {
+    tiling = i;
+    return cudaSuccess;
+  });
+  if (found != cudaSuccess) return found;
+  const cudaError_t e =
+      g_grants.granted_here(instance(is_bf16, dh, tiling), out);
   if (e != cudaSuccess) return e;
   out[1] = g_grants.sets.load();
   return 0;

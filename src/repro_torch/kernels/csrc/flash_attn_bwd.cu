@@ -50,10 +50,14 @@
 //   the causal frontier up to the window's end: under causal masking the
 //   two ranges sum to the same length for every t, so every block does the
 //   same work (34 query tiles at the first-order shape, 256 blocks);
-// * R = 64 score rows at head_dim 64 and 128, and 32 at 256 (so G <= 32
-//   there), where two 64-row tiles and the streamed ones would not fit;
-//   8 warps, each an m16 strip of the block's tile and a share of its
-//   columns;
+// * R score rows a query tile, a tiling chosen per call (TilingsOf,
+//   plans.py FLASH_BWD_TILINGS): 64 (the default) or 32 at head_dim 64 and
+//   128, and 32 at 256 (so G <= 32 there), where two 64-row tiles and the
+//   streamed ones would not fit; G <= R.  8 warps, each an m16 strip of
+//   the block's tile and a share of its columns; 32 keys a tile in every
+//   tiling (at 16 the dK/dV warps would hold one n8 tile of dK at head_dim
+//   64, where they take two at a time, and at 64 the f32 tiles outgrow a
+//   block's shared memory);
 // * copies: the streamed tiles (k, v in dQ; q, dO, lse and delta in dK/dV)
 //   are double-buffered with cp.async (16-byte .cg for the operands,
 //   4-byte for the row statistics), the next tile's copy in flight while
@@ -72,15 +76,17 @@
 // * operands are read in the model layout ([B, S, H, dh], [B, S, KVH, dh]),
 //   16-byte aligned (a pointer off it is refused); keys past lengths[b] are
 //   masked here; outputs are f32 (the wrapper casts);
-// * the dynamic shared memory (49-230 KB) is granted through the
+// * the dynamic shared memory (32-230 KB) is granted through the
 //   per-device high-water mark of common.cuh: one attribute call per
-//   instantiation and device, not one per launch;
+//   instantiation (kernel, type, head_dim, tiling) and device, not one per
+//   launch;
 // * flash_attn_bwd_probe, a launch outside the wrapped path, has each block
 //   record the tiles it walked and its clocks (the balance above, read on
 //   the card), and runs the one-pass TF32 control of the split.
 // The split, the fragment loaders, the tile layout and the copies are
 // shared with the forward (tf32_mma.cuh).
 #include <cstdint>
+#include <tuple>
 
 #include "common.cuh"
 #include "tf32_mma.cuh"
@@ -94,9 +100,23 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 32;  // keys per tile, both kernels
 constexpr int kSmemSM = 233472;  // an H100 SM's shared memory, 1 KB/block
 
-// score rows per query tile (BQ queries x G heads folded)
+// A tiling: R score rows a query tile (BQ = R / G queries x G heads
+// folded) and BK keys a tile.
+template <int R_, int BK_ = kBK>
+struct Tiling {
+  static constexpr int R = R_, BK = BK_;
+};
+// The tilings of each head dim, the default first (plans.py
+// FLASH_BWD_TILINGS repeats them).
 template <int DH>
-constexpr int kRowsOf = DH == 256 ? 32 : 64;
+struct TilingsOf {
+  using type = std::tuple<Tiling<64>, Tiling<32>>;
+};
+template <>
+struct TilingsOf<256> {
+  using type = std::tuple<Tiling<32>>;
+};
+constexpr int kTilings = 2;  // at most, per head dim
 
 // f32 key tiles are split once when they land, their lo planes beside
 // them, where the shared memory allows: in dQ (double-buffered k and v, 4
@@ -112,19 +132,19 @@ constexpr bool kPreKeysDkv = !kExactTf32<T> && DH == 128;
 // dQ: q and dO [R][DH]; k and v [2][kBK][DH] (T); ds as TF32 hi and lo
 // [2][R][kBK], lse and delta [R] (f32); with kPreKeysDq the lo planes of
 // k and v [2][2][kBK][DH].
-template <typename T, int DH>
+template <typename T, int DH, int R>
 constexpr size_t kDqSmem =
-    sizeof(T) * (2 * kRowsOf<DH> * DH + 4 * kBK * DH) +
-    sizeof(float) * (2 * kRowsOf<DH> * kBK + 2 * kRowsOf<DH>) +
+    sizeof(T) * (2 * R * DH + 4 * kBK * DH) +
+    sizeof(float) * (2 * R * kBK + 2 * R) +
     (kPreKeysDq<T, DH> ? sizeof(uint32_t) * 4 * kBK * DH : 0);
 
 // dK/dV: k and v [kBK][DH]; q and dO [2][R][DH] (T); p^T and ds^T as hi
 // and lo [4][kBK][R], lse and delta [2][R] (f32); with kPreKeysDkv the
 // lo planes of k and v [2][kBK][DH].
-template <typename T, int DH>
+template <typename T, int DH, int R>
 constexpr size_t kDkvSmem =
-    sizeof(T) * (2 * kBK * DH + 4 * kRowsOf<DH> * DH) +
-    sizeof(float) * (4 * kBK * kRowsOf<DH> + 4 * kRowsOf<DH>) +
+    sizeof(T) * (2 * kBK * DH + 4 * R * DH) +
+    sizeof(float) * (4 * kBK * R + 4 * R) +
     (kPreKeysDkv<T, DH> ? sizeof(uint32_t) * 2 * kBK * DH : 0);
 
 // blocks an SM is to hold: 2 where their shared memory fits and head_dim
@@ -135,12 +155,12 @@ constexpr int kMinBlocks =
     DH <= 128 && 2 * (kSmem + 1024) <= (size_t)kSmemSM ? 2 : 1;
 
 constexpr size_t kSmemOptin = 232448;  // a Hopper block's opt-in limit
-static_assert(kDqSmem<float, 256> <= kSmemOptin, "dQ tiles at dh 256");
-static_assert(kDkvSmem<float, 256> <= kSmemOptin, "dK/dV tiles at dh 256");
-static_assert(kDqSmem<float, 128> <= kSmemOptin, "dQ tiles at dh 128");
-static_assert(kDkvSmem<float, 128> <= kSmemOptin, "dK/dV tiles at dh 128");
-static_assert(kMinBlocks<64, kDqSmem<float, 64>> == 2, "dQ: 2 per SM");
-static_assert(kMinBlocks<64, kDkvSmem<float, 64>> == 2, "dK/dV: 2 per SM");
+static_assert(kDqSmem<float, 256, 32> <= kSmemOptin, "dQ tiles at dh 256");
+static_assert(kDkvSmem<float, 256, 32> <= kSmemOptin, "dK/dV tiles, dh 256");
+static_assert(kDqSmem<float, 128, 64> <= kSmemOptin, "dQ tiles at dh 128");
+static_assert(kDkvSmem<float, 128, 64> <= kSmemOptin, "dK/dV tiles, dh 128");
+static_assert(kMinBlocks<64, kDqSmem<float, 64, 64>> == 2, "dQ: 2 per SM");
+static_assert(kMinBlocks<64, kDkvSmem<float, 64, 64>> == 2, "dK/dV: 2 an SM");
 
 struct Params {
   const void* q;
@@ -218,10 +238,9 @@ __device__ __forceinline__ void p_ds(float acc_s, float acc_dp, float lse,
 // ----------------------------------------------------------------- dQ ----
 // kOne (flash_attn_bwd_probe's precision control only): every product
 // one TF32 pass, hi*hi.
-template <typename T, int DH, bool kOne = false>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDqSmem<T, DH>>)
+template <typename T, int DH, int R, bool kOne = false>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDqSmem<T, DH, R>>)
     flash_bwd_dq(Params p) {
-  constexpr int R = kRowsOf<DH>;
   constexpr int MT = R / 16;               // m16 tiles over the rows
   constexpr int WPM = kWarps / MT;         // warps sharing an m16 tile
   constexpr int SN = (kBK / 8) / WPM;      // s, dp n8 tiles per warp
@@ -381,10 +400,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDqSmem<T, DH>>)
 }
 
 // -------------------------------------------------------------- dK/dV ----
-template <typename T, int DH, bool kOne = false>
-__global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDkvSmem<T, DH>>)
+template <typename T, int DH, int R, bool kOne = false>
+__global__ void __launch_bounds__(kThreads,
+                                  kMinBlocks<DH, kDkvSmem<T, DH, R>>)
     flash_bwd_dkv(Params p) {
-  constexpr int R = kRowsOf<DH>;
   constexpr int MT = kBK / 16;             // m16 tiles over the keys
   constexpr int WPM = kWarps / MT;         // warps sharing an m16 tile
   constexpr int SN = (R / 8) / WPM;        // s^T, dp^T n8 tiles per warp
@@ -586,90 +605,111 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<DH, kDkvSmem<T, DH>>)
 }
 
 // ------------------------------------------------------------- launchers --
-// Sets p.BQ for the head dim and returns the launch.
-template <bool DKV, typename T, int DH, bool kOne = false>
+// Sets p.BQ for the tiling and returns the launch.
+template <bool DKV, typename T, int DH, int R, bool kOne = false>
 LaunchPlan plan(Params& p, int B) {
-  p.BQ = kRowsOf<DH> / p.G;
+  p.BQ = R / p.G;
   if (DKV) {
     const int n_k = (p.S + kBK - 1) / kBK;
-    return {reinterpret_cast<const void*>(flash_bwd_dkv<T, DH, kOne>),
-            dim3((n_k + 1) / 2, p.KVH, B), kThreads, kDkvSmem<T, DH>};
+    return {reinterpret_cast<const void*>(flash_bwd_dkv<T, DH, R, kOne>),
+            dim3((n_k + 1) / 2, p.KVH, B), kThreads, kDkvSmem<T, DH, R>};
   }
-  return {reinterpret_cast<const void*>(flash_bwd_dq<T, DH, kOne>),
+  return {reinterpret_cast<const void*>(flash_bwd_dq<T, DH, R, kOne>),
           dim3((p.S + p.BQ - 1) / p.BQ, p.KVH, B), kThreads,
-          kDqSmem<T, DH>};
+          kDqSmem<T, DH, R>};
 }
 
-// Instantiations for the grant: dQ then dK/dV, f32 then bf16, dh 64, 128,
-// 256.  The probe's one-pass controls have grants of their own, so that
-// the count of attribute calls (flash_attn_bwd_smem_state) is the wrapped
-// path's.
-constexpr int kInstances = 12;
+// Instantiations for the grant: (dQ then dK/dV) x (f32 then bf16) x (head
+// dim 64, 128, 256) x the head dim's tilings in TilingsOf order.  The
+// probe's one-pass controls have grants of their own, so that the count of
+// attribute calls (flash_attn_bwd_smem_state) is the wrapped path's.
+constexpr int kInstances = 2 * 2 * 3 * kTilings;
 SmemGrants<kInstances> g_grants;
 SmemGrants<kInstances> g_one_pass_grants;
 
-int instance(int dkv, int is_bf16, int dh) {
+int instance(int dkv, int is_bf16, int dh, int tiling) {
   const int d = dh == 64 ? 0 : dh == 128 ? 1 : 2;
-  return 6 * (dkv != 0) + 3 * (is_bf16 != 0) + d;
+  return ((2 * (dkv != 0) + (is_bf16 != 0)) * 3 + d) * kTilings + tiling;
 }
 
-template <bool DKV, typename T, int DH, bool kOne = false>
-cudaError_t launch(Params p, int B, cudaStream_t st) {
-  const LaunchPlan lp = plan<DKV, T, DH, kOne>(p, B);
-  const cudaError_t e = (kOne ? g_one_pass_grants : g_grants)
-                            .grant(lp.fn, instance(DKV, kExactTf32<T>, DH),
-                                   lp.smem);
+template <bool DKV, typename T, int DH, int R, bool kOne = false>
+cudaError_t launch(Params p, int B, int tiling, cudaStream_t st) {
+  const LaunchPlan lp = plan<DKV, T, DH, R, kOne>(p, B);
+  const cudaError_t e =
+      (kOne ? g_one_pass_grants : g_grants)
+          .grant(lp.fn, instance(DKV, kExactTf32<T>, DH, tiling), lp.smem);
   if (e != cudaSuccess) return e;
   if (DKV) {
-    flash_bwd_dkv<T, DH, kOne><<<lp.grid, lp.threads, lp.smem, st>>>(p);
+    flash_bwd_dkv<T, DH, R, kOne><<<lp.grid, lp.threads, lp.smem, st>>>(p);
   } else {
-    flash_bwd_dq<T, DH, kOne><<<lp.grid, lp.threads, lp.smem, st>>>(p);
+    flash_bwd_dq<T, DH, R, kOne><<<lp.grid, lp.threads, lp.smem, st>>>(p);
   }
   return cudaGetLastError();
 }
 
-template <typename T_, int DH_>
+template <typename T_, int DH_, int R_>
 struct Inst {
   using T = T_;
-  static constexpr int DH = DH_;
+  static constexpr int DH = DH_, R = R_;
 };
 
-// f(Inst<T, DH>{}) for head dim dh (64, 128 or 256) and the operand type.
+// f(Inst<T, DH, R>{}, i) for the tiling (rows, bk) of head dim DH, i its
+// index in TilingsOf<DH>; cudaErrorInvalidValue where DH has no such
+// tiling (never a default).
+template <typename T, int DH, typename F, typename... Ts>
+cudaError_t visit_tilings(int rows, int bk, F& f, std::tuple<Ts...>*) {
+  cudaError_t e = cudaErrorInvalidValue;
+  bool found = false;
+  int i = 0;
+  auto one = [&](auto t) {
+    using Ti = decltype(t);
+    if (!found && rows == Ti::R && bk == Ti::BK) {
+      found = true;
+      e = f(Inst<T, DH, Ti::R>{}, i);
+    }
+    ++i;
+  };
+  (one(Ts{}), ...);
+  return e;
+}
+
+template <typename T, int DH, typename F>
+cudaError_t visit_dh(int rows, int bk, F& f) {
+  return visit_tilings<T, DH>(
+      rows, bk, f, static_cast<typename TilingsOf<DH>::type*>(nullptr));
+}
+
+// f(Inst{}, i) for head dim dh (64, 128 or 256), the operand type and the
+// tiling (rows, bk).
 template <typename F>
-auto visit(int dh, int is_bf16, F&& f) {
+cudaError_t visit(int dh, int is_bf16, int rows, int bk, F&& f) {
   if (dh == 64) {
-    return is_bf16 ? f(Inst<__nv_bfloat16, 64>{}) : f(Inst<float, 64>{});
+    return is_bf16 ? visit_dh<__nv_bfloat16, 64>(rows, bk, f)
+                   : visit_dh<float, 64>(rows, bk, f);
   }
   if (dh == 128) {
-    return is_bf16 ? f(Inst<__nv_bfloat16, 128>{}) : f(Inst<float, 128>{});
+    return is_bf16 ? visit_dh<__nv_bfloat16, 128>(rows, bk, f)
+                   : visit_dh<float, 128>(rows, bk, f);
   }
-  return is_bf16 ? f(Inst<__nv_bfloat16, 256>{}) : f(Inst<float, 256>{});
+  return is_bf16 ? visit_dh<__nv_bfloat16, 256>(rows, bk, f)
+                 : visit_dh<float, 256>(rows, bk, f);
 }
 
 template <bool DKV>
-cudaError_t dispatch(const Params& p, int B, int dh, int is_bf16,
-                     cudaStream_t st) {
-  return visit(dh, is_bf16, [&](auto i) {
+cudaError_t dispatch(const Params& p, int B, int dh, int is_bf16, int rows,
+                     int bk, bool empty, cudaStream_t st) {
+  return visit(dh, is_bf16, rows, bk, [&](auto i, int tiling) {
     using I = decltype(i);
-    return launch<DKV, typename I::T, I::DH>(p, B, st);
+    if (empty) return cudaSuccess;  // nothing to launch
+    return launch<DKV, typename I::T, I::DH, I::R>(p, B, tiling, st);
   });
 }
 
-template <bool DKV>
-LaunchPlan plan_of(Params& p, int B, int dh, int is_bf16) {
-  return visit(dh, is_bf16, [&](auto i) {
-    using I = decltype(i);
-    return plan<DKV, typename I::T, I::DH>(p, B);
-  });
-}
-
-// head_dim 64, 128 or 256, and 1 <= G <= the score rows of a tile (64, or
-// 32 at 256).
-int check_shape(int B, int S, int G, int dh) {
+// head_dim 64, 128 or 256, and 1 <= G <= the tiling's score rows (the
+// tiling itself is checked by visit).
+int check_shape(int B, int S, int G, int dh, int rows) {
   if (dh != 64 && dh != 128 && dh != 256) return cudaErrorInvalidValue;
-  if (G < 1 || G > (dh == 256 ? kRowsOf<256> : kRowsOf<64>)) {
-    return cudaErrorInvalidValue;
-  }
+  if (G < 1 || G > rows) return cudaErrorInvalidValue;
   return (B == 0 || S == 0) ? -1 : 0;  // -1: nothing to launch
 }
 
@@ -691,13 +731,14 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  float* dq, int B, int S, int KVH, int G,
                                  int dh, int window, float softcap,
                                  int causal, float scale, int is_bf16,
-                                 void* stream) {
-  const int rc = check_shape(B, S, G, dh);
-  if (rc) return rc < 0 ? 0 : rc;
+                                 int rows, int bk, void* stream) {
+  const int rc = check_shape(B, S, G, dh, rows);
+  if (rc > 0) return rc;
   if (!operands_aligned(q, k, v, dout)) return cudaErrorMisalignedAddress;
   const Params p{q, k, v, dout, lengths, lse, delta, dq, nullptr, nullptr,
                  S, KVH, G, 0, window, causal, softcap, scale};
-  return dispatch<false>(p, B, dh, is_bf16, static_cast<cudaStream_t>(stream));
+  return dispatch<false>(p, B, dh, is_bf16, rows, bk, rc < 0,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // Arguments as flash_attn_bwd_dq; dk, dv [B, S, KVH, dh] f32.
@@ -707,22 +748,24 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k,
                                   const float* delta, float* dk, float* dv,
                                   int B, int S, int KVH, int G, int dh,
                                   int window, float softcap, int causal,
-                                  float scale, int is_bf16, void* stream) {
-  const int rc = check_shape(B, S, G, dh);
-  if (rc) return rc < 0 ? 0 : rc;
+                                  float scale, int is_bf16, int rows, int bk,
+                                  void* stream) {
+  const int rc = check_shape(B, S, G, dh, rows);
+  if (rc > 0) return rc;
   if (!operands_aligned(q, k, v, dout)) return cudaErrorMisalignedAddress;
   const Params p{q, k, v, dout, lengths, lse, delta, nullptr, dk, dv,
                  S, KVH, G, 0, window, causal, softcap, scale};
-  return dispatch<true>(p, B, dh, is_bf16, static_cast<cudaStream_t>(stream));
+  return dispatch<true>(p, B, dh, is_bf16, rows, bk, rc < 0,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // A measurement launch beside the wrapped path: the dQ (dkv = 0, into dq)
-// or dK/dV kernel (dkv = 1, into dk, dv) on flash_attn_bwd_dq's operands,
-// each block writing the tiles it walked and the SM clocks it took into
-// blocks[2 * i] and blocks[2 * i + 1], i its linear index (blockIdx.x
-// fastest; the grid of flash_attn_bwd_plan).  With one_pass (f32 at head
-// dim 64 or 256 only) every product takes one TF32 pass, hi*hi: the
-// precision control of the 3xTF32 split.
+// or dK/dV kernel (dkv = 1, into dk, dv) on flash_attn_bwd_dq's operands
+// and tiling, each block writing the tiles it walked and the SM clocks it
+// took into blocks[2 * i] and blocks[2 * i + 1], i its linear index
+// (blockIdx.x fastest; the grid of flash_attn_bwd_plan).  With one_pass
+// (f32 at head dim 64 or 256, the default tiling only) every product
+// takes one TF32 pass, hi*hi: the precision control of the 3xTF32 split.
 extern "C" int flash_attn_bwd_probe(int dkv, int one_pass, const void* q,
                                     const void* k, const void* v,
                                     const void* dout, const int* lengths,
@@ -730,52 +773,70 @@ extern "C" int flash_attn_bwd_probe(int dkv, int one_pass, const void* q,
                                     float* dq, float* dk, float* dv, int B,
                                     int S, int KVH, int G, int dh, int window,
                                     float softcap, int causal, float scale,
-                                    int is_bf16, long long* blocks,
-                                    void* stream) {
-  const int rc = check_shape(B, S, G, dh);
-  if (rc) return rc < 0 ? 0 : rc;
+                                    int is_bf16, int rows, int bk,
+                                    long long* blocks, void* stream) {
+  const int rc = check_shape(B, S, G, dh, rows);
+  if (rc > 0) return rc;
   if (!operands_aligned(q, k, v, dout)) return cudaErrorMisalignedAddress;
-  if (one_pass && (is_bf16 || dh == 128)) return cudaErrorInvalidValue;
   const Params p{q, k, v, dout, lengths, lse, delta, dq, dk, dv,
                  S, KVH, G, 0, window, causal, softcap, scale, blocks};
   const auto st = static_cast<cudaStream_t>(stream);
   if (!one_pass) {
-    return dkv ? dispatch<true>(p, B, dh, is_bf16, st)
-               : dispatch<false>(p, B, dh, is_bf16, st);
+    return dkv ? dispatch<true>(p, B, dh, is_bf16, rows, bk, rc < 0, st)
+               : dispatch<false>(p, B, dh, is_bf16, rows, bk, rc < 0, st);
   }
+  if (is_bf16 || bk != kBK || dh == 128 ||
+      rows != (dh == 256 ? 32 : 64)) {
+    return cudaErrorInvalidValue;
+  }
+  if (rc < 0) return 0;
   if (dh == 64) {
-    return dkv ? launch<true, float, 64, true>(p, B, st)
-               : launch<false, float, 64, true>(p, B, st);
+    return dkv ? launch<true, float, 64, 64, true>(p, B, 0, st)
+               : launch<false, float, 64, 64, true>(p, B, 0, st);
   }
-  return dkv ? launch<true, float, 256, true>(p, B, st)
-             : launch<false, float, 256, true>(p, B, st);
+  return dkv ? launch<true, float, 256, 32, true>(p, B, 0, st)
+             : launch<false, float, 256, 32, true>(p, B, 0, st);
 }
 
 // The launch flash_attn_bwd_dq (dkv = 0) or flash_attn_bwd_dkv (dkv = 1)
-// makes at these shapes (write_plans).
+// makes at these shapes and tiling (write_plans); an unknown tiling is
+// cudaErrorInvalidValue.
 extern "C" int flash_attn_bwd_plan(int dkv, int B, int S, int KVH, int G,
-                                   int dh, int is_bf16, long long* out) {
-  const int rc = check_shape(B, S, G, dh);
+                                   int dh, int is_bf16, int rows, int bk,
+                                   long long* out) {
+  const int rc = check_shape(B, S, G, dh, rows);
   if (rc > 0) return rc;
-  if (rc < 0) return write_plans(nullptr, 0, out);
   Params p{};
   p.S = S;
   p.KVH = KVH;
   p.G = G;
-  const LaunchPlan lp = dkv ? plan_of<true>(p, B, dh, is_bf16)
-                            : plan_of<false>(p, B, dh, is_bf16);
+  LaunchPlan lp{};
+  const cudaError_t e = visit(dh, is_bf16, rows, bk, [&](auto i, int) {
+    using I = decltype(i);
+    lp = dkv ? plan<true, typename I::T, I::DH, I::R>(p, B)
+             : plan<false, typename I::T, I::DH, I::R>(p, B);
+    return cudaSuccess;
+  });
+  if (e != cudaSuccess) return e;
+  if (rc < 0) return write_plans(nullptr, 0, out);
   return write_plans(&lp, 1, out);
 }
 
 // The launcher's grant for one instantiation on the current device:
 // out[0] the dynamic shared bytes granted to the dQ (dkv = 0) or dK/dV
-// kernel of that head dim and type (0: none yet), out[1] the
+// kernel of that head dim, type and tiling (0: none yet), out[1] the
 // cudaFuncSetAttribute calls both kernels' launches made in this process.
 extern "C" int flash_attn_bwd_smem_state(int dkv, int dh, int is_bf16,
-                                         long long* out) {
+                                         int rows, int bk, long long* out) {
   if (dh != 64 && dh != 128 && dh != 256) return cudaErrorInvalidValue;
+  int tiling = -1;
+  const cudaError_t found = visit(dh, is_bf16, rows, bk, [&](auto, int i) {
+    tiling = i;
+    return cudaSuccess;
+  });
+  if (found != cudaSuccess) return found;
   const cudaError_t e =
-      g_grants.granted_here(instance(dkv, is_bf16, dh), out);
+      g_grants.granted_here(instance(dkv, is_bf16, dh, tiling), out);
   if (e != cudaSuccess) return e;
   out[1] = g_grants.sets.load();
   return 0;

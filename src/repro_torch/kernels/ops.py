@@ -71,15 +71,57 @@ def _zo_plan(update: bool):
 
 
 def _flash_plan(dkv=None):
-    """The forward's plan (``dkv`` None) or the dQ / dK-dV backward's."""
-    def plan(n_sms, q, k, v, *_, **__):
+    """The forward's plan (``dkv`` None) or the dQ / dK-dV backward's, at
+    the tiling the call launches (:func:`fwd_tiling`; the backward
+    wrappers' ``tiling``)."""
+    def plan(n_sms, q, k, v, *_, block_q=None, block_k=None, tiling=None,
+             **__):
         B, S, H, dh = q.shape
         KV = k.shape[2]
         bf16 = q.dtype == torch.bfloat16
         if dkv is None:
-            return plans.flash_attn_fwd(B, S, KV, H // KV, dh, bf16)
-        return plans.flash_attn_bwd(B, S, KV, H // KV, dh, bf16, dkv)
+            tiling = fwd_tiling(S, dh, H // KV, block_q, block_k)
+            if tiling is None:  # a layout the kernel does not take
+                return []
+            return plans.flash_attn_fwd(B, S, KV, H // KV, dh, bf16, tiling)
+        return plans.flash_attn_bwd(B, S, KV, H // KV, dh, bf16, dkv, tiling)
     return plan
+
+
+def fwd_tiling(S: int, hd: int, G: int, block_q=None, block_k=None):
+    """The forward tiling (R, BK) a :func:`flash_attention` call launches:
+    the pinned (``block_q``, ``block_k``); where the call pins nothing (or
+    one of the two, the other then from the pick) the ``kernels.autotune``
+    table's pick for (S, hd, G), else the head_dim's default tiling (what
+    the kernel launched before it had a choice).  ValueError for a pair
+    that names no tiling of the kernel; None where nothing is pinned and
+    the default tiling does not take the layout (its head_dim or G)."""
+    if block_q is None or block_k is None:
+        from repro_torch.kernels import autotune
+        pick = autotune.best_blocks(S, hd, G, op="fwd")
+        if pick is None:
+            tilings = plans.FLASH_FWD_TILINGS.get(hd)
+            if not tilings or G > tilings[0][0]:
+                if block_q is None and block_k is None:
+                    return None
+                raise ValueError(f"the flash forward has no tiling at "
+                                 f"head_dim {hd}, G {G}")
+            pick = plans.tiling_blocks(tilings[0], G)
+        block_q = pick[0] if block_q is None else block_q
+        block_k = pick[1] if block_k is None else block_k
+    return plans.flash_tiling(hd, G, int(block_q), int(block_k))
+
+
+def grad_tiling(S: int, hd: int, G: int):
+    """The backward tiling (R, BK) of a differentiable call: the
+    ``kernels.autotune`` table's ``grad`` pick for (S, hd, G), else the
+    head_dim's default; None where the default does not take the layout."""
+    from repro_torch.kernels import autotune
+    pick = autotune.best_blocks(S, hd, G, op="grad")
+    if pick is not None:
+        return plans.flash_tiling(hd, G, *pick, bwd=True)
+    tilings = plans.FLASH_BWD_TILINGS.get(hd)
+    return tilings[0] if tilings and G <= tilings[0][0] else None
 
 
 def _on_cpu(*ts) -> bool:
@@ -280,13 +322,13 @@ def _check_attn_kernel(q, k, v, G, hd, *, dims=KERNEL_HEAD_DIMS, max_g=64,
                          f"G <= {max_g}, got {hd}, {G}")
 
 
-def _flash_fwd(q, k, v, L, window, softcap, causal):
-    """(O, lse) of the forward: the kernel on CUDA, its plain version on the
-    CPU.  ``L`` is the [B] int32 lengths tensor."""
+def _flash_fwd(q, k, v, L, window, softcap, causal, tiling):
+    """(O, lse) of the forward: the kernel at ``tiling`` on CUDA, its plain
+    version on the CPU.  ``L`` is the [B] int32 lengths tensor."""
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, L, window=window,
                                        softcap=softcap, causal=causal)
-    out, lse, _ = _fwd_launch(q, k, v, L, window, softcap, causal)
+    out, lse, _ = _fwd_launch(q, k, v, L, window, softcap, causal, tiling)
     flash_attention.launches += 1
     return out, lse
 
@@ -297,15 +339,17 @@ def _aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _fwd_launch(q, k, v, L, window, softcap, causal, *, one_pass=False,
-                blocks=None):
-    """Launch the forward kernel on CUDA q, k, v (checked, contiguous; an
-    operand off the 16-byte alignment the kernel's copies read is copied
-    into fresh memory first): (O, lse, the probe's ``blocks`` record).
-    ``blocks`` None is the wrapped launch; a [blocks, 2] int64 tensor makes
-    it a probe launch (``flash_attn_fwd_probe``)."""
+def _fwd_launch(q, k, v, L, window, softcap, causal, tiling, *,
+                one_pass=False, blocks=None):
+    """Launch the forward kernel at ``tiling`` (R, BK) on CUDA q, k, v
+    (checked, contiguous; an operand off the 16-byte alignment the
+    kernel's copies read is copied into fresh memory first): (O, lse, the
+    probe's ``blocks`` record).  ``blocks`` None is the wrapped launch; a
+    [blocks, 2] int64 tensor makes it a probe launch
+    (``flash_attn_fwd_probe``)."""
     B, S, KV, G, hd = _attn_dims(q, k, v)
     _check_attn_kernel(q, k, v, G, hd)
+    rows, bk = plans.resolve_tiling(hd, G, tiling)
     q, k, v = (_aligned16(t.contiguous()) for t in (q, k, v))
     lib = build.load()
     out = torch.empty_like(q)
@@ -313,7 +357,7 @@ def _fwd_launch(q, k, v, L, window, softcap, causal, *, one_pass=False,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), L.data_ptr(),
             out.data_ptr(), lse.data_ptr(), B, S, KV, G, hd, int(window),
             float(softcap), int(bool(causal)), float(hd ** -0.5),
-            int(q.dtype == torch.bfloat16))
+            int(q.dtype == torch.bfloat16), rows, bk)
     if blocks is None:
         rc = lib.flash_attn_fwd(*args, _stream(q))
         build.check(lib, rc, "flash_attn_fwd")
@@ -326,58 +370,68 @@ def _fwd_launch(q, k, v, L, window, softcap, causal, *, one_pass=False,
 
 def flash_attention_fwd_probe(q, k, v, lengths=None, *,
                               one_pass: bool = False, window: int = 0,
-                              softcap: float = 0.0, causal: bool = True):
-    """A measurement launch of the forward kernel on CUDA operands of
+                              softcap: float = 0.0, causal: bool = True,
+                              tiling=None):
+    """A measurement launch of the forward kernel at ``tiling`` (R, BK;
+    None: the head_dim's default) on CUDA operands of
     :func:`flash_attention`, outside the wrapped path (no launch is
     counted): ((O, lse), a [blocks, 2] int64 record of the key tiles each
     block walked and the SM clocks it took, in launch order).
-    ``one_pass`` (f32, head_dim 64 or 256) runs both products as one TF32
-    pass: the precision control of the kernel's 3xTF32 split."""
+    ``one_pass`` (f32, head_dim 64 or 256, the default tiling) runs both
+    products as one TF32 pass: the precision control of the kernel's
+    3xTF32 split."""
     B, S, KV, G, hd = _attn_dims(q, k, v)
     L = _lengths(lengths, B, S, q)
-    plan = plans.flash_attn_fwd(B, S, KV, G, hd, q.dtype == torch.bfloat16)
+    plan = plans.flash_attn_fwd(B, S, KV, G, hd, q.dtype == torch.bfloat16,
+                                tiling)
     n_blocks = 0
     if plan:
         n_blocks = plan[0].grid[0] * plan[0].grid[1] * plan[0].grid[2]
     blocks = torch.zeros((n_blocks, 2), dtype=torch.int64, device=q.device)
     out, lse, blocks = _fwd_launch(q, k, v, L, window, softcap, causal,
-                                   one_pass=one_pass, blocks=blocks)
+                                   tiling, one_pass=one_pass, blocks=blocks)
     return (out, lse), blocks
 
 
-def _bwd_operands(q, k, v, do, lse, delta, B, S, KV, G, hd):
+def _bwd_operands(q, k, v, do, lse, delta, B, S, KV, G, hd, tiling):
     """The backward kernels' operands, checked (``BWD_HEAD_DIMS``, G <=
-    ``plans.flash_bwd_rows``) and contiguous.  The kernels read q, k, v and
-    dO in 16-byte chunks and refuse a pointer off that alignment."""
-    _check_attn_kernel(q, k, v, G, hd, dims=BWD_HEAD_DIMS,
-                       max_g=plans.flash_bwd_rows(hd), do=do,
-                       rows=(lse, delta),
-                       row_shape=(B, KV, S, G))
-    return tuple(t.contiguous() for t in (q, k, v, do, lse, delta))
+    the rows of ``tiling``, None: the default) and contiguous, and the
+    tiling (R, BK).  The kernels read q, k, v and dO in 16-byte chunks and
+    refuse a pointer off that alignment."""
+    rows = plans.flash_bwd_rows(hd) if hd in BWD_HEAD_DIMS else 0
+    if tiling is not None:
+        rows = tiling[0]
+    _check_attn_kernel(q, k, v, G, hd, dims=BWD_HEAD_DIMS, max_g=rows,
+                       do=do, rows=(lse, delta), row_shape=(B, KV, S, G))
+    tiling = plans.resolve_tiling(hd, G, tiling, bwd=True)
+    return tuple(t.contiguous() for t in (q, k, v, do, lse, delta)), tiling
 
 
 @_recorded(_flash_plan(dkv=False))
 def flash_attention_bwd_dq(q, k, v, lengths, lse, delta, do, *,
                            window: int = 0, softcap: float = 0.0,
-                           causal: bool = True):
+                           causal: bool = True, tiling=None):
     """dQ [B, S, H, hd] f32 of the flash attention, recomputed from the
     forward's ``lse`` and ``delta = rowsum(dO * O)`` (both [B, KV, S, G]
-    f32); q, dO [B, S, H, hd] and k, v [B, S, KV, hd] in one of f32/bf16."""
+    f32); q, dO [B, S, H, hd] and k, v [B, S, KV, hd] in one of f32/bf16.
+    ``tiling`` (R, BK) one of ``plans.FLASH_BWD_TILINGS[hd]``; None: the
+    default."""
     B, S, KV, G, hd = _attn_dims(q, k, v)
     L = _lengths(lengths, B, S, q)
     if _on_cpu(q, k, v, lse, delta, do):
         return ref.flash_attn_bwd_dq_ref(q, k, v, L, lse, delta, do,
                                          window=window, softcap=softcap,
                                          causal=causal)
-    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, B, S,
-                                            KV, G, hd)
+    (q, k, v, do, lse, delta), tiling = _bwd_operands(
+        q, k, v, do, lse, delta, B, S, KV, G, hd, tiling)
     lib = build.load()
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     rc = lib.flash_attn_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         L.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S,
         KV, G, hd, int(window), float(softcap), int(bool(causal)),
-        float(hd ** -0.5), int(q.dtype == torch.bfloat16), _stream(q))
+        float(hd ** -0.5), int(q.dtype == torch.bfloat16), *tiling,
+        _stream(q))
     build.check(lib, rc, "flash_attn_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     return dq
@@ -386,7 +440,7 @@ def flash_attention_bwd_dq(q, k, v, lengths, lse, delta, do, *,
 @_recorded(_flash_plan(dkv=True))
 def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
                             window: int = 0, softcap: float = 0.0,
-                            causal: bool = True):
+                            causal: bool = True, tiling=None):
     """(dK, dV), each [B, S, KV, hd] f32; arguments as
     :func:`flash_attention_bwd_dq`."""
     B, S, KV, G, hd = _attn_dims(q, k, v)
@@ -395,8 +449,8 @@ def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
         return ref.flash_attn_bwd_dkv_ref(q, k, v, L, lse, delta, do,
                                           window=window, softcap=softcap,
                                           causal=causal)
-    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, B, S,
-                                            KV, G, hd)
+    (q, k, v, do, lse, delta), tiling = _bwd_operands(
+        q, k, v, do, lse, delta, B, S, KV, G, hd, tiling)
     lib = build.load()
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
@@ -405,7 +459,7 @@ def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
         L.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), B, S, KV, G, hd, int(window), float(softcap),
         int(bool(causal)), float(hd ** -0.5), int(q.dtype == torch.bfloat16),
-        _stream(q))
+        *tiling, _stream(q))
     build.check(lib, rc, "flash_attn_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -414,20 +468,20 @@ def flash_attention_bwd_dkv(q, k, v, lengths, lse, delta, do, *,
 def flash_attention_bwd_probe(q, k, v, lengths, lse, delta, do, *,
                               dkv: bool, one_pass: bool = False,
                               window: int = 0, softcap: float = 0.0,
-                              causal: bool = True):
+                              causal: bool = True, tiling=None):
     """A measurement launch of the dQ (``dkv`` False) or dK/dV kernel on
     CUDA operands of :func:`flash_attention_bwd_dq`, outside the wrapped
     path (no launch is counted): (its outputs, a [blocks, 2] int64 record of
     the key or query tiles each block walked and the SM clocks it took, in
-    launch order).  ``one_pass`` (f32, head_dim 64 or 256) runs every
-    product as one TF32 pass: the precision control of the kernels'
-    3xTF32 split."""
+    launch order), at ``tiling`` (None: the default).  ``one_pass`` (f32,
+    head_dim 64 or 256, the default tiling) runs every product as one TF32
+    pass: the precision control of the kernels' 3xTF32 split."""
     B, S, KV, G, hd = _attn_dims(q, k, v)
     L = _lengths(lengths, B, S, q)
-    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta, B, S,
-                                            KV, G, hd)
+    (q, k, v, do, lse, delta), tiling = _bwd_operands(
+        q, k, v, do, lse, delta, B, S, KV, G, hd, tiling)
     bf16 = q.dtype == torch.bfloat16
-    (launch,) = plans.flash_attn_bwd(B, S, KV, G, hd, bf16, dkv)
+    (launch,) = plans.flash_attn_bwd(B, S, KV, G, hd, bf16, dkv, tiling)
     n_blocks = launch.grid[0] * launch.grid[1] * launch.grid[2]
     blocks = torch.zeros((n_blocks, 2), dtype=torch.int64, device=q.device)
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -442,7 +496,7 @@ def flash_attention_bwd_probe(q, k, v, lengths, lse, delta, do, *,
         int(dkv), int(one_pass), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), L.data_ptr(), lse.data_ptr(), delta.data_ptr(), *ptrs,
         B, S, KV, G, hd, int(window), float(softcap), int(bool(causal)),
-        float(hd ** -0.5), int(bf16), blocks.data_ptr(), _stream(q))
+        float(hd ** -0.5), int(bf16), *tiling, blocks.data_ptr(), _stream(q))
     build.check(lib, rc, "flash_attn_bwd_probe")
     return out, blocks
 
@@ -451,13 +505,17 @@ class FlashAttentionFn(torch.autograd.Function):
     """Differentiable flash attention (the JAX package's ``custom_vjp``):
     the forward kernel saves only O and the per-row logsumexp, and the
     backward runs the dQ and dK/dV recompute kernels, so no [S, S] tensor
-    outlives a tile.  Returns (O, lse); lse is not differentiable."""
+    outlives a tile.  ``tiling`` is the forward's (R, BK), ``bwd_tiling``
+    the backward's (both kernels take it).  Returns (O, lse); lse is not
+    differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v, L, window, softcap, causal):
-        out, lse = _flash_fwd(q, k, v, L, window, softcap, causal)
+    def forward(ctx, q, k, v, L, window, softcap, causal, tiling,
+                bwd_tiling):
+        out, lse = _flash_fwd(q, k, v, L, window, softcap, causal, tiling)
         ctx.save_for_backward(q, k, v, L, out, lse)
-        ctx.attn = dict(window=window, softcap=softcap, causal=causal)
+        ctx.attn = dict(window=window, softcap=softcap, causal=causal,
+                        tiling=bwd_tiling)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -472,13 +530,13 @@ class FlashAttentionFn(torch.autograd.Function):
         dk, dv = flash_attention_bwd_dkv(q, k, v, L, lse, delta, do,
                                          **ctx.attn)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None)
+                None, None, None, None)
 
 
 @_recorded(_flash_plan())
 def flash_attention(q, k, v, lengths=None, *, window: int = 0,
                     softcap: float = 0.0, causal: bool = True,
-                    return_lse: bool = False):
+                    return_lse: bool = False, block_q=None, block_k=None):
     """GQA flash attention in the model layout: q [B, S, H, hd]; k, v
     [B, S, KV, hd] -> O [B, S, H, hd] (head h in group h // G), and with
     ``return_lse`` also the per-row logsumexp [B, KV, S, G] f32.
@@ -488,14 +546,24 @@ def flash_attention(q, k, v, lengths=None, *, window: int = 0,
     causal, optional sliding ``window``, tanh ``softcap`` before the mask,
     f32 accumulation, O in q's dtype.
 
+    ``block_q`` (queries) and ``block_k`` (keys) a tile pick the forward's
+    tiling, as in the JAX package: where the call pins neither, the
+    ``kernels.autotune`` table's measured pick for (S, head_dim, G), else
+    the head_dim's default tiling; a pair that names no tiling of the
+    kernel (``plans.FLASH_FWD_TILINGS``: block_q = rows // G) raises
+    ``ValueError``, on the CPU too (where the plain version runs whatever
+    the tiling).
+
     While autograd records through q, k or v the call goes through
-    :class:`FlashAttentionFn`, whose backward runs the recompute kernels;
+    :class:`FlashAttentionFn`, whose backward runs the recompute kernels at
+    the table's ``grad`` pick (else the default backward tiling);
     otherwise it is one forward launch."""
-    B, S, _, _, _ = _attn_dims(q, k, v)
+    B, S, KV, G, hd = _attn_dims(q, k, v)
     L = _lengths(lengths, B, S, q)
-    args = (q, k, v, L, int(window), float(softcap), bool(causal))
+    tiling = fwd_tiling(S, hd, G, block_q, block_k)
+    args = (q, k, v, L, int(window), float(softcap), bool(causal), tiling)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        out, lse = FlashAttentionFn.apply(*args)
+        out, lse = FlashAttentionFn.apply(*args, grad_tiling(S, hd, G))
     else:
         out, lse = _flash_fwd(*args)
     return (out, lse) if return_lse else out

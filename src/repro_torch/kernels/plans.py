@@ -93,38 +93,97 @@ def gradip_reduce(n: int, vec: bool):
 
 
 # ------------------------------------------------------------ flash_attn.cu --
-FLASH_ROWS, FLASH_THREADS = 64, 128  # the forward's score rows (BQ x G)
+# The forward's tilings per head_dim, as csrc/flash_attn.cu's TilingsOf
+# lists them: (score rows R = BQ x G, a block of R / 16 warps; keys per
+# tile BK), the default first.  A call launches block_q = R // G queries
+# by block_k = BK keys a tile.  Only tilings that spill no registers
+# beyond their head_dim's default (ptxas, sm_90a) are kept: (32, 16) at
+# head_dim 256 spilled 152 bytes.
+FLASH_FWD_TILINGS = {64: ((64, 32), (64, 64), (128, 32), (128, 64)),
+                     128: ((64, 16), (64, 32), (128, 16), (128, 32)),
+                     256: ((64, 16), (64, 8), (32, 8))}
+FLASH_ROWS, FLASH_THREADS = 64, 128  # the default tilings' rows, threads
 
 
 def flash_fwd_bk(dh: int) -> int:
-    """Keys per tile of the forward: 32 at head_dim 64, else 16."""
-    return 32 if dh == 64 else 16
+    """Keys per tile of the forward's default tiling: 32 at head_dim 64,
+    else 16."""
+    return FLASH_FWD_TILINGS[dh][0][1]
 
 
-def flash_attn_fwd(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool):
-    """One block per (KV head, row, query tile of 64 / G queries), the query
-    tiles on the grid's slowest axis from the last to the first (heaviest
-    first under causal masking); q (f32: its hi bits and a lo plane) and
-    double-buffered k and v tiles in the operand type."""
+def flash_tilings(dh: int, G: int, bwd: bool = False) -> tuple:
+    """The forward's (or with ``bwd`` the backward's) tilings (R, BK) at
+    head_dim ``dh`` that take G heads a group (G <= R), default first."""
+    table = FLASH_BWD_TILINGS if bwd else FLASH_FWD_TILINGS
+    return tuple(t for t in table.get(dh, ()) if G <= t[0])
+
+
+def tiling_blocks(tiling, G: int) -> tuple:
+    """(block_q, block_k) a tiling (R, BK) launches at G: R // G queries
+    by BK keys a tile."""
+    return tiling[0] // G, tiling[1]
+
+
+def flash_tiling(dh: int, G: int, block_q: int, block_k: int,
+                 bwd: bool = False) -> tuple:
+    """The tiling (R, BK) of the forward (or the backward) kernel at head
+    dim ``dh`` and G that launches (``block_q``, ``block_k``); ValueError
+    where the kernel has none (nothing falls back to a default)."""
+    for t in flash_tilings(dh, G, bwd):
+        if tiling_blocks(t, G) == (block_q, block_k):
+            return t
+    names = [tiling_blocks(t, G) for t in flash_tilings(dh, G, bwd)]
+    raise ValueError(
+        f"(block_q, block_k) = ({block_q}, {block_k}) names no tiling of "
+        f"the flash {'backward' if bwd else 'forward'} at head_dim {dh}, "
+        f"G {G}: it takes {names}")
+
+
+def resolve_tiling(dh: int, G: int, tiling, bwd: bool = False) -> tuple:
+    """``tiling``, or the default where it is None; ValueError for one the
+    kernel does not have at (dh, G)."""
+    if tiling is None:
+        return (FLASH_BWD_TILINGS if bwd else FLASH_FWD_TILINGS)[dh][0]
+    if tuple(tiling) not in flash_tilings(dh, G, bwd):
+        raise ValueError(f"{tuple(tiling)} is no tiling of the flash "
+                         f"{'backward' if bwd else 'forward'} at head_dim "
+                         f"{dh}, G {G}")
+    return tuple(tiling)
+
+
+def _tname(bf16: bool, dh: int, tiling) -> str:
+    return f"{'bf16' if bf16 else 'f32'},{dh},{tiling[0]}x{tiling[1]}"
+
+
+def flash_attn_fwd(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool,
+                   tiling=None):
+    """One block of R / 16 warps per (KV head, row, query tile of R / G
+    queries), the query tiles on the grid's slowest axis from the last to
+    the first (heaviest first under causal masking); q (f32: its hi bits
+    and a lo plane) and double-buffered k and v tiles of BK keys in the
+    operand type.  ``tiling`` (R, BK): None is the head_dim's default."""
+    R, bk = resolve_tiling(dh, G, tiling)
     if B == 0 or S == 0:
         return []
-    bq, bk = FLASH_ROWS // G, flash_fwd_bk(dh)
+    bq = R // G
     if bf16:
-        smem = 2 * (FLASH_ROWS * dh + 4 * bk * dh)
+        smem = 2 * (R * dh + 4 * bk * dh)
     else:
-        smem = 8 * FLASH_ROWS * dh + 16 * bk * dh
-    return [Launch(f"flash_fwd<{'bf16' if bf16 else 'f32'},{dh}>",
-                   (KVH, B, _cdiv(S, bq)), FLASH_THREADS, 0, smem)]
+        smem = 8 * R * dh + 16 * bk * dh
+    return [Launch(f"flash_fwd<{_tname(bf16, dh, (R, bk))}>",
+                   (KVH, B, _cdiv(S, bq)), 2 * R, 0, smem)]
 
 
 def flash_fwd_tiles(B: int, S: int, KVH: int, G: int, dh: int, *,
-                    lengths=None, window: int = 0, causal: bool = True):
+                    lengths=None, window: int = 0, causal: bool = True,
+                    tiling=None):
     """The key tiles each forward block walks, in launch order (the grid of
     :func:`flash_attn_fwd`, blockIdx.x fastest): those the TPU kernel's
     pruning predicate (``_block_needed``) keeps for the block's query tile.
     ``lengths`` per row (None: S).  ``flash_attention_fwd_probe`` reads the
     same counts back from the card."""
-    bq, bk = FLASH_ROWS // G, flash_fwd_bk(dh)
+    R, bk = resolve_tiling(dh, G, tiling)
+    bq = R // G
     n_q, n_k = _cdiv(S, bq), _cdiv(S, bk)
     out = []
     for z in range(n_q):
@@ -141,40 +200,46 @@ def flash_fwd_tiles(B: int, S: int, KVH: int, G: int, dh: int, *,
 
 # ------------------------------------------------------- flash_attn_bwd.cu --
 FLASH_BWD_BK, FLASH_BWD_THREADS = 32, 256  # keys per tile of both kernels
+# The backward's tilings per head_dim, as csrc/flash_attn_bwd.cu's
+# TilingsOf lists them: (score rows R of a query tile, keys per tile), the
+# default first; both kernels of a call take the same one.
+FLASH_BWD_TILINGS = {64: ((64, 32), (32, 32)), 128: ((64, 32), (32, 32)),
+                     256: ((32, 32),)}
 
 
 def flash_bwd_rows(dh: int) -> int:
-    """Score rows (BQ queries x G heads folded) of a backward query tile:
-    64, or 32 at head_dim 256; G may not exceed them."""
-    return 32 if dh == 256 else 64
+    """Score rows (BQ queries x G heads folded) of the default backward
+    tiling's query tile: 64, or 32 at head_dim 256; G may not exceed
+    them."""
+    return FLASH_BWD_TILINGS[dh][0][0]
 
 
 def flash_attn_bwd(B: int, S: int, KVH: int, G: int, dh: int, bf16: bool,
-                   dkv: bool):
-    """dQ: one block per (rows / G queries, KV head, row), heaviest first;
+                   dkv: bool, tiling=None):
+    """dQ: one block per (R / G queries, KV head, row), heaviest first;
     q and dO tiles, double-buffered k and v tiles (operand type), the ds
     tile as TF32 hi and lo and two row statistics (f32).  dK/dV: one block
     per (pair of 32-key tiles t and n-1-t, KV head, row); k and v tiles,
     double-buffered q and dO tiles (operand type), the p^T and ds^T tiles
     as hi and lo and double-buffered statistics (f32).  In f32 dQ at
     head_dim <= 128, and dK/dV at 128, also hold the lo planes of their k
-    and v tiles."""
+    and v tiles.  ``tiling`` (R, 32): None is the head_dim's default."""
+    rows, bk = resolve_tiling(dh, G, tiling, bwd=True)
     if B == 0 or S == 0:
         return []
-    rows, bk = flash_bwd_rows(dh), FLASH_BWD_BK
     ts = 2 if bf16 else 4
-    t = "bf16" if bf16 else "f32"
+    t = _tname(bf16, dh, (rows, bk))
     if dkv:  # f32 key tiles split once (their lo planes) at head_dim 128
         pre = not bf16 and dh == 128
         smem = (ts * (2 * bk * dh + 4 * rows * dh)
                 + 4 * (4 * bk * rows + 4 * rows) + pre * 4 * 2 * bk * dh)
-        return [Launch(f"flash_bwd_dkv<{t},{dh}>",
+        return [Launch(f"flash_bwd_dkv<{t}>",
                        (_cdiv(_cdiv(S, bk), 2), KVH, B), FLASH_BWD_THREADS,
                        0, smem)]
     pre = not bf16 and dh <= 128  # ... and at 64 in dQ
     smem = (ts * (2 * rows * dh + 4 * bk * dh) + 4 * (2 * rows * bk + 2 * rows)
             + pre * 4 * 4 * bk * dh)
-    return [Launch(f"flash_bwd_dq<{t},{dh}>",
+    return [Launch(f"flash_bwd_dq<{t}>",
                    (_cdiv(S, rows // G), KVH, B), FLASH_BWD_THREADS, 0, smem)]
 
 
@@ -258,10 +323,13 @@ _QUERIES = {
                            out)),
     gradip_reduce: lambda lib, out, n, vec: lib.gradip_reduce_plan(
         n, int(vec), out),
-    flash_attn_fwd: lambda lib, out, B, S, KVH, G, dh, bf16: (
-        lib.flash_attn_fwd_plan(B, S, KVH, G, dh, int(bf16), out)),
-    flash_attn_bwd: lambda lib, out, B, S, KVH, G, dh, bf16, dkv: (
-        lib.flash_attn_bwd_plan(int(dkv), B, S, KVH, G, dh, int(bf16), out)),
+    flash_attn_fwd: lambda lib, out, B, S, KVH, G, dh, bf16, tiling=None: (
+        lib.flash_attn_fwd_plan(B, S, KVH, G, dh, int(bf16),
+                                *resolve_tiling(dh, G, tiling), out)),
+    flash_attn_bwd: lambda lib, out, B, S, KVH, G, dh, bf16, dkv,
+    tiling=None: lib.flash_attn_bwd_plan(
+        int(dkv), B, S, KVH, G, dh, int(bf16),
+        *resolve_tiling(dh, G, tiling, bwd=True), out),
     flash_decode: lambda lib, out, B, S, KVH, G, dh, bf16: (
         lib.flash_decode_plan(B, S, KVH, G, dh, int(bf16), out)),
     mamba_scan: lambda lib, out, B, S, E, N: lib.mamba_scan_plan(

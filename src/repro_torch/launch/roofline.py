@@ -53,27 +53,26 @@ SHAPE_TOKENS = {  # (global_batch, seq_len)
     "long_500k": (1, 1),
 }
 
-# Peak FLOP/s per measurement platform, for *measured*-MFU accounting: the
-# CUDA device name (``torch.cuda.get_device_name``) maps to the f32 peak,
-# the dtype the port trains in with TF32 off; "cpu" keeps the JAX
-# package's nominal single-socket f32 host peak.  Unknown platforms raise
-# in :func:`host_peak_flops` rather than silently giving a null MFU.
+# Peak FLOP/s per measurement platform, for *measured*-MFU accounting,
+# keyed as ``kernels.autotune.platform_key()`` names platforms: the card's
+# name maps to the f32 peak, the dtype the port trains in with TF32 off;
+# "cpu" keeps the JAX package's nominal single-socket f32 host peak.
+# Unknown platforms raise in :func:`host_peak_flops` rather than silently
+# giving a null MFU.
 HOST_PEAK_FLOPS = {
-    "NVIDIA H100 80GB HBM3": HW["peak_flops_f32"],
+    "nvidia_h100_80gb_hbm3": HW["peak_flops_f32"],
     "cpu": 1e11,
 }
 
 
 def host_peak_flops(platform: Optional[str] = None) -> float:
-    """Peak FLOP/s for the measurement platform (default: the CUDA card's
-    name, which must be there).  Raises KeyError for platforms missing from
-    ``HOST_PEAK_FLOPS``: MFU must never silently be null."""
+    """Peak FLOP/s for the measurement platform (default: this host's
+    ``kernels.autotune.platform_key()``, the card's or ``cpu``).  Raises
+    KeyError for platforms missing from ``HOST_PEAK_FLOPS``: MFU must
+    never silently be null."""
     if platform is None:
-        import torch
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass platform='cpu' for "
-                               "the host's nominal peak")
-        platform = torch.cuda.get_device_name(0)
+        from repro_torch.kernels.autotune import platform_key
+        platform = platform_key()
     if platform not in HOST_PEAK_FLOPS:
         raise KeyError(
             f"no peak-FLOP/s entry for platform {platform!r}: add it to "

@@ -75,7 +75,7 @@ def main(argv=None):
         print(f"req {i}: generated {len(o)} tokens: {o.tolist()}")
     n_tok = sum(len(o) for o in outs)
     extra = (f" ttft={stats['ttft_mean_s']:.2f}s "
-             f"decode_steps={stats['decode_steps']}" if stats else "")
+             f"compiles={stats['compile_misses']}" if stats else "")
     print(f"{n_tok} tokens in {dt:.1f}s ({n_tok / dt:.1f} tok/s,"
           f" {a.engine} batching with cache{extra})")
 

@@ -364,11 +364,18 @@ def resolve_attn_backend(backend, cfg, *, S: int = 0,
     64, 128 and 256, so Gemma-2 (head_dim 256) takes the kernel under
     autograd too.
 
-    This is the port's own rule.  The JAX package's "auto" consults its
-    autotune table and, off the TPU or for head dims off its 128-lane tile
-    (Llama-3.2-1B's 64), takes its ``online`` route; the port's kernels
-    take head_dim 64 and 128 alike, so it takes the kernel there, and
-    ``online`` only for the layouts the kernels do not take.
+    Between the two rules, where the measured ``kernels.autotune`` table
+    has the exact (op, S, head_dim, G, platform) key, "auto" takes the
+    route it measured fastest ("kernel" or "online"), at the point where
+    the JAX package consults its table: after the mesh and the
+    ``ATTN_AUTO_MIN_S`` rules.  The op is "grad" when autograd records
+    (``differentiable``), else "fwd".  Untuned keys keep the port's own
+    rule above; the CPU's platform key is never measured, so a table
+    tuned on the card changes no route on the CPU.  The JAX package's
+    untuned rule differs: off the TPU, or for head dims off its 128-lane
+    tile (Llama-3.2-1B's 64), it takes its ``online`` route; the port's
+    kernels take head_dim 64 and 128 alike, so it takes the kernel there,
+    and ``online`` only for the layouts the kernels do not take.
 
     Under a mesh (``mesh``: the tensor-parallel layout, DTensor operands)
     "auto" resolves as the JAX package resolves it: "dense" below
@@ -384,7 +391,14 @@ def resolve_attn_backend(backend, cfg, *, S: int = 0,
         return "dense" if S < ATTN_AUTO_MIN_S else "online"
     if S < ATTN_AUTO_MIN_S:
         return "dense"
-    return "kernel" if kernel_supports(cfg, differentiable) else "online"
+    from repro_torch.kernels import autotune
+    supported = kernel_supports(cfg, differentiable)
+    route = autotune.fastest_route(
+        S, cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads,
+        op="grad" if differentiable else "fwd")
+    if route == "online" or (route == "kernel" and supported):
+        return route  # a "kernel" entry never names a layout it lacks
+    return "kernel" if supported else "online"
 
 
 def forward_attention(q, k, v, cfg, ctx=None, *, window: int = 0,

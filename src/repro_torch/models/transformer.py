@@ -151,7 +151,11 @@ def _sinusoid(S: int, D: int, offset=0, device=None):
     """[..., S, D] f32 sinusoidal table; ``offset`` is a number or a per-row
     [B] tensor (continuous-batching decode, where every slot sits at its
     own absolute position)."""
-    off = torch.as_tensor(offset, dtype=torch.float32, device=device)
+    # a host number is filled on the device (a host-to-device copy would
+    # sync the stream, and cannot be captured in a CUDA graph)
+    off = (offset.to(device=device, dtype=torch.float32)
+           if isinstance(offset, torch.Tensor) else
+           torch.full((), float(offset), dtype=torch.float32, device=device))
     pos = torch.arange(S, dtype=torch.float32, device=device) + off[..., None]
     dim = torch.arange(0, D, 2, dtype=torch.float32, device=device)
     ang = pos[..., None] / torch.pow(10_000.0, dim / D)
@@ -173,8 +177,8 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
     says so (Gemma)."""
     tok = params["embed"][tokens]
     if cfg.embed_scale:
-        tok = tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype,
-                                 device=tok.device)
+        tok = tok * torch.full((), cfg.d_model ** 0.5, dtype=tok.dtype,
+                               device=tok.device)
     return tok
 
 

@@ -20,24 +20,33 @@ Correctness contract: right-padded batched generation with per-sequence
 to Pixtral and Whisper get zero patch and frame embeddings
 (``_frontend_stub``), and Pixtral's patches count against ``S_max``.
 
-PyTorch runs eagerly, so the JAX package's ``jit`` cache and its
-``CompileCache`` hit/miss counters have no counterpart here and are left
-out (``stats`` has no ``compile_hits`` / ``compile_misses``).  A CUDA graph
-per ``(burst, tailed)`` is the later analogue of its compiled bursts.
-Decoded tokens stay on the device until a TTFT or :meth:`run` needs them, so
-a burst runs without a host sync per token.
+The continuous engine keeps the JAX package's ``CompileCache`` and its
+keys, ``("prefill", S_pad, g)`` for an admission wave and ``("decode",
+n_steps, tailed)`` for a burst, with its ``compile_hits`` /
+``compile_misses`` in ``stats``.  Where the JAX package caches a jitted
+callable, an entry here is, on the card, a CUDA graph of the wave's
+prefill (scatter into the slots included) or of the burst's ``n_steps``
+decode steps over static buffers, captured at the key's miss after the
+eager call that serves it and replayed at every hit (:class:`GraphedCall`;
+one memory pool for all of an engine's graphs); on the CPU it is the eager
+callable, and the counters count the same keys.  Decoded tokens stay on
+the device until a TTFT or :meth:`run` needs them, so a burst runs without
+a host sync per token; a replay's tokens are copied out of its static
+output before the next replay.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Hashable, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.kernels import ops
 from repro_torch.models import decode as D
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
@@ -95,6 +104,101 @@ def generate(model: Model, params, batch: Dict, max_new_tokens: int,
         logits, cache = model.decode_step(params, tok, cache)
         toks.append(tok)
     return torch.stack(toks, dim=1)
+
+
+# ------------------------------------------------------- compile cache -----
+class CompileCache:
+    """Shape-keyed cache of callables with hit/miss counters (the JAX
+    package's ``CompileCache``).
+
+    The counters are the steady-state guarantee: once every shape bucket
+    has been seen, ``misses`` must stop growing."""
+
+    def __init__(self):
+        self._fns: Dict[Hashable, Callable] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key: Hashable, build: Callable[[], Callable]) -> Callable:
+        fn = self._fns.get(key)
+        if fn is None:
+            self.misses += 1
+            fn = self._fns[key] = build()
+        else:
+            self.hits += 1
+        return fn
+
+    @property
+    def n_entries(self) -> int:
+        return len(self._fns)
+
+
+class GraphedCall:
+    """A cache entry on the card: ``body(**inputs)`` as a CUDA graph over
+    static input buffers.  ``body`` reads and writes the engine's state (its
+    cache leaves and ``last_logits``) in place and allocates nothing that
+    outlives it but its return value.
+
+    The first call (the key's miss) copies its tensor inputs into fresh
+    static buffers, runs ``body`` eagerly on them and returns that result;
+    then it captures ``body`` over the same buffers into a graph in
+    ``pool`` (capture runs nothing).  Each later call (a hit) copies its
+    inputs into the buffers and replays the graph; the returned tensors are
+    the graph's static outputs, overwritten by its next replay, and
+    ``pool``'s graphs share memory, so a caller copies out what it keeps
+    before any graph of the pool replays again.  A graph that fails to
+    capture raises: nothing falls back to the eager call.
+
+    The kernel wrappers count their launches in Python, and a replay calls
+    none: the counts the capture added are taken back and added again on
+    each replay, so they stay the eager route's.  Python's cyclic garbage
+    collector is held off during a capture: an engine and its entries form
+    a cycle, and a dead engine's graphs collected mid-capture would free
+    their pool there, which invalidates the capture."""
+
+    def __init__(self, body: Callable, pool):
+        self.body = body
+        self.pool = pool
+        self.graph = None
+        self.static: Dict[str, torch.Tensor] = {}
+        self.out = None
+        self.launches: Dict[str, int] = {}
+        self.capture_s = 0.0
+
+    def __call__(self, **inputs):
+        if self.graph is None:
+            return self._first(inputs)
+        for name, t in self.static.items():
+            t.copy_(inputs[name])
+        self.graph.replay()
+        for fn in ops.KERNEL_WRAPPERS:
+            fn.launches += self.launches[fn.__name__]
+        return self.out
+
+    def _first(self, inputs):
+        self.static = {k: v.clone() for k, v in inputs.items()
+                       if v is not None}
+        args = {k: self.static.get(k) for k in inputs}
+        out = self.body(**args)  # serves the miss
+        torch.cuda.synchronize()  # its device time is not the capture's
+        t0 = time.perf_counter()
+        before = ops.launches()
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.out = self.body(**args)
+        finally:
+            if collecting:
+                gc.enable()
+            after = ops.launches()
+            for fn in ops.KERNEL_WRAPPERS:
+                fn.launches = before[fn.__name__]
+        self.launches = {k: after[k] - before[k] for k in after}
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+        return out
 
 
 # ------------------------------------------------------- naive engine ------
@@ -172,6 +276,12 @@ class ContinuousBatchingEngine:
     the prefill forward-attention route ("kernel" | "online" | "dense" |
     "auto", ``models/layers.resolve_attn_backend``).  The engine runs on
     the model's device and never moves ``params``.
+
+    ``compile_cache`` holds one entry per ``("prefill", S_pad, g)`` and
+    ``("decode", n_steps, tailed)`` key, as the JAX engine's does: a CUDA
+    graph (:class:`GraphedCall`) where ``graphs`` (default: the device is
+    a CUDA card), else the eager callable; :attr:`capture_s` sums the
+    host seconds spent capturing.
     """
 
     BURSTS = (32, 24, 16, 12, 8, 6, 4, 3, 2, 1)  # decode burst lengths
@@ -179,7 +289,8 @@ class ContinuousBatchingEngine:
     def __init__(self, model: Model, params, max_slots: int = 4,
                  S_max: int = 128, bucket: int = 16,
                  decode_backend: str = "auto", attn_backend: str = "auto",
-                 temperature: float = 0.0, seed: int = 0):
+                 temperature: float = 0.0, seed: int = 0,
+                 graphs: Optional[bool] = None):
         self.model = model
         self.cfg = model.cfg
         L.resolve_decode_backend(decode_backend, self.cfg)  # validates
@@ -204,8 +315,15 @@ class ContinuousBatchingEngine:
         self.pending: deque = deque()
         self.done: Dict[int, Request] = {}
         self._next_rid = 0
-        self._key = prng.key(seed)
+        # the sampling key lives on the device: a burst splits it there, so
+        # a graph reads it from a static buffer and no step syncs the host
+        self._key = prng.key(seed).to(self.device)
         self.n_decode_steps = 0
+        self.graphs = self.device.type == "cuda" if graphs is None else graphs
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError("CUDA graphs need the engine on a CUDA device")
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self.compile_cache = CompileCache()
         self.prefill_waves: List[tuple] = []  # (requests, padded length)
         # bursts whose token values have not been fetched yet: scheduling
         # never reads token values, so fetches wait until a TTFT needs
@@ -230,6 +348,69 @@ class ContinuousBatchingEngine:
         self.pending.append(req)
         return req.rid
 
+    # --------------------------------------------------- cached entries ----
+    def _entry(self, key: tuple, body: Callable) -> Callable:
+        """The compile cache's callable for ``key``: a :class:`GraphedCall`
+        of ``body`` on the card (``graphs``), else ``body``."""
+        def build():
+            return GraphedCall(body, self._pool) if self.graphs else body
+        return self.compile_cache.get(key, build)
+
+    @property
+    def capture_s(self) -> Dict[str, float]:
+        """Host seconds spent capturing graphs, by kind of key."""
+        out = {"prefill": 0.0, "decode": 0.0}
+        for key, fn in self.compile_cache._fns.items():
+            if isinstance(fn, GraphedCall):
+                out[key[0]] += fn.capture_s
+        return out
+
+    def _prefill_fn(self, S_pad: int, g: int) -> Callable:
+        """Prefill-into-slots of one wave of ``g`` prompts padded to
+        ``S_pad``: the prefill, then its caches and logits copied into the
+        slots (``index_copy_`` into the engine's leaves, in place).  Takes
+        ``tokens`` [g, S_pad] int32, ``lengths`` [g] int32 and ``slots``
+        [g] int64 on the device."""
+        cfg, S_max = self.cfg, self.S_max
+
+        def body(tokens, lengths, slots):
+            batch = {"tokens": tokens,
+                     **_frontend_stub(cfg, g, self.device)}
+            logits, sub = D.prefill(self.params, batch, cfg, self.ctx,
+                                    S_max=S_max, lengths=lengths)
+            for big, small in zip(tree_leaves(self.cache["stack"]),
+                                  tree_leaves(sub["stack"])):
+                big.index_copy_(1, slots, small.to(big.dtype))
+            self.cache["pos"].index_copy_(0, slots, sub["pos"])
+            self.last_logits.index_copy_(0, slots, logits)
+        return self._entry(("prefill", S_pad, g), body)
+
+    def _decode_fn(self, n_steps: int, tailed: bool) -> Callable:
+        """A burst of ``n_steps`` decode steps from ``last_logits``; with
+        ``tailed``, ``remaining`` ([B] int32 on the device) freezes slot b
+        from step ``remaining[b]`` on; with temperature sampling ``key``
+        ([2] on the device) is the burst's key.  Leaves the last logits in
+        ``last_logits`` and the positions in ``cache["pos"]`` (in place:
+        ``decode_step`` rebinds the position) and returns the tokens
+        [n_steps, B]."""
+        def body(remaining=None, key=None):
+            logits, toks = self.last_logits, []
+            cache = dict(self.cache)
+            for i in range(n_steps):
+                sub = None
+                if self.temperature > 0:
+                    key, sub = prng.split(key)
+                tok = _pick(logits, sub, self.temperature)
+                active = (i < remaining) if tailed else None
+                logits, cache = D.decode_step(self.params, tok, cache,
+                                              self.cfg, self.ctx,
+                                              active=active)
+                toks.append(tok)
+            self.last_logits.copy_(logits)
+            self.cache["pos"].copy_(cache["pos"])
+            return torch.stack(toks)
+        return self._entry(("decode", n_steps, tailed), body)
+
     # ------------------------------------------------------------ step ----
     def _admit(self):
         free = [i for i, r in enumerate(self.slots) if r is None]
@@ -250,37 +431,22 @@ class ContinuousBatchingEngine:
             device=self.device)
         slots = torch.as_tensor(np.array([s for _, s in items], np.int64),
                                 device=self.device)
-        batch = {"tokens": torch.as_tensor(toks, device=self.device),
-                 **_frontend_stub(self.cfg, g, self.device)}
-        logits, sub = D.prefill(self.params, batch, self.cfg, self.ctx,
-                                S_max=self.S_max, lengths=lengths)
-        for big, small in zip(tree_leaves(self.cache["stack"]),
-                              tree_leaves(sub["stack"])):
-            big.index_copy_(1, slots, small.to(big.dtype))
-        self.cache["pos"].index_copy_(0, slots, sub["pos"])
-        self.last_logits.index_copy_(0, slots, logits)
+        self._prefill_fn(S_pad, g)(
+            tokens=torch.as_tensor(toks, device=self.device),
+            lengths=lengths, slots=slots)
         self.prefill_waves.append((g, S_pad))
         for req, slot in items:
             self.slots[slot] = req
 
     def _decode(self, n_steps: int, remaining, key):
-        """``n_steps`` decode steps from ``last_logits``; ``remaining`` ([B]
+        """``n_steps`` decode steps from ``last_logits`` (``remaining``: [B]
         int32 on the device, or None for a burst where every slot stays
-        live) freezes slot b from step ``remaining[b]`` on.  Returns the
-        tokens [n_steps, B] on the device."""
-        logits, toks = self.last_logits, []
-        for i in range(n_steps):
-            sub = None
-            if self.temperature > 0:
-                key, sub = prng.split(key)
-            tok = _pick(logits, sub, self.temperature)
-            active = None if remaining is None else i < remaining
-            logits, self.cache = D.decode_step(self.params, tok, self.cache,
-                                               self.cfg, self.ctx,
-                                               active=active)
-            toks.append(tok)
-        self.last_logits = logits
-        return torch.stack(toks)
+        live; ``key``: the burst's sampling key, or None).  Returns the
+        tokens [n_steps, B] on the device, copied out of a graph's static
+        output."""
+        toks = self._decode_fn(n_steps, remaining is not None)(
+            remaining=remaining, key=key)
+        return toks.clone() if self.graphs else toks
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -355,5 +521,7 @@ class ContinuousBatchingEngine:
         return {
             "completed": len(self.done),
             "decode_steps": self.n_decode_steps,
+            "compile_hits": self.compile_cache.hits,
+            "compile_misses": self.compile_cache.misses,
             "ttft_mean_s": float(np.mean(ttfts)) if ttfts else 0.0,
         }

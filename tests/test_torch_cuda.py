@@ -8,7 +8,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import chip_smoke
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, plans, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -175,12 +175,93 @@ def test_flash_kernel_matches_plain_at_wide_groups(dev, dtype, G, dh, S,
     assert ops.flash_attention.launches == before + 2
 
 
+FWD_TILINGS = [(dh, t) for dh, ts in plans.FLASH_FWD_TILINGS.items()
+               for t in ts]
+BWD_TILINGS = [(dh, t) for dh, ts in plans.FLASH_BWD_TILINGS.items()
+               for t in ts]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,tiling", FWD_TILINGS)
+def test_flash_fwd_every_tiling_matches_plain(dev, dtype, dh, tiling):
+    """Each forward tiling, pinned through (block_q, block_k): O and lse
+    within the plain version's tolerances over ragged lengths, a window
+    with softcap, and an S past a tile edge; two calls bit-equal; its probe
+    walks plans.flash_fwd_tiles' key tiles for that tiling, and the
+    library's plan query gives plans.flash_attn_fwd's launch."""
+    from repro_torch.kernels import build
+    G = 2 if dh == 256 else 4
+    bq, bk = plans.tiling_blocks(tiling, G)
+    bf16 = dtype == torch.bfloat16
+    for S, window, softcap, lengths in ((200, 0, 0.0, (200, 77)),
+                                        (130, 32, 30.0, (130, 1)),
+                                        (513, 0, 0.0, (513, 513))):
+        g = torch.Generator(device=dev).manual_seed(S + dh)
+        q = torch.randn(2, S, 2 * G, dh, generator=g, device=dev).to(dtype)
+        k = torch.randn(2, S, 2, dh, generator=g, device=dev).to(dtype)
+        v = torch.randn(2, S, 2, dh, generator=g, device=dev).to(dtype)
+        L = torch.tensor(lengths, device=dev, dtype=torch.int32)
+        kw = dict(window=window, softcap=softcap)
+        o, lse = ops.flash_attention(q, k, v, L, block_q=bq, block_k=bk,
+                                     return_lse=True, **kw)
+        ro, rlse = ref.flash_attention_ref(q, k, v, L, causal=True, **kw)
+        atol = 1e-4 if dtype == torch.float32 else 1.6e-2
+        torch.testing.assert_close(o.float(), ro.float(), atol=atol, rtol=0)
+        torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+        o2, lse2 = ops.flash_attention(q, k, v, L, block_q=bq, block_k=bk,
+                                       return_lse=True, **kw)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        res, rec = ops.flash_attention_fwd_probe(q, k, v, L, tiling=tiling,
+                                                 **kw)
+        assert all(torch.equal(a, b) for a, b in zip(res, (o, lse)))
+        assert rec[:, 0].tolist() == plans.flash_fwd_tiles(
+            2, S, 2, G, dh, lengths=lengths, window=window, tiling=tiling)
+        got = plans.query(build.load(), plans.flash_attn_fwd, B=2, S=S,
+                          KVH=2, G=G, dh=dh, bf16=bf16, tiling=tiling)
+        want = plans.flash_attn_fwd(2, S, 2, G, dh, bf16, tiling)
+        assert [l.numbers() for l in got] == [l.numbers() for l in want]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,tiling", BWD_TILINGS)
+def test_flash_bwd_every_tiling_matches_plain(dev, dtype, dh, tiling):
+    """Each backward tiling, dQ and dK/dV, against the plain versions
+    within 1e-4 of the largest entry (bf16 operands: the same bound, f32
+    outputs), two calls bit-equal; the probe's dK/dV blocks walk tiles
+    that sum the same for each pair under causal masking."""
+    G = 2
+    kw = dict(window=0, softcap=0.0, causal=True)
+    for S, lengths, window, softcap in ((256, None, 0, 0.0),
+                                        (130, (130, 1), 32, 30.0)):
+        args = _bwd_inputs(dev, dtype, 2, S, 2, G, dh, lengths, window,
+                           softcap, S + dh)
+        kw = dict(window=window, softcap=softcap, causal=True)
+        got = (ops.flash_attention_bwd_dq(*args, tiling=tiling, **kw),
+               *ops.flash_attention_bwd_dkv(*args, tiling=tiling, **kw))
+        want = (ref.flash_attn_bwd_dq_ref(*args, **kw),
+                *ref.flash_attn_bwd_dkv_ref(*args, **kw))
+        for a, b in zip(got, want):
+            scale = max(1.0, float(b.abs().max()))
+            assert float((a - b).abs().max()) / scale <= 1e-4
+        again = (ops.flash_attention_bwd_dq(*args, tiling=tiling, **kw),
+                 *ops.flash_attention_bwd_dkv(*args, tiling=tiling, **kw))
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    args = _bwd_inputs(dev, torch.float32, 1, 512, 2, G, dh, None, 0, 0.0,
+                       dh)
+    kw = dict(window=0, softcap=0.0, causal=True)
+    _, rec = ops.flash_attention_bwd_probe(*args, dkv=True, tiling=tiling,
+                                           **kw)
+    tiles = rec[:, 0].double()
+    assert float(tiles.max()) <= 1.2 * float(tiles.mean())
+
+
 def _fwd_smem_state(dh, bf16):
     """(dynamic shared bytes granted to one forward instantiation on this
     device, cudaFuncSetAttribute calls of the forward's launches so far)."""
     from repro_torch.kernels import build
     out = (ctypes.c_longlong * 2)()
-    assert build.load().flash_attn_fwd_smem_state(dh, int(bf16), out) == 0
+    assert build.load().flash_attn_fwd_smem_state(
+        dh, int(bf16), *plans.FLASH_FWD_TILINGS[dh][0], out) == 0
     return out[0], out[1]
 
 
@@ -392,8 +473,8 @@ def _bwd_smem_state(dkv, dh, bf16):
     far)."""
     from repro_torch.kernels import build
     out = (ctypes.c_longlong * 2)()
-    assert build.load().flash_attn_bwd_smem_state(int(dkv), dh, int(bf16),
-                                                  out) == 0
+    assert build.load().flash_attn_bwd_smem_state(
+        int(dkv), dh, int(bf16), *plans.FLASH_BWD_TILINGS[dh][0], out) == 0
     return out[0], out[1]
 
 
@@ -705,3 +786,63 @@ def test_plans_equal_the_library_query(dev, case):
     want = [l.numbers() for l in fn(**shape, **extra)]
     got = [l.numbers() for l in P.query(build.load(), fn, **shape)]
     assert want == got
+
+
+GRAPH_CASES = [("llama3.2-1b-reduced", 0.0), ("llama3.2-1b-reduced", 0.9),
+               ("gemma2-2b-reduced", 0.0), ("jamba-1.5-large-398b-reduced",
+                                            0.0),
+               ("xlstm-350m-reduced", 0.0), ("whisper-small-reduced", 0.0),
+               ("pixtral-12b-reduced", 0.0)]
+
+
+@pytest.mark.parametrize("name,temperature", GRAPH_CASES)
+def test_engine_graphs_match_eager(dev, name, temperature):
+    """The continuous engine with its compile cache as CUDA graphs against
+    the same engine run eagerly, on a reduced model of each family: the
+    same tokens and cache leaves bit for bit, over a first pass (misses:
+    eager calls, then captures) and a second pass of the same requests
+    (all hits: replays); the kernels' launch counts those of the eager
+    run in each pass; and one burst replayed from the cache bit-equal to
+    the same burst run eagerly from the same state."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_config(name)
+    model = Model(cfg, device=dev)
+    params = model.init(seed=0)
+    rng = np.random.default_rng(1)
+    extra = cfg.n_patches if cfg.frontend == "vision_stub" else 0
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (5, 300, 3, 17, 40)]
+    news = (6, 9, 4, 12, 7)
+    kw = dict(max_slots=3, S_max=336 + extra, bucket=16,
+              temperature=temperature, seed=1)
+    eager = ContinuousBatchingEngine(model, params, graphs=False, **kw)
+    graphed = ContinuousBatchingEngine(model, params, **kw)
+    assert graphed.graphs and not eager.graphs
+    for n_pass in range(2):
+        counts = []
+        outs = []
+        for eng in (eager, graphed):
+            for p, m in zip(prompts, news):
+                eng.submit(p, max_new_tokens=m)
+            before = ops.launches()
+            outs.append(eng.run())
+            after = ops.launches()
+            counts.append({k: after[k] - before[k] for k in after})
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a, b)
+        assert counts[0] == counts[1], n_pass
+        for a, b in zip(tree_leaves(eager.cache), tree_leaves(graphed.cache)):
+            assert torch.equal(a, b), n_pass
+        assert torch.equal(eager.last_logits, graphed.last_logits)
+        if n_pass == 0:
+            misses = graphed.stats["compile_misses"]
+    assert graphed.stats["compile_misses"] == misses
+    assert graphed.stats["compile_hits"] == eager.stats["compile_hits"]
+    if chip_smoke.n_mixers(cfg, "attn", "local_attn"):
+        assert counts[1]["flash_decode"] > 0
+    same = chip_smoke.replay_matches_eager(torch, graphed)
+    assert same and all(same.values()), same

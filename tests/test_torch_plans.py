@@ -17,8 +17,8 @@ def test_forward_grid_launches_the_heaviest_query_tiles_first():
     threads; under causal masking the key tiles each walks never grow in
     launch order, from all 16 of the last query tile down to 1."""
     (l,) = plans.flash_attn_fwd(16, 512, 8, 4, 64, False)
-    assert (l.kernel, l.grid, l.threads) == ("flash_fwd<f32,64>", (8, 16, 32),
-                                            128)
+    assert (l.kernel, l.grid, l.threads) == (
+        "flash_fwd<f32,64,64x32>", (8, 16, 32), 128)
     tiles = plans.flash_fwd_tiles(16, 512, 8, 4, 64)
     assert len(tiles) == 8 * 16 * 32
     assert all(a >= b for a, b in zip(tiles, tiles[1:]))
@@ -61,6 +61,80 @@ def test_forward_grid_covers_every_query_once(G):
         assert l.grid[:2] == (2, 3)
         assert (l.grid[2] - 1) * bq < S <= l.grid[2] * bq
     assert plans.flash_attn_fwd(0, 64, 2, G, 64, False) == []
+
+
+FWD_TILINGS = [(dh, t) for dh, ts in plans.FLASH_FWD_TILINGS.items()
+               for t in ts]
+BWD_TILINGS = [(dh, t) for dh, ts in plans.FLASH_BWD_TILINGS.items()
+               for t in ts]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("dh,tiling", FWD_TILINGS)
+def test_forward_tiling_grid_and_shared_memory(dh, tiling, bf16):
+    """Each forward tiling (R rows, BK keys): R / 16 warps a block, one
+    block per (KV head, row, R // G queries), q (f32: hi and lo planes) and
+    double-buffered BK-key k and v tiles under the 232,448 bytes a block
+    may opt into; the same query tiles the probe's record walks; G past R
+    refused."""
+    R, bk = tiling
+    size = 2 if bf16 else 4
+    for G in (1, 2, 4, R):
+        (l,) = plans.flash_attn_fwd(3, 4208, 2, G, dh, bf16, tiling)
+        assert l.threads == 2 * R and l.grid == (2, 3, -(-4208 // (R // G)))
+        assert l.dynamic_smem == (2 if bf16 else 8) * R * dh \
+            + 4 * bk * dh * size
+        assert l.dynamic_smem <= plans.H100_SMEM_OPTIN
+        assert l.kernel == f"flash_fwd<{'bf16' if bf16 else 'f32'},{dh}," \
+            f"{R}x{bk}>"
+        tiles = plans.flash_fwd_tiles(1, 300, 1, G, dh, tiling=tiling)
+        assert len(tiles) == -(-300 // (R // G))
+        assert tiles[0] == -(-300 // bk) and tiles[-1] == -(-(R // G) // bk)
+    with pytest.raises(ValueError):
+        plans.flash_attn_fwd(1, 64, 1, R + 1, dh, bf16, tiling)
+    assert plans.flash_tiling(dh, 2, R // 2, bk) == tiling
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("dh,tiling", BWD_TILINGS)
+def test_backward_tiling_grid_and_shared_memory(dh, tiling, bf16):
+    """Each backward tiling (R rows, 32 keys): dQ one block per R // G
+    queries, dK/dV one per pair of key tiles whatever R; both under the
+    opt-in limit, the smaller R in less shared memory."""
+    R, bk = tiling
+    assert bk == plans.FLASH_BWD_BK
+    for G in (1, 2, R):
+        dq, = plans.flash_attn_bwd(1, 4352, 4, G, dh, bf16, False, tiling)
+        dkv, = plans.flash_attn_bwd(1, 4352, 4, G, dh, bf16, True, tiling)
+        assert dq.grid == (-(-4352 // (R // G)), 4, 1)
+        assert dkv.grid == ((4352 // bk + 1) // 2, 4, 1) == (68, 4, 1)
+        assert max(dq.shared_bytes, dkv.shared_bytes) \
+            <= plans.H100_SMEM_OPTIN
+        default = plans.flash_attn_bwd(1, 4352, 4, G, dh, bf16, True)[0]
+        if tiling != plans.FLASH_BWD_TILINGS[dh][0]:
+            assert dkv.dynamic_smem < default.dynamic_smem
+    with pytest.raises(ValueError):
+        plans.flash_attn_bwd(1, 64, 1, R + 1, dh, bf16, False, tiling)
+
+
+def test_tilings_are_the_kernels_and_unknown_ones_raise():
+    """At least two forward tilings at each head_dim and two backward ones
+    at 64 and 128; the defaults are the tilings the kernels had before
+    (64 rows; 32 keys at head_dim 64, 16 at 128 and 256; the backward's 64
+    rows, 32 at 256); a pair that names none raises."""
+    assert all(len(ts) >= 2 for ts in plans.FLASH_FWD_TILINGS.values())
+    assert all(len(plans.FLASH_BWD_TILINGS[dh]) >= 2 for dh in (64, 128))
+    assert [ts[0] for ts in plans.FLASH_FWD_TILINGS.values()] == [
+        (64, 32), (64, 16), (64, 16)]
+    assert [plans.flash_bwd_rows(dh) for dh in (64, 128, 256)] == [64, 64,
+                                                                   32]
+    assert plans.tiling_blocks((128, 32), 4) == (32, 32)
+    for dh, G, bq, bk in ((64, 4, 16, 16), (128, 4, 64, 16), (16, 1, 64, 32),
+                          (256, 48, 2, 16)):
+        with pytest.raises(ValueError, match="names no tiling"):
+            plans.flash_tiling(dh, G, bq, bk)
+    with pytest.raises(ValueError):
+        plans.flash_tiling(64, 4, 16, 64, bwd=True)
 
 
 @pytest.mark.parametrize("vec", [True, False])

@@ -97,8 +97,12 @@ def test_h100_table_and_platform_peaks():
                     "peak_flops_bf16": 989e12, "hbm_bw": 3.35e12,
                     "link_bw": 450e9}
     assert R.HW_CARD == "NVIDIA H100 80GB HBM3, 700.00 W"
-    assert R.host_peak_flops("NVIDIA H100 80GB HBM3") == 67e12
+    # keyed as kernels.autotune.platform_key() names the card; the default
+    # is this host's key ("cpu" without a card), as in the JAX package
+    assert R.host_peak_flops("nvidia_h100_80gb_hbm3") == 67e12
     assert R.host_peak_flops("cpu") == jr.host_peak_flops("cpu") == 1e11
+    from repro_torch.kernels.autotune import platform_key
+    assert R.host_peak_flops() == R.host_peak_flops(platform_key())
     with pytest.raises(KeyError, match="tpu_v5_lite"):
         R.host_peak_flops("tpu_v5_lite")
     assert R.COLLECTIVE_FACTOR == COLLECTIVE_FACTOR

@@ -87,6 +87,9 @@ def test_continuous_engine_matches_jax(name):
     assert teng.stats["decode_steps"] == jeng.stats["decode_steps"]
     assert teng.stats["decode_steps"] < 2 * max(news)
     assert teng.stats["completed"] == len(lens)
+    # the compile cache counts JAX's keys: one per wave and per burst
+    for k in ("compile_hits", "compile_misses"):
+        assert teng.stats[k] == jeng.stats[k], k
     np.testing.assert_array_equal(teng.cache["pos"].numpy(),
                                   np.asarray(jeng.cache["pos"]))
     # 1e-6 of each leaf's largest entry for the 2-layer models (2.7e-7 to
@@ -116,6 +119,32 @@ def test_engine_routes_agree():
         outs[dec] = eng.run()
     for a, b in zip(outs["kernel"], outs["ref"]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_engine_second_pass_is_all_hits():
+    """The same requests again on a drained engine take the same waves and
+    bursts: every key hits the compile cache, and the tokens repeat."""
+    tm = Model(TINY, device="cpu")
+    eng = ContinuousBatchingEngine(tm, tm.init(0), max_slots=2, S_max=40,
+                                   bucket=8)
+    prompts = _prompts(TINY.vocab, (5, 12, 3), 8)
+    outs = []
+    for _ in range(2):
+        for p, m in zip(prompts, (3, 6, 4)):
+            eng.submit(p, max_new_tokens=m)
+        outs.append(eng.run())
+        if len(outs) == 1:
+            first = dict(eng.stats)
+    assert eng.stats["compile_misses"] == first["compile_misses"] > 0
+    assert eng.stats["compile_hits"] == 2 * first["compile_hits"] + \
+        first["compile_misses"]
+    assert eng.compile_cache.n_entries == first["compile_misses"]
+    assert not eng.graphs and eng.capture_s == {"prefill": 0.0,
+                                                "decode": 0.0}
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="CUDA"):
+        ContinuousBatchingEngine(tm, tm.init(0), graphs=True)
 
 
 def test_naive_engine_matches_jax():
@@ -187,6 +216,8 @@ def test_sampled_engine_and_generate_match_jax():
             eng.submit(p, max_new_tokens=6)
     for a, b in zip(teng.run(), jeng.run()):
         np.testing.assert_array_equal(a, b)
+    for k in ("compile_hits", "compile_misses"):
+        assert teng.stats[k] == jeng.stats[k], k
     from repro.serving import generate as jgenerate
     toks = np.stack([p[:3] for p in prompts])
     want = jgenerate(jm, params, {"tokens": jnp.asarray(toks)}, 5,
@@ -206,8 +237,10 @@ def test_get_config_and_serve_cli(capsys):
     for extra in ([], ["--engine", "naive"], ["--backend", "ref"]):
         serve.main(["--device", "cpu", "--arch", "tiny", "--requests", "3",
                     "--max-new", "4", *extra])
-    lines = [ln for ln in capsys.readouterr().out.splitlines()
-             if ln.startswith("req ")]
+    out = capsys.readouterr().out.splitlines()
+    lines = [ln for ln in out if ln.startswith("req ")]
     assert len(lines) == 9
+    # the continuous engine's summary counts its compile-cache misses
+    assert sum("compiles=" in ln for ln in out) == 2
     # all three routes print the same tokens per request
     assert lines[:3] == lines[3:6] == lines[6:]
