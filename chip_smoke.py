@@ -158,6 +158,21 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 (prefill of 299 tokens and one decode step) and served
                 behind the engine with the serve checks (zero frontend
                 stubs, as the JAX package's engines);
+9d. examples    the five ``examples/*_torch.py`` in this process at CI's
+                smoke sizes (EXAMPLE_ARGV): quickstart (8 rounds; 4 bytes
+                a client a step uploaded, one client's step against the
+                server's replay), train_e2e (--large: llama-110m, VP
+                calibration, 2 rounds of T=2, its checkpoint read back
+                bit-equal), vpcs_demo (60 steps), serve_batch (three
+                reduced archs behind the engine's CUDA graphs; a second
+                pass of the same prompts gives the same tokens) and
+                mesh_round (1x1, one NCCL rank; bit-equal to unsharded):
+                each one's seconds, launches per row (rows 1, 2 and 4 as
+                its steps imply) and check, and a failure where a row its
+                path reaches (EXAMPLE_ROWS) launched no time; then the
+                hlo_tools line: ``repro_torch.launch.hlo_tools`` on
+                qwen2-7b x decode_32k at depth 1 on the fake 16x16 group
+                (op totals, the top 5);
 10. analysis    the static analyzer (``repro_torch.analysis``) on the card:
                 every rule flags its bad fixtures and passes its good ones
                 (the fixture_double kernel: bit-equal at [128, 128], its
@@ -177,7 +192,7 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 time with and without the recorder, and sample_z's time
                 against erfinv's float64 Horner form.
 
-Phases 4 to 10 (4b-4g, 9b and 9c too) each count every kernel's launches
+Phases 4 to 10 (4b-4g, 9b-9d too) each count every kernel's launches
 from zero, and each count must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
@@ -381,6 +396,23 @@ SM_CLOCK_HZ = 1.98e9
 # clock of the f32 rate
 EXP_PER_S = 16 * 132 * SM_CLOCK_HZ
 
+# phase examples: each example's CI smoke flags (the largest model any
+# example defines for train_e2e), and the kernel rows its path must launch
+EXAMPLE_ARGV = (("quickstart", ("--rounds", "8")),
+                ("train_e2e", ("--large", "--rounds", "2", "--T", "2")),
+                ("vpcs_demo", ("--steps", "60")),
+                ("serve_batch", ()),
+                ("mesh_round", ("--mesh", "1x1", "--rounds", "2", "--T",
+                                "2")))
+ZO_ROWS = ("zo_dual_perturb_flat", "zo_fused_update_flat")
+EXAMPLE_ROWS = {"quickstart": ZO_ROWS,
+                "train_e2e": ZO_ROWS + ("gradip_flat",),
+                "vpcs_demo": ZO_ROWS + ("gradip_flat",),
+                "serve_batch": ("flash_decode",),
+                "mesh_round": ZO_ROWS}
+# the hlo_tools line: JAX's docstring example at production width
+HLO_TOOLS_ARGV = ("--arch", "qwen2-7b", "--shape", "decode_32k", "--depth",
+                  "1", "--top", "5")
 KERNEL_SOURCES = {
     "zo_dual_perturb_flat": ("src/repro_torch/kernels/csrc/zo_update.cu",
                              "src/repro/kernels/zo_update.py:40"),
@@ -4139,6 +4171,171 @@ def run_families(torch, dev, cfgs):
     return counts, expected
 
 
+# ---------------------------------------------------------------- examples --
+def load_example(name: str):
+    """``examples/<name>_torch.py`` as a module."""
+    import importlib
+    path = str(ROOT / "examples")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(f"{name}_torch")
+
+
+def example_replay(torch, out) -> float:
+    """One quickstart client's own T=1 step on the kernel route against the
+    server's replay of its scalar: the largest relative difference, or
+    raises past rtol 1e-6 (the slice's replay check)."""
+    import repro_torch.core as C
+    server, space, fl = out["server"], out["space"], out["server"].fl
+    dev = server.device
+    run = C.make_local_run(out["loss"], space, fl.eps, fl.lr,
+                           backend="kernel")
+    keys = C.round_keys(fl.seed, server.round, 1)
+    batches = {k: torch.as_tensor(v, device=dev)
+               for k, v in server.clients[0].next_batches(1).items()}
+    delta, gs = run(server.params, keys, batches,
+                    torch.zeros(space.n, device=dev))
+    rec = C.reconstruct_delta(space, keys, gs.cpu().numpy(), fl.lr)
+    if not torch.allclose(delta, rec, rtol=1e-6,
+                          atol=1e-6 * float(rec.abs().max())):
+        fail("examples.quickstart: client delta and server replay differ")
+    return float((delta - rec).abs().max() / rec.abs().max())
+
+
+def run_examples(torch, dev, _cfg=None):
+    """The five ``examples/*_torch.py`` in process on the card, at CI's
+    smoke sizes (EXAMPLE_ARGV), each with its own check, launch counts and
+    seconds; a row its path reaches (EXAMPLE_ROWS) launched no time fails.
+    Returns the summed counts and those the runs imply: rows 1, 2 and 4
+    counted from the steps (example_zo_launches), the others as launched
+    (each example's line holds its own)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.utils.tree import tree_leaves
+    device = "cpu" if dev.type == "cpu" else None
+    total = {name: 0 for name in KERNEL_SOURCES}
+    total_want = dict(total)
+    ckpt = ROOT / "build" / "examples" / "e2e_ckpt_torch.msgpack"
+    for name, argv in EXAMPLE_ARGV:
+        mod = load_example(name)
+        args = mod.parser().parse_args(
+            list(argv) + (["--ckpt", str(ckpt)] if name == "train_e2e"
+                          else []))
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ops.reset_launches()  # the example's path starts here
+        t0 = time.perf_counter()
+        out = mod.run(args, device=device)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launches()  # and ends here
+        check = {}
+        if name == "quickstart":
+            steps = args.clients * args.rounds  # T=1
+            accs = [out["acc_before"], out["acc_after"]] + \
+                [h["acc"] for h in out["history"]]
+            check = dict(up_bytes=out["up_bytes"], up_bytes_want=4 * steps,
+                         replay_max_rel_err=example_replay(torch, out),
+                         accuracy=accs, finite=bool(np.isfinite(accs).all()))
+            ok = check["finite"] and out["up_bytes"] == 4 * steps
+        elif name == "train_e2e":
+            accs = [out["acc_before"], out["acc_final"]] + \
+                [h["acc"] for h in out["history"]]
+            check = dict(model=out["n_params"], flagged=out["flagged"],
+                         accuracy=accs, finite=bool(np.isfinite(accs).all()),
+                         ckpt_bytes=ckpt.stat().st_size)
+            ok = check["finite"] and all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(out["restored"]), tree_leaves(out["params"])))
+            ckpt.unlink()
+        elif name == "vpcs_demo":
+            check = dict(flagged=out["flagged"], finite=all(
+                bool(np.isfinite(t).all()) for t in out["trajectories"]))
+            ok = check["finite"]
+        elif name == "serve_batch":
+            same = {}
+            for arch, got in out.items():
+                engine = got["engine"]
+                for p in got["prompts"]:
+                    engine.submit(p, max_new_tokens=args.max_new)
+                again = engine.run()
+                same[arch] = [a.tolist() for a in again] == \
+                    [a.tolist() for a in got["outs"]]
+                check[arch] = dict(seconds=got["seconds"],
+                                   stats=engine.stats,
+                                   capture_s=engine.capture_s,
+                                   second_pass_equal=same[arch])
+            ok = all(same.values())
+        else:  # mesh_round
+            check = dict(bit_params=out["bit_params"],
+                         bit_gradip=out["bit_gradip"],
+                         up_equal=out["up_equal"],
+                         n_devices=out["sharded"]["n_devices"])
+            ok = out["bit_params"] and out["bit_gradip"] and out["up_equal"]
+        missing = [r for r in EXAMPLE_ROWS[name] if not counts[r]]
+        # rows 1, 2 and 4 launch once a ZO step and once a GradIP step;
+        # the attention, decode and scan rows as the examples' shapes route
+        want = dict(counts)
+        if dev.type == "cuda":
+            want.update(example_zo_launches(name, args, out))
+        emit(f"examples.{name}", argv=list(argv), seconds=seconds,
+             launches=counts, expected_launches=want,
+             rows_required=list(EXAMPLE_ROWS[name]), rows_missing=missing,
+             check=check, ok=bool(ok))
+        if not ok:
+            fail(f"examples.{name}: its check failed: {check}")
+        if dev.type == "cuda" and missing:
+            fail(f"examples.{name}: rows {missing} launched no time")
+        for k in total:
+            total[k] += counts[k]
+            total_want[k] += want[k]
+        del out
+    return total, total_want
+
+
+def example_zo_launches(name, args, out) -> dict:
+    """Rows 1, 2 and 4's launches that an example's run implies: one
+    dual perturb and one fused update a ZO step, one GradIP reduction a
+    step of a trajectory."""
+    if name == "quickstart":
+        steps, gradip = args.clients * args.rounds, 0
+    elif name == "train_e2e":
+        cali = args.clients * 100   # FLConfig.vp_calibration_steps
+        flagged = len(out["flagged"])
+        steps = cali + args.rounds * (
+            args.T * (args.clients - flagged) + flagged)
+        gradip = cali
+    elif name == "vpcs_demo":
+        steps = gradip = len(out["trajectories"]) * args.steps
+    elif name == "mesh_round":
+        # unsharded, then the same rounds on the mesh, GradIP every step
+        steps = gradip = 2 * args.rounds * load_example(name).K * args.T
+    else:
+        return {}
+    return {"zo_dual_perturb_flat": steps, "zo_fused_update_flat": steps,
+            "gradip_flat": gradip}
+
+
+def run_hlo_tools_line() -> None:
+    """``python -m repro_torch.launch.hlo_tools`` (HLO_TOOLS_ARGV: JAX's own
+    docstring example, depth 1 on the fake 16x16 group, no device): its op
+    totals and top ops, with its seconds."""
+    from repro_torch.launch import hlo_tools
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = hlo_tools.main(list(HLO_TOOLS_ARGV))
+    emit("hlo_tools", argv=list(HLO_TOOLS_ARGV), step=got["step"],
+         records=got["records"], seconds=time.perf_counter() - t0,
+         totals_mb={k: v / 1e6 for k, v in sorted(
+             got["totals"].items(), key=lambda kv: -kv[1])},
+         top=[{"mb": b / 1e6, "op": op, "line": line}
+              for b, op, line in got["top"]])
+    if not got["top"] or "all-gather" not in got["totals"]:
+        fail(f"hlo_tools: no ops counted: {got['totals']}")
+
+
 # ---------------------------------------------------------------- autotune --
 def use_table(table) -> None:
     """Point the port's autotune lookups at ``table`` (a directory)."""
@@ -4882,6 +5079,7 @@ def _main(torch) -> int:
                             ("jamba_moe", run_jamba_moe, moe_layer),
                             ("serve_jamba", run_serve_jamba, jamba_serve),
                             ("families", run_families, families),
+                            ("examples", run_examples, None),
                             ("analysis", run_analysis_phase, LLAMA32_1B),
                             ("autotune", run_autotune,
                              (LLAMA32_1B, qwen3, chatglm3, gemma))):
@@ -4895,6 +5093,8 @@ def _main(torch) -> int:
         torch.cuda.empty_cache()
         emit(f"{phase}.done", seconds=time.perf_counter() - t0,
              resident_gb=torch.cuda.memory_allocated() / 1e9)
+        if phase == "examples":
+            run_hlo_tools_line()
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -1,7 +1,8 @@
 """Config registry (``repro.configs``): the assigned architectures the port
 runs, the paper's models, and the tiny test configs."""
-from repro_torch.configs.base import (FLConfig, InputShape, MeshConfig,
-                                      ModelConfig)
+from repro_torch.configs.base import (EncoderConfig, FLConfig, InputShape,
+                                      MeshConfig, ModelConfig, MoEConfig,
+                                      SSMConfig, TrainConfig, XLSTMConfig)
 from repro_torch.configs.chatglm3_6b import CONFIG as CHATGLM3_6B
 from repro_torch.configs.gemma2_27b import CONFIG as GEMMA2_27B
 from repro_torch.configs.jamba_1_5_large_398b import CONFIG as JAMBA_1_5_LARGE

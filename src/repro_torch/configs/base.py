@@ -1,7 +1,7 @@
 """Config dataclasses of the PyTorch port: a copy of
 ``repro.configs.base`` (the port imports nothing of the JAX package), less
-the first-order config it does not use and the TPU hardware table (the
-card's peaks are ``launch/roofline.HW``).
+the TPU hardware table ``HW`` (the card's peaks are ``launch/roofline.HW``;
+ROADMAP C24).
 
 Every architecture is expressed as a :class:`ModelConfig`; each family also
 provides a ``reduced()`` variant (<=2 layers, d_model<=256, <=4 experts) that
@@ -244,3 +244,13 @@ class FLConfig:
     # uplink codec for the ZO scalars (core/quantize.py):
     # none | int8 | int4 [-nearest for deterministic rounding]
     quantize: str = "none"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 1e-3
+    steps: int = 100
+    batch_size: int = 8
+    seq_len: int = 64
+    optimizer: str = "sgd"
+    seed: int = 0

@@ -30,6 +30,8 @@ import json
 import os
 from typing import List, Optional
 
+from repro_torch.launch.hlo_tools import COLLECTIVE_FACTOR
+
 # the card the peaks below are for, as nvidia-smi names it
 HW_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 HW = {
@@ -40,11 +42,6 @@ HW = {
     "link_bw": 450e9,           # B/s per direction, NVLink 4
 }
 
-# per-device traffic multiplier relative to the op's output bytes (ring
-# algorithms), as ``repro.launch.hlo_tools.COLLECTIVE_FACTOR``
-COLLECTIVE_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0,
-                     "reduce-scatter": 1.0, "all-to-all": 1.0,
-                     "collective-permute": 1.0}
 
 SHAPE_TOKENS = {  # (global_batch, seq_len)
     "train_4k": (256, 4096),

@@ -23,8 +23,8 @@ selects between three routes of the same function per ``ctx.attn_backend``
 
 One-token decode runs through :func:`decode_self_attention`, on the route
 ``ctx.decode_backend`` resolves to (:func:`resolve_decode_backend`): the
-flash-decode kernel (``kernels.ops.flash_decode``) or its plain version
-(``kernels.ref.decode_attention_ref``).
+flash-decode kernel (``kernels.ops.flash_decode``) or, as in the JAX
+package, :func:`grouped_gqa_attention` over the live prefix.
 """
 from __future__ import annotations
 
@@ -544,6 +544,29 @@ def encode_kv(enc_out, p, cfg):
 
 
 # -------------------------------------------------- decode-mode attention ----
+def grouped_gqa_attention(q, k, v, valid, cfg, ctx=None):
+    """Decode attention with the query grouped per KV head, K/V never
+    repeated (``repro.models.layers.grouped_gqa_attention``).
+
+    q: [B,Sq,H,hd]; k,v: [B,W,KV,hd]; valid: [B|1,Sq,W] bool or None.
+    Scores [B,KV,G,Sq,W] in f32 (then the softcap and ``valid``), the
+    softmax weights cast to v's dtype for the value product, which sums in
+    f32, as the JAX package's ``preferred_element_type`` does; out
+    [B,Sq,H,hd] in v's dtype."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          k.float()) * (hd ** -0.5)
+    scores = softcap(scores, cfg.attn_softcap)
+    if valid is not None:
+        scores = torch.where(valid[:, None, None, :, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).float(), v.float())
+    return out.reshape(B, Sq, H, hd).to(v.dtype)
+
+
 DECODE_BACKENDS = ("auto", "kernel", "ref")
 
 
@@ -625,29 +648,43 @@ def decode_self_attention(x1, p, cfg, cache_k, cache_v, cur_pos, *,
     if backend == "kernel":
         out = flash_decode(qg, cache_k, cache_v, lengths,
                            softcap=cfg.attn_softcap)
+    elif is_dtensor(qg):
+        out = _decode_ref(qg, cache_k, cache_v, lengths, cfg)
     else:
-        out = _decode_ref(qg, cache_k, cache_v, lengths, cfg.attn_softcap)
+        # the JAX package's ref route: the live prefix as a [B, 1, W] mask
+        valid = torch.arange(W, device=x1.device)[None, None, :] < \
+            lengths[:, None, None]
+        out = grouped_gqa_attention(q, cache_k, cache_v, valid, cfg, ctx)
     out = out.to(cache_v.dtype)
     return merge_heads(out, B, 1, -1) @ p["wo"], cache_k, cache_v
 
 
-def _decode_ref(qg, cache_k, cache_v, lengths, softcap):
-    """The plain decode route; on each rank's local KV heads where q
-    [B, KV, G, hd] and the cache [B, W, KV, hd] are DTensors sharded over
-    the KV heads on the model sub-mesh (its grouped einsum would flatten
-    the sharded heads into its batch, which DTensor refuses)."""
-    if is_dtensor(qg) and qg.device_mesh.ndim == 1 \
+def _decode_ref(qg, cache_k, cache_v, lengths, cfg):
+    """:func:`grouped_gqa_attention` over the live prefix for q [B, KV, G,
+    hd] and the cache [B, W, KV, hd] as DTensors (the tensor-parallel
+    layout, the sequence-sharded cache): on each rank's local KV heads
+    where both are sharded over them on the model sub-mesh (a grouped
+    einsum would fold the sharded heads into its batch, which DTensor
+    refuses), else on the DTensors."""
+    B, KV, G, hd = qg.shape
+    W = cache_k.shape[1]
+    valid = torch.arange(W, device=lengths.device)[None, None, :] < \
+        lengths[:, None, None]
+    if qg.device_mesh.ndim == 1 \
             and qg.placements[0].is_shard(1) \
             and cache_k.placements[0].is_shard(2):
         from torch.distributed.tensor import DTensor
-        out = ref.decode_attention_ref(qg.to_local(), cache_k.to_local(),
-                                       cache_v.to_local(), lengths, softcap)
-        B, KV, G, hd = qg.shape
-        return DTensor.from_local(out.contiguous(), qg.device_mesh,
-                                  qg.placements, run_check=False,
-                                  shape=qg.shape,
+        q = qg.to_local()
+        out = grouped_gqa_attention(q.reshape(B, 1, -1, hd),
+                                    cache_k.to_local(), cache_v.to_local(),
+                                    valid, cfg)
+        return DTensor.from_local(out.reshape(q.shape).contiguous(),
+                                  qg.device_mesh, qg.placements,
+                                  run_check=False, shape=qg.shape,
                                   stride=(KV * G * hd, G * hd, hd, 1))
-    return ref.decode_attention_ref(qg, cache_k, cache_v, lengths, softcap)
+    out = grouped_gqa_attention(qg.reshape(B, 1, KV * G, hd), cache_k,
+                                cache_v, valid, cfg)
+    return out.reshape(B, KV, G, hd)
 
 
 # ------------------------------------------------------------------ MLP ----

@@ -81,3 +81,63 @@ def is_dtensor(x) -> bool:
     import sys
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+# ------------------------------------------- flat vectors (repro.utils.tree)
+def leaf_paths(tree: Any) -> List[str]:
+    """Each leaf's path as ``jax.tree_util.keystr`` writes it
+    (``"['blocks'][0]['wq']"``), in :func:`tree_flatten` order."""
+    return [p for p, _ in tree_flatten_with_keys(tree)[0]]
+
+
+def _numel(leaf) -> int:
+    n = 1
+    for d in leaf.shape:
+        n *= int(d)
+    return n
+
+
+def flat_size(tree: Any) -> int:
+    return sum(_numel(leaf) for leaf in tree_leaves(tree))
+
+
+def tree_concat_flat(tree: Any):
+    """All leaves, raveled in :func:`tree_flatten` order, as one f32
+    vector."""
+    import torch
+    return torch.cat([torch.as_tensor(leaf).reshape(-1).float()
+                      for leaf in tree_leaves(tree)])
+
+
+def tree_from_flat(template: Any, vec) -> Any:
+    """Inverse of :func:`tree_concat_flat` given a template: each leaf of
+    the template's shape, in its dtype."""
+    import torch
+    leaves, treedef = tree_flatten(template)
+    out, off = [], 0
+    for leaf in leaves:
+        n = _numel(leaf)
+        dtype = leaf.dtype if isinstance(leaf, torch.Tensor) else \
+            getattr(torch, str(leaf.dtype))
+        out.append(vec[off:off + n].reshape(tuple(leaf.shape)).to(dtype))
+        off += n
+    return tree_unflatten(treedef, out)
+
+
+def tree_zeros_like_flat(tree: Any):
+    """A zero f32 vector of :func:`flat_size` entries, on the device of
+    the tree's first tensor leaf (the CPU for numpy leaves)."""
+    import torch
+    dev = next((leaf.device for leaf in tree_leaves(tree)
+                if isinstance(leaf, torch.Tensor)), None)
+    return torch.zeros((flat_size(tree),), dtype=torch.float32, device=dev)
+
+
+def leaf_offsets(tree: Any) -> List[Tuple[str, int, int]]:
+    """(path, offset, size) of each leaf in :func:`tree_flatten` order."""
+    out, off = [], 0
+    for path, leaf in tree_flatten_with_keys(tree)[0]:
+        n = _numel(leaf)
+        out.append((path, off, n))
+        off += n
+    return out

@@ -445,21 +445,28 @@ def test_train_cli_kill_and_resume_bitexact(tmp_path):
     assert a == open(os.path.join(killed, FINAL_NAME), "rb").read()
 
 
-def test_train_cli_refuses_unported_options(tmp_path):
+def test_train_cli_mesh_and_tp_write_the_unsharded_checkpoint(tmp_path):
     """``--mesh`` runs (2 gloo ranks) and writes the unsharded run's final
     checkpoint byte for byte; so does its ``tp`` rule on a one-rank
-    ``1x1`` mesh (tensor-parallel compute, ROADMAP A item 8)."""
+    ``1x1`` mesh (tensor-parallel compute, ROADMAP A item 8).  The runs in
+    this process take one thread, as each spawned rank does: more only
+    contend with the suite's other workers."""
+    from repro_torch.launch import mesh as M
     from repro_torch.launch import train
     args = ["--device", "cpu", "--rounds", "2", "--T", "2", "--clients",
             "4", "--batch", "4", "--eval-every", "1", "--drop-rate", "0.2",
             "--late-rate", "0.3", "--fault-seed", "5", "--sample-frac",
             "0.5", "--quantize", "int8", "--checkpoint-dir"]
-    train.main(args + [str(tmp_path / "one")])
-    train.main(args + [str(tmp_path / "mesh"), "--mesh", "1x2"])
-    a = (tmp_path / "one" / FINAL_NAME).read_bytes()
-    assert a == (tmp_path / "mesh" / FINAL_NAME).read_bytes()
-    from repro_torch.launch import mesh as M
-    with M.process_group("cpu"):    # this process, the one rank of 1x1
-        train.main(args + [str(tmp_path / "tp"), "--mesh", "1x1",
-                           "--mesh-rule", "tp"])
-    assert a == (tmp_path / "tp" / FINAL_NAME).read_bytes()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        train.main(args + [str(tmp_path / "one")])
+        train.main(args + [str(tmp_path / "mesh"), "--mesh", "1x2"])
+        a = (tmp_path / "one" / FINAL_NAME).read_bytes()
+        assert a == (tmp_path / "mesh" / FINAL_NAME).read_bytes()
+        with M.process_group("cpu"):    # this process, the one rank of 1x1
+            train.main(args + [str(tmp_path / "tp"), "--mesh", "1x1",
+                               "--mesh-rule", "tp"])
+        assert a == (tmp_path / "tp" / FINAL_NAME).read_bytes()
+    finally:
+        torch.set_num_threads(n)

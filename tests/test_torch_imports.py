@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX, the JAX package, or ``msgpack`` and
+"""The port stands alone: no file of ``src/repro_torch``, no
+``examples/*_torch.py`` nor ``chip_smoke.py`` imports JAX, the JAX package, or ``msgpack`` and
 ``ml_dtypes`` (neither is on the card's machine; the checkpoint codec is
 the port's own)."""
 import ast
@@ -11,7 +11,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
