@@ -190,9 +190,25 @@ CUDA and ``nvcc``.  Phases, one JSON line each:
                 memory-ceiling rule applies within 10% of the measured
                 peak rise, the loop equal to the folded step, the step
                 time with and without the recorder, and sample_z's time
-                against erfinv's float64 Horner form.
+                against erfinv's float64 Horner form;
+10b. stack      the train burst's stacked (w+, w-) forward
+                (make_fl_train_loop's stack_forwards under torch.func.vmap)
+                against its two forwards in sequence: rows 3 and 8 folded
+                under vmap, one launch each bit-equal to a launch per
+                member, with the ms of each way; then TINY at d_model 256
+                (the auto rule stacks) at S 512, Llama-3.2-1B at full
+                width (8 clients x 2 x 512, 2 steps) and Jamba-1.5-Large
+                at full width cut to 2 layers (attention, Mamba: the flat
+                route's copies of the 4-layer cut do not fit), each with
+                the first pair's per-example losses within 1e-5, the
+                scalars within the loss gaps over 2 eps, the parameters
+                within lr |dg| max|z|, row-3 launches a step (the attention
+                layers, twice that in sequence), ms a step and the peak
+                memory each way; then tools/kill_recover_torch.py's drill
+                on the card, plain and with --sample-frac 0.5 --quantize
+                int8 side by side (SIGKILLed in round 2, resumed bit-equal).
 
-Phases 4 to 10 (4b-4g, 9b-9d too) each count every kernel's launches
+Phases 4 to 10b (4b-4g, 9b-9d too) each count every kernel's launches
 from zero, and each count must be the count its run implies.
 
 Then the kernels line, the card line, and ``{"ok": true, "device": ...}``
@@ -384,6 +400,27 @@ AN_LIVENESS_REL = 0.10
 # once but for rare double roundings, so they differ by an ulp or two where
 # they differ; 1e-5 is some 20 ulp of the largest normals (|z| < 6)
 Z_F64_ABS = 1e-5
+# phase stack: the train burst's stacked (w+, w-) forward against its two
+# forwards in sequence.  The folded launches at Llama's flash shape (q [2 x
+# 16, 512, 32, 64]) and Jamba's scan shape (dt, x [2 x 4, 512, 16384], an A
+# a member); then TINY at d_model 256 and vocab 256 (the analyzer
+# registry's, under STACK_FORWARDS_MAX_PARAMS: auto stacks) at S 512 (the
+# flash route), Llama-3.2-1B at full width as phase analysis runs its
+# burst, and Jamba-1.5-Large at full width on the flat route, which holds
+# some five f32 copies of the parameters (the tree, w, z, the pair): the
+# slice_jamba cut's 4.9 B parameters need 98 GB so, so it is cut to its
+# first STACK_JAMBA_LAYERS layers (attention, Mamba).  Per-example losses
+# of the burst's first pair within STACK_LOSS_REL of the sequential ones;
+# the scalars within the loss gaps over 2 eps; the parameters within
+# lr |dg| max|z| a step
+STACK_TINY_CLIENTS, STACK_TINY_BATCH, STACK_TINY_STEPS = 4, 4, 8
+STACK_TINY_S = 512
+STACK_JAMBA_LAYERS, STACK_JAMBA_CLIENTS = 2, 4
+STACK_LOSS_REL = 1e-5
+STACK_EPS, STACK_LR = 1e-3, 1e-2
+# the drill (tools/kill_recover_torch.py) on the card: TINY, 4 rounds, the
+# kill in round 2, plain and with client sampling and the int8 uplink
+STACK_DRILLS = ((), ("--sample-frac", "0.5", "--quantize", "int8"))
 
 # the H100 SXM data sheet's peaks are repro_torch.launch.roofline.HW
 # (peak(): HBM3's rate, the f32 rate outside the tensor cores, where the
@@ -1847,7 +1884,7 @@ def mamba_device_ms(torch, args) -> float:
                     device=dt.device)
     ptrs = [t.data_ptr() for t in args] + [y.data_ptr(), h.data_ptr()]
     return queued_ms(torch, lambda s: lib.mamba_scan(
-        *ptrs, Bsz, S, E, args[1].shape[-1], s), calls=10)
+        *ptrs, Bsz, S, E, args[1].shape[-1], Bsz, s), calls=10)
 
 
 def check_fixture_double(torch, ops, ref, dev):
@@ -4524,7 +4561,10 @@ def plan_cases(n_flat: int, n_mask: int):
               (P.gradip_reduce, dict(n=777, vec=False))]
     attn = [dict(B=16, S=SEQ_LEN, KVH=8, G=4, dh=64),      # Llama slice
             dict(B=4, S=SEQ_LEN, KVH=8, G=8, dh=128),      # Jamba
-            dict(B=2, S=320, KVH=2, G=2, dh=64)]           # the registry
+            dict(B=2, S=320, KVH=2, G=2, dh=64),           # the registry
+            dict(B=4, S=320, KVH=2, G=2, dh=64),           # stacked pair
+            dict(B=2 * CLIENT_BATCH, S=SEQ_LEN, KVH=8, G=4,
+                 dh=64)]                                   # phase stack
     cases += [(P.flash_attn_fwd, dict(**a, bf16=False)) for a in attn]
     cases += [(P.flash_attn_fwd, dict(B=2, S=4208, KVH=4, G=2, dh=256,
                                       bf16=False)),        # Gemma prefill
@@ -4571,6 +4611,8 @@ def plan_cases(n_flat: int, n_mask: int):
               (P.flash_decode, dict(B=2, S=0, KVH=8, G=4, dh=64,
                                     bf16=False))]
     cases += [(P.mamba_scan, dict(B=4, S=SEQ_LEN, E=16384, N=16)),
+              (P.mamba_scan, dict(B=2 * STACK_JAMBA_CLIENTS, S=SEQ_LEN,
+                                  E=16384, N=16)),         # phase stack
               (P.mamba_scan, dict(B=2, S=300, E=256, N=8)),
               (P.mamba_scan, dict(B=1, S=2048, E=129, N=16))]
     cases += [(P.fixture_double, dict(rows=r, cols=c, block_rows=r,
@@ -4639,6 +4681,310 @@ def _record_counted(torch, ops, AC, built, dev):
         if on_card and r.kind == "kernel" and not r.raised:
             expected[r.name.split(":", 1)[1]] += 1
     return art, counts, expected
+
+
+def folded_times(vmapped, folded, two) -> dict:
+    """CUDA-event ms and host ms a call (:func:`timed`) of the vmapped call,
+    of the folded launch it makes, called directly on the folded operands,
+    and of a launch per member: the vmapped call's excess over the folded
+    launch is the host's (``torch.func.vmap`` and the rule)."""
+    out = {}
+    for name, fn in (("vmapped", vmapped), ("folded", folded),
+                     ("two_launches", two)):
+        out[f"ms_{name}"], out[f"enqueue_ms_{name}"] = timed(fn, 10,
+                                                             host=True)
+    return out
+
+
+def check_folded_launches(torch, ops, dev):
+    """Rows 3 and 8 under ``torch.func.vmap`` over a stacked pair: one
+    folded launch each, bit-equal to a launch per member, with the ms of
+    each way (:func:`folded_times`).  Row 3 at Llama-3.2-1B's burst shape, row 8 at
+    Jamba's (dt, x [4, 512, 16384], N 16) with a per-member A, as the
+    stacked forward hands them over."""
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    q, k, v = (torch.randn(2, CLIENT_BATCH, SEQ_LEN, h, 64, generator=gen,
+                           device=dev) for h in (32, 8, 8))
+    folded = torch.func.vmap(lambda q, k, v: ops.flash_attention(
+        q, k, v, return_lse=True))
+    ops.reset_launches()
+    got = folded(q, k, v)
+    n_folded = ops.launches()["flash_attention"]
+    want = [ops.flash_attention(q[i], k[i], v[i], return_lse=True)
+            for i in range(2)]
+    n_two = ops.launches()["flash_attention"] - n_folded
+    equal = all(torch.equal(got[j][i], want[i][j]) for i in range(2)
+                for j in range(2))
+    qf, kf, vf = (t.flatten(0, 1) for t in (q, k, v))
+    out["flash_attention"] = dict(
+        shape=f"q [2 x {CLIENT_BATCH}, {SEQ_LEN}, 32, 64] f32",
+        bit_equal=equal, launches_folded=n_folded, launches_per_member=n_two,
+        **folded_times(
+            lambda: folded(q, k, v), lambda: ops.flash_attention(qf, kf, vf),
+            lambda: [ops.flash_attention(q[i], k[i], v[i])
+                     for i in range(2)]))
+    del q, k, v, qf, kf, vf, got, want
+    B, E, N = STACK_JAMBA_CLIENTS, 16384, 16
+    dt, x = (torch.nn.functional.softplus(torch.randn(
+        2, B, SEQ_LEN, E, generator=gen, device=dev)) * 0.1,
+        torch.randn(2, B, SEQ_LEN, E, generator=gen, device=dev))
+    Bm, Cm = (torch.randn(2, B, SEQ_LEN, N, generator=gen, device=dev)
+              for _ in range(2))
+    A = -torch.exp(torch.randn(2, E, N, generator=gen, device=dev) * 0.5)
+    scan = torch.func.vmap(ops.mamba_scan)
+    ops.reset_launches()
+    got = scan(dt, Bm, Cm, x, A)
+    n_folded = ops.launches()["mamba_scan"]
+    want = [ops.mamba_scan(dt[i], Bm[i], Cm[i], x[i], A[i])
+            for i in range(2)]
+    n_two = ops.launches()["mamba_scan"] - n_folded
+    equal = all(torch.equal(got[j][i], want[i][j]) for i in range(2)
+                for j in range(2))
+    fold = [t.flatten(0, 1) for t in (dt, Bm, Cm, x)]
+    out["mamba_scan"] = dict(
+        shape=f"dt, x [2 x {B}, {SEQ_LEN}, {E}] f32, N {N}, A per member",
+        bit_equal=equal, launches_folded=n_folded, launches_per_member=n_two,
+        **folded_times(
+            lambda: scan(dt, Bm, Cm, x, A),
+            lambda: ops.mamba_scan(*fold, A),
+            lambda: [ops.mamba_scan(dt[i], Bm[i], Cm[i], x[i], A[i])
+                     for i in range(2)]))
+    ops.reset_launches()
+    emit("stack.folded", **out)
+    # (the kernels' rows are each computed alone; on the CPU, a rehearsal,
+    # the plain versions' GEMMs may block a batch of 2B otherwise)
+    bad = [name for name, r in out.items()
+           if not (r["bit_equal"] and r["launches_folded"] == 1
+                   and r["launches_per_member"] == 2)]
+    if bad and on_card:
+        fail(f"stack: folded launches {bad}: {out}")
+
+
+def stack_compare(torch, dev, tag, model, space, params, tokens, *,
+                  n_clients: int, stack, backend=None, cut=None):
+    """One model's train burst, the stacked route (``stack``: True, or None
+    where the auto rule is to pick it) against ``stack_forwards=False``:
+    the burst's first pair through both (``fl_step.pair_losses``: per
+    example within STACK_LOSS_REL), then the burst each way twice (the
+    second timed), its scalars and parameters within the bounds the gaps
+    imply; ``cut`` says how the model was cut to fit.  Returns (the line's
+    numbers, launch counts over the calls, the counts they imply)."""
+    from repro_torch.core import fl_step as FS
+    from repro_torch.core import prng
+    from repro_torch.core.dispatch import get_backing
+    from repro_torch.kernels import ops
+
+    def loss(p, b):
+        return model.loss(p, b, per_example=True)
+
+    on_card = dev.type == "cuda"
+    cuda = torch.cuda
+    sync = cuda.synchronize if on_card else (lambda: None)
+    cfg = model.cfg
+    n_attn = n_mixers(cfg, "attn")
+    n_mamba = n_mixers(cfg, "mamba")
+    n_steps = int(tokens.shape[0])
+    backing = get_backing(space, params)
+    key = prng.key(1)
+    keys = prng.split(key, n_steps)
+    auto = FS.stacks_forwards(None, backing)
+    if stack is None and not auto:
+        fail(f"stack {tag}: the auto rule does not stack at "
+             f"{backing.n_flat} flat parameters")
+    total = {fn.__name__: 0 for fn in ops.KERNEL_WRAPPERS}
+    expected = dict(total)
+
+    def count(n1=0, n2=0, n3=0, n8=0):
+        for name, c in ops.launches().items():
+            total[name] += c
+        for name, c in (("zo_dual_perturb_flat", n1),
+                        ("zo_fused_update_flat", n2),
+                        ("flash_attention", n3), ("mamba_scan", n8)):
+            expected[name] += c if on_card else 0
+        ops.reset_launches()
+
+    # the first pair, both ways, on the same w, z and rows
+    ops.reset_launches()
+    with torch.no_grad():
+        w_flat = backing.flatten(params)
+        z_flat = backing.expand(space.sample_z(keys[0]))
+        b0 = {"tokens": tokens[0]}
+        seq = FS.pair_losses(loss, backing, w_flat, z_flat, b0, STACK_EPS,
+                             stack=False)
+        stk = FS.pair_losses(loss, backing, w_flat, z_flat, b0, STACK_EPS,
+                             stack=True)
+    del w_flat, z_flat
+    sync()
+    count(2, 0, 3 * n_attn, 3 * n_mamba)
+    loss_rel = max(float(((a - b).abs() / b.abs()).max())
+                   for a, b in zip(stk, seq))
+    gap = ((stk[0] - seq[0]).abs() + (stk[1] - seq[1]).abs())
+    g_bound = gap.reshape(n_clients, -1).mean(-1) / (2 * STACK_EPS)
+    z_max = [float(space.sample_z(k).abs().max()) for k in keys]
+    del stk, seq
+
+    runs = {}
+    for label, st in (("stacked", stack), ("sequential", False)):
+        loop = FS.make_fl_train_loop(
+            loss, space, eps=STACK_EPS, lr=STACK_LR, n_clients=n_clients,
+            n_steps=n_steps, backend=backend, stack_forwards=st)
+        per = 1 if label == "stacked" else 2
+        for rep in range(2):
+            gc.collect()
+            sync()
+            if on_card:
+                cuda.reset_peak_memory_stats()
+            before = cuda.memory_allocated() if on_card else 0
+            t0 = time.perf_counter()
+            p, gs, met = loop(params, key, {"tokens": tokens})
+            sync()
+            secs = time.perf_counter() - t0
+            row3 = ops.launches()["flash_attention"]
+            count(n_steps, n_steps, per * n_steps * n_attn,
+                  per * n_steps * n_mamba)
+            if rep == 0:
+                peak = cuda.max_memory_allocated() if on_card else None
+                runs[label] = dict(
+                    gs=gs, loss=float(met["loss"]),
+                    coords=space.slice(p).float(),
+                    peak_gb=peak and peak / 1e9,
+                    rise_gb=peak and (peak - before) / 1e9,
+                    row3_per_step=(row3 / n_steps if on_card
+                                   else per * n_attn))
+            else:
+                runs[label]["ms_per_step"] = secs * 1e3 / n_steps
+            del p, gs, met
+    a, b = runs["stacked"], runs["sequential"]
+    dg = (a["gs"] - b["gs"]).abs()                   # [steps, K]
+    g_first_ok = bool((dg[0] <= g_bound * (1 + 1e-3)
+                       + 1e-6 * b["gs"][0].abs()).all())
+    step_dg = (a["gs"].mean(1) - b["gs"].mean(1)).abs().tolist()
+    w_max = float(b["coords"].abs().max())
+    p_bound = sum(STACK_LR * d * zm + w_max * 2.0 ** -23
+                  for d, zm in zip(step_dg, z_max))
+    p_gap = float((a["coords"] - b["coords"]).abs().max())
+    finite = bool(torch.isfinite(a["gs"]).all()
+                  and torch.isfinite(b["gs"]).all())
+    line = dict(
+        model=cfg.name, cut=cut, n_params=backing.n_flat, auto_stacks=auto,
+        stack_forwards=stack, steps=n_steps, clients=n_clients,
+        rows=int(tokens.shape[1]), seq_len=int(tokens.shape[2]),
+        attn_layers=n_attn, mamba_layers=n_mamba,
+        first_pair_loss_rel=loss_rel, loss_rel_bound=STACK_LOSS_REL,
+        first_step_g_gap=float(dg[0].max()),
+        first_step_g_bound=float(g_bound.max()),
+        g_gap_per_step=step_dg, param_gap=p_gap, param_bound=p_bound,
+        row3_per_step={k: r["row3_per_step"] for k, r in runs.items()},
+        ms_per_step={k: r["ms_per_step"] for k, r in runs.items()},
+        peak_gb={k: r["peak_gb"] for k, r in runs.items()},
+        rise_gb={k: r["rise_gb"] for k, r in runs.items()},
+        burst_loss={k: r["loss"] for k, r in runs.items()}, finite=finite)
+    emit(f"stack.{tag}", **line)
+    problems = []
+    if not finite:
+        problems.append("non-finite scalars")
+    if loss_rel > STACK_LOSS_REL:
+        problems.append(f"per-example losses {loss_rel}")
+    if not g_first_ok:
+        problems.append("first-step scalars past the loss gaps' bound")
+    if p_gap > p_bound:
+        problems.append(f"parameters {p_gap} > {p_bound}")
+    if a["row3_per_step"] != n_attn or b["row3_per_step"] != 2 * n_attn:
+        problems.append(f"row-3 launches a step {line['row3_per_step']}")
+    if problems:
+        fail(f"stack {tag}: {problems}")
+    return line, total, expected
+
+
+def run_stack_drills(torch, dev):
+    """``tools/kill_recover_torch.py``'s drill (each run a subprocess on
+    ``dev``'s type, the card), STACK_DRILLS' two flag sets side by side:
+    each victim SIGKILLed in round 2, each survivor's final checkpoint
+    bit-equal to its reference."""
+    import importlib.util
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    spec = importlib.util.spec_from_file_location(
+        "kill_recover_torch", ROOT / "tools" / "kill_recover_torch.py")
+    KR = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(KR)
+    (ROOT / "build").mkdir(exist_ok=True)
+
+    def one(flags):
+        a = KR.parser().parse_args(["--rounds", "4", "--kill-at", "2",
+                                    "--device", dev.type, *flags])
+        work = tempfile.mkdtemp(prefix="drill_", dir=ROOT / "build")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            checks = KR.drill(a, work, timeout=300)
+        shutil.rmtree(work, ignore_errors=True)
+        return dict(flags=" ".join(flags) or "plain", ok=KR.passed(checks),
+                    seconds=time.perf_counter() - t0, checks=checks)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(STACK_DRILLS)) as pool:
+        rows = list(pool.map(one, STACK_DRILLS))
+    emit("stack.drill", seconds=time.perf_counter() - t0, drills=rows)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"stack: the kill-and-recover drill failed: {bad}")
+
+
+def run_stack(torch, dev, cfgs):
+    """Phase stack (module docstring).  Returns (launch counts of its train
+    bursts, the counts they imply)."""
+    import numpy as np
+
+    from repro_torch.core import random_mask
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+
+    tiny, llama, jamba = cfgs
+    check_folded_launches(torch, ops, dev)
+    total, expected = {}, {}
+
+    def add(counts, exp):
+        for k in counts:
+            total[k] = total.get(k, 0) + counts[k]
+            expected[k] = expected.get(k, 0) + exp[k]
+
+    def tokens_for(cfg, steps, rows, seq):
+        rng = np.random.default_rng(SEED)
+        return torch.as_tensor(rng.integers(
+            0, cfg.vocab, size=(steps, rows, seq), dtype=np.int32),
+            device=dev)
+
+    jamba_cut = (f"the first {jamba.n_layers} of the slice_jamba cut's 4 "
+                 f"layers at full width: the flat route holds some five f32 "
+                 f"copies of the parameters (98 GB at 4.9 B)")
+    for tag, cfg, n_cl, rows, steps, stack, backend, cut in (
+            ("tiny", tiny, STACK_TINY_CLIENTS, STACK_TINY_BATCH,
+             STACK_TINY_STEPS, None, None, "d_model 256, vocab 256"),
+            ("llama", llama, AN_CLIENTS, AN_BATCH, AN_STEPS, True, None,
+             None),
+            ("jamba", jamba, STACK_JAMBA_CLIENTS, 1, AN_STEPS, True,
+             "kernel", jamba_cut)):
+        t0 = time.perf_counter()
+        model = Model(cfg, device=dev)
+        params = model.init(seed=SEED)
+        space = random_mask(params, density=DENSITY, seed=3, balanced=False)
+        seq = STACK_TINY_S if tag == "tiny" else SEQ_LEN
+        tokens = tokens_for(cfg, steps, n_cl * rows, seq)
+        setup_s = time.perf_counter() - t0
+        _, counts, exp = stack_compare(torch, dev, tag, model, space,
+                                       params, tokens, n_clients=n_cl,
+                                       stack=stack, backend=backend, cut=cut)
+        add(counts, exp)
+        emit(f"stack.{tag}.done", setup_s=setup_s,
+             seconds=time.perf_counter() - t0)
+        del model, params, space, tokens
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    run_stack_drills(torch, dev)
+    return total, expected
 
 
 def run_analysis_phase(torch, dev, cfg):
@@ -4998,6 +5344,7 @@ def _main(torch) -> int:
                                      LLAMA32_1B, PHI35_MOE, PIXTRAL_12B,
                                      QWEN3_4B, WHISPER_SMALL, XLSTM_350M)
     from repro_torch.configs.jamba_1_5_large_398b import SLICE_CUT
+    from repro_torch.configs.tiny import TINY
     from repro_torch.kernels import build, ops, ref
     t0 = time.perf_counter()
     build.load()
@@ -5061,6 +5408,13 @@ def _main(torch) -> int:
                                           layer_pattern=JAMBA_SERVE_PATTERN)
     families = (XLSTM_350M, WHISPER_SMALL,
                 PIXTRAL_12B.replace(n_layers=PIXTRAL_LAYERS))
+    # phase stack: TINY at the registry's width, Llama-3.2-1B, and Jamba
+    # cut to its first STACK_JAMBA_LAYERS layers at full width
+    stack_cfgs = (TINY.replace(vocab=256, d_model=256), LLAMA32_1B,
+                  SLICE_CUT.replace(
+                      n_layers=STACK_JAMBA_LAYERS,
+                      layer_pattern=SLICE_CUT.layer_pattern[
+                          :STACK_JAMBA_LAYERS]))
     launches = {name: 0 for name in KERNEL_SOURCES}
     for phase, run, cfg in (("slice", run_slice, LLAMA32_1B),
                             ("fleet", run_fleet, LLAMA32_1B),
@@ -5081,6 +5435,7 @@ def _main(torch) -> int:
                             ("families", run_families, families),
                             ("examples", run_examples, None),
                             ("analysis", run_analysis_phase, LLAMA32_1B),
+                            ("stack", run_stack, stack_cfgs),
                             ("autotune", run_autotune,
                              (LLAMA32_1B, qwen3, chatglm3, gemma))):
         t0 = time.perf_counter()

@@ -51,7 +51,10 @@ def _tokens(dev, *shape, high=256):
 
 def build_zo_train_loop(dev) -> Built:
     """The training burst: ``fl_step.make_fl_train_loop`` (T=1 MEERKAT
-    steps), flat kernel route, 2 steps x 2 clients at S=320."""
+    steps), flat kernel route, 2 steps x 2 clients at S=320.  At 656,640
+    flat parameters the auto rule stacks the (w+, w-) forwards
+    (``fl_step.STACK_FORWARDS_MAX_PARAMS``): one vmapped forward a step,
+    one folded flash-attention record a layer."""
     from repro_torch.core import prng
     from repro_torch.core.fl_step import make_fl_train_loop
     cfg, model, params, space = _tiny_lm(dev)

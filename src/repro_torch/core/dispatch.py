@@ -104,11 +104,14 @@ class FlatBacking:
 
     def unflatten(self, flat):
         """Split a flat [n_pad] (or [N]) vector back into the tree: views
-        of ``flat`` wherever the leaf dtype matches (no copy)."""
+        of ``flat`` wherever the leaf dtype matches (no copy).  Leading
+        axes of ``flat`` ([..., n_pad]: the stacked (w+, w-) pair) lead
+        every leaf."""
         out = []
+        lead = tuple(flat.shape[:-1])
         for o, s, sh, dt in zip(self.offsets[:-1], self.sizes, self.shapes,
                                 self.dtypes):
-            seg = flat[o:o + s].view(sh)
+            seg = flat[..., o:o + s].view(*lead, *sh)
             out.append(seg if seg.dtype == dt else seg.to(dt))
         return tree_unflatten(self.treedef, out)
 

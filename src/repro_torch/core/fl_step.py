@@ -37,9 +37,16 @@ coordinates in place (``core/spaces.ShardedMask``; the placed parameters
 are updated in place, as JAX donates them).  The batch rows split over the
 batch axes only.
 
-Left out against the JAX package: ``stack_forwards=True`` (``jax.vmap``
-over the (w+, w-) pair; the ctypes-bound kernels cannot be vmapped, so the
-two forwards always run in sequence, ROADMAP C).
+The train loop's flat route may stack the (w+, w-) pair, as the JAX
+package does (``stack_forwards``; None picks it up to
+:data:`STACK_FORWARDS_MAX_PARAMS` flat parameters): ``zo_dual_perturb_flat``
+writes both rows of one [2, n_pad] buffer and ``torch.func.vmap`` runs the
+per-example loss over them, one forward of twice the batch.  The kernels a
+forward reaches fold the pair into their batch (``kernels/ops.py``'s vmap
+rules): one flash-attention launch per attention layer for the pair, not
+two.  Under a mesh plan only the loss is vmapped and the stacked losses are
+gathered once; under ``rule="tp"`` (DTensor leaves) stacking raises
+``ValueError`` (ROADMAP C9).
 
 Everything runs under ``torch.no_grad()`` and eagerly: ``n_steps`` is a
 Python loop in place of ``jax.lax.scan``.
@@ -51,9 +58,26 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.dispatch import get_backing, resolve_backend
+from repro_torch.core.dispatch import (ShardedBacking, get_backing,
+                                       resolve_backend)
 from repro_torch.core.spaces import has_dtensors, sharded
 from repro_torch.kernels.ops import zo_dual_perturb_flat, zo_fused_update_flat
+
+
+# Below this many backed parameters the JAX package's measurements found
+# the per-step cost dominated by op dispatch, and the stacked (w+, w-)
+# forward, which halves the dispatches, the faster; the same rule picks the
+# route here (PERF.md has the port's times of both routes on an H100).
+STACK_FORWARDS_MAX_PARAMS = 1 << 20
+
+
+def stacks_forwards(stack_forwards: Optional[bool], backing) -> bool:
+    """Whether the flat route stacks the pair: ``stack_forwards`` where it
+    is given, else whether ``backing.n_flat`` is at most
+    :data:`STACK_FORWARDS_MAX_PARAMS` (the JAX package's pick)."""
+    if stack_forwards is None:
+        return backing.n_flat <= STACK_FORWARDS_MAX_PARAMS
+    return bool(stack_forwards)
 
 
 def _masked_mean(g_clients, report_mask):
@@ -95,21 +119,58 @@ def _rank_rows(plan, n_clients: int):
     return rows
 
 
+def pair_losses(per_example_loss: Callable, backing, w_flat, z_flat, batch,
+                eps: float, *, stack: bool, gather=None):
+    """(l+, l-): the per-example losses at w +- eps z on the flat route,
+    from one ``zo_dual_perturb_flat``.  ``stack`` writes the pair into the
+    rows of one [2, n_pad] buffer and runs ``per_example_loss`` once under
+    ``torch.func.vmap`` over its leading axis (the kernels fold the pair
+    into their batch); otherwise the two forwards run in sequence, each
+    perturbed vector freed after its own.  ``gather`` (the mesh route's)
+    takes each rank's losses to the group's, once, outside vmap."""
+    if not stack:
+        wp, wm = zo_dual_perturb_flat(w_flat, z_flat, None, eps)
+        l_plus = per_example_loss(backing.unflatten(wp), batch)
+        del wp
+        l_minus = per_example_loss(backing.unflatten(wm), batch)
+        del wm
+        if gather is not None:
+            l_plus, l_minus = gather(l_plus), gather(l_minus)
+        return l_plus, l_minus
+    if isinstance(backing, ShardedBacking):
+        raise ValueError("stack_forwards: the tensor-parallel route "
+                         "(rule='tp', DTensor parameters) cannot run its "
+                         "forward under torch.func.vmap; pass "
+                         "stack_forwards=False (ROADMAP C9)")
+    pair = torch.empty((2, backing.n_pad), dtype=w_flat.dtype,
+                       device=w_flat.device)
+    zo_dual_perturb_flat(w_flat, z_flat, None, eps, out=pair)
+    both = torch.func.vmap(per_example_loss, in_dims=(0, None))(
+        backing.unflatten(pair), batch)                      # [2, rows]
+    del pair
+    if gather is not None:
+        both = gather(both.T.contiguous()).T
+    return both[0], both[1]
+
+
 def _step_bodies(per_example_loss: Callable, space, eps: float, lr: float,
                  n_clients: int, quantize=None, plan=None):
     """The T=1 step on each route, shared by the step and the loop:
     ``ref(p, z, batch, mask, key)`` over the parameter tree (on DTensor
     parameters, in place on the shards) and ``flat(backing, w_flat, z_flat,
-    batch, mask, key)`` over the flat vector (of the rank's shards, on a
-    ``ShardedBacking``); each returns (the new params or flat vector,
-    g_clients [K], g, loss).  ``key`` is the step's, for the quantizer's
-    rounding draw.  Under a ``plan`` the batch holds the rank's rows, and
-    the per-example losses of every rank's rows are gathered before the
-    scalars."""
-    per_example = per_example_loss
+    batch, mask, key, stack=False)`` over the flat vector (of the rank's
+    shards, on a ``ShardedBacking``; ``stack``: :func:`pair_losses`); each
+    returns (the new params or flat vector, g_clients [K], g, loss).
+    ``key`` is the step's, for the quantizer's rounding draw.  Under a
+    ``plan`` the batch holds the rank's rows, and the per-example losses of
+    every rank's rows are gathered before the scalars."""
+    per_example, gather = per_example_loss, None
     if plan is not None:
+        def gather(losses):
+            return plan.gather_clients(losses, n_clients)
+
         def per_example(p, batch):
-            return plan.gather_clients(per_example_loss(p, batch), n_clients)
+            return gather(per_example_loss(p, batch))
 
     def finish(l_plus, l_minus, mask, key):
         g_clients = _g_clients(l_plus, l_minus, n_clients, eps)
@@ -137,12 +198,10 @@ def _step_bodies(per_example_loss: Callable, space, eps: float, lr: float,
         g_clients, g, loss = finish(l_plus, l_minus, mask, key)
         return space.add(w_minus, (eps - lr * g) * z), g_clients, g, loss
 
-    def flat(backing, w_flat, z_flat, batch, mask, key):
-        wp, wm = zo_dual_perturb_flat(w_flat, z_flat, None, eps)
-        l_plus = per_example(backing.unflatten(wp), batch)
-        del wp
-        l_minus = per_example(backing.unflatten(wm), batch)
-        del wm
+    def flat(backing, w_flat, z_flat, batch, mask, key, stack=False):
+        l_plus, l_minus = pair_losses(per_example_loss, backing, w_flat,
+                                      z_flat, batch, eps, stack=stack,
+                                      gather=gather)
         g_clients, g, loss = finish(l_plus, l_minus, mask, key)
         return (zo_fused_update_flat(w_flat, z_flat, None, -lr * g),
                 g_clients, g, loss)
@@ -205,16 +264,17 @@ def make_fl_train_loop(per_example_loss: Callable, space, *, eps: float,
     loop and carried across it, as is one dense z buffer whose sparse
     coordinates each step overwrites in place: each step is one
     ``zo_dual_perturb_flat``, the two forwards and one
-    ``zo_fused_update_flat``.  ``stack_forwards`` may be None or False (two
-    forwards in sequence, see the module docstring).  ``quantize`` and
-    ``constrain_params`` mirror :func:`make_fl_train_step`, ``quantize``
-    under each step's key; the mesh route gathers the parameters once a
-    burst."""
-    if stack_forwards:
-        raise NotImplementedError(
-            "stack_forwards=True vmaps the (w+, w-) forwards in the JAX "
-            "package; the port's ctypes-bound kernels cannot be vmapped, so "
-            "it always runs the two forwards in sequence")
+    ``zo_fused_update_flat``.  ``stack_forwards`` picks how the flat route
+    runs the forwards, as in the JAX package: True stacks w+ and w- into
+    one [2, n_pad] buffer and runs one vmapped forward of twice the batch
+    (each kernel of the forward launched once for the pair), False runs
+    the two in sequence, each perturbed vector freed after its forward;
+    None stacks up to :data:`STACK_FORWARDS_MAX_PARAMS` flat parameters
+    (:func:`stacks_forwards`).  The ``ref`` route never stacks.  Stacking
+    raises ``ValueError`` on tensor-parallel (DTensor) parameters.
+    ``quantize`` and ``constrain_params`` mirror :func:`make_fl_train_step`,
+    ``quantize`` under each step's key; the mesh route gathers the
+    parameters once a burst."""
     plan = _mesh_plan(constrain_params)
     ref, flat = _step_bodies(per_example_loss, space, eps, lr, n_clients,
                              quantize, plan)
@@ -241,10 +301,11 @@ def make_fl_train_loop(per_example_loss: Callable, space, *, eps: float,
             w_flat = backing.flatten(params)  # once per burst, not per step
             z_buf = torch.zeros(backing.n_pad, dtype=torch.float32,
                                 device=backing.device)
+            stack = stacks_forwards(stack_forwards, backing)
             for b, k, mask in steps:
                 z_flat = backing.scatter_into(z_buf, space.sample_z(k))
                 w_flat, g_cl, _, loss = flat(backing, w_flat, z_flat, b, mask,
-                                             k)
+                                             k, stack)
                 gs.append(g_cl)
                 losses.append(loss)
             p = backing.unflatten(w_flat)

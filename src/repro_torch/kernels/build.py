@@ -48,7 +48,8 @@ SIGNATURES = {
                               _I, _P, _P], _I),
     "flash_decode": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
                       _P], _I),
-    "mamba_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "mamba_scan": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                   _I),
     "fixture_double": ([_P, _P, _I, _I, _I, _P], _I),
     # launch-plan queries (kernels/plans.py): shapes in, launches out
     "zo_update_plan": ([_I, _LL, _I, _I, _I, _P], _I),

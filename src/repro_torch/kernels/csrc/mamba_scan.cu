@@ -44,6 +44,9 @@
 //   after the last tile h_last.
 // * y goes back through the x slots of the tile (each lane overwrites only
 //   what it read) and leaves coalesced, 16 bytes a thread.
+// A is [B / a_rows, E, N]: each run of a_rows batch rows shares one A (the
+// model's call passes a_rows = B, one A; the stacked forward's folded call,
+// ops.mamba_scan's vmap rule, one A per member).
 // Positions past S read dt = x = B = C = 0 (zero-filled copies), which
 // leaves h as it is (exp2(0) = 1 and no input), so h_last is the state
 // after the last position; channels past E are masked on the way out.  Any
@@ -100,7 +103,8 @@ struct Params {
   const float *dt, *Bm, *Cm, *x, *A;
   float *y, *h_last;
   int S, E;
-  bool vec;  // 16-byte copies
+  int a_rows;  // batch rows a slice of A serves
+  bool vec;    // 16-byte copies
 };
 
 // Issue the copies of tile t0.. of row b, channels e0.., into buf.
@@ -243,12 +247,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int b = blockIdx.y, e0 = blockIdx.x * kChan;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ch = warp * (32 / kSeg) + lane / kSeg, s = lane % kSeg;
+  const float* A = p.A + (size_t)(b / p.a_rows) * p.E * N;
 
   load_tile<N>(p, smem, b, e0, 0);
   cp_commit();
   for (int i = tid; i < kChan * N; i += kThreads) {
     const int e = e0 + i / N;
-    sA[i] = e < p.E ? p.A[(size_t)e * N + i % N] * kLog2e : 0.f;
+    sA[i] = e < p.E ? A[(size_t)e * N + i % N] * kLog2e : 0.f;
     sH[i] = 0.f;
   }
   const int n_tiles = (p.S + kTile - 1) / kTile;
@@ -290,17 +295,19 @@ cudaError_t launch(const Params& p, int B, cudaStream_t st) {
 
 }  // namespace
 
-// dt, x, y [B, S, E]; Bm, Cm [B, S, N]; A [E, N]; h_last [B, E, N]; all f32
-// and contiguous.  N must be 8 or 16, S >= 1.
+// dt, x, y [B, S, E]; Bm, Cm [B, S, N]; A [B / a_rows, E, N]; h_last
+// [B, E, N]; all f32 and contiguous.  N must be 8 or 16, S >= 1, and a_rows
+// >= 1 must divide B.
 extern "C" int mamba_scan(const float* dt, const float* Bm, const float* Cm,
                           const float* x, const float* A, float* y,
                           float* h_last, int B, int S, int E, int N,
-                          void* stream) {
+                          int a_rows, void* stream) {
   if ((N != 16 && N != 8) || S < 1) return cudaErrorInvalidValue;
   if (B == 0 || E == 0) return 0;
+  if (a_rows < 1 || B % a_rows) return cudaErrorInvalidValue;
   const bool vec = E % 4 == 0 && aligned(dt, 16) && aligned(x, 16) &&
                    aligned(y, 16) && aligned(Bm, 16) && aligned(Cm, 16);
-  const Params p{dt, Bm, Cm, x, A, y, h_last, S, E, vec};
+  const Params p{dt, Bm, Cm, x, A, y, h_last, S, E, a_rows, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return N == 16 ? launch<16>(p, B, st) : launch<8>(p, B, st);
 }

@@ -21,6 +21,14 @@ runs inside (the plain version on the CPU, the output allocations on the
 card) go under that record, with the launch plan of its shapes
 (``plans.py``).  With no recorder active a call costs one ``is None`` test
 more.
+
+Under ``torch.func.vmap`` (the train burst's stacked (w+, w-) forward,
+``core/fl_step.py``) two wrappers have a vmap rule, on the card and on the
+CPU alike: :func:`flash_attention` and :func:`mamba_scan` fold the mapped
+axis into their batch axis and make one call at the folded shape, which is
+the launch that is counted and recorded.  Every other wrapper raises when
+a ``torch.func`` transform hands it its tensors: nothing reaches a
+``data_ptr()`` batched, and nothing runs a plain version instead.
 """
 from __future__ import annotations
 
@@ -41,19 +49,46 @@ _FLOATS = (torch.float32, torch.bfloat16)
 recorder = None  # the analyzer's active Recorder (analysis/walk.py), or None
 
 
-def _recorded(plan_of):
+def _transformed(args, kwargs) -> bool:
+    """Whether a ``torch.func`` transform (vmap, grad) wraps a tensor of
+    the call; one flag read while no transform is active."""
+    if not torch._C._are_functorch_transforms_active():
+        return False
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return any(isinstance(t, torch.Tensor) and wrapped(t)
+               for t in (*args, *kwargs.values()))
+
+
+def _recorded(plan_of, vmap_rule: bool = False):
     """Decorate a wrapper so that an active :data:`recorder` takes the call
     as one kernel record; ``plan_of(n_sms, *args, **kwargs)`` gives its
-    launches (``plans.Launch``) from the call's arguments."""
+    launches (``plans.Launch``) from the call's arguments.  A call on a
+    ``torch.func`` transform's tensors raises unless the wrapper has a
+    ``vmap_rule``; with one, it is not recorded, as the rule's folded call
+    is."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
+            if _transformed(args, kwargs):
+                if not vmap_rule:
+                    raise RuntimeError(
+                        f"kernel {fn.__name__} has no vmap rule: it cannot "
+                        f"run under torch.func transforms")
+                return fn(*args, **kwargs)
             rec = recorder
             if rec is None:
                 return fn(*args, **kwargs)
             return rec.kernel(fn.__name__, plan_of, fn, args, kwargs)
         return wrapper
     return deco
+
+
+def _fold(t, in_dim, n: int):
+    """A vmap rule's operand with its mapped axis ``in_dim`` (None: not
+    mapped, broadcast) folded into its leading axis: [n * B, ...]; a free
+    reshape where the mapped axis leads a contiguous tensor."""
+    t = t.expand(n, *t.shape) if in_dim is None else t.movedim(in_dim, 0)
+    return t.reshape(n * t.shape[1], *t.shape[2:])
 
 
 def _aligned(t, nbytes: int) -> bool:
@@ -184,24 +219,44 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-@_recorded(_zo_plan(update=False))
-def zo_dual_perturb_flat(w_flat, z_flat, m_flat, eps):
+def _zo_dual_plan(n_sms, w_flat, z_flat, m_flat, eps, *, out=None):
+    return _zo_plan(update=False)(n_sms, w_flat, z_flat, m_flat, eps)
+
+
+@_recorded(_zo_dual_plan)
+def zo_dual_perturb_flat(w_flat, z_flat, m_flat, eps, *, out=None):
     """(w + eps*z*m, w - eps*z*m) over flat [N] vectors; ``m_flat=None``
-    means z is already zero off the sparse coordinates."""
-    if _on_cpu(w_flat, z_flat, m_flat):
-        return ref.dual_perturb_ref(w_flat, z_flat, m_flat, eps)
+    means z is already zero off the sparse coordinates.  ``out``, a
+    contiguous [2, N] tensor of w's dtype, takes w+ and w- as its two rows
+    (the stacked forward's pair, with no copy); it is returned then."""
+    if out is not None and (out.shape != (2, *w_flat.shape)
+                            or out.dtype != w_flat.dtype
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous [2, {w_flat.shape[0]}] "
+                         f"{w_flat.dtype} tensor, got {tuple(out.shape)} "
+                         f"{out.dtype}")
+    if _on_cpu(w_flat, z_flat, m_flat, out):
+        plus, minus = ref.dual_perturb_ref(w_flat, z_flat, m_flat, eps)
+        if out is None:
+            return plus, minus
+        out[0].copy_(plus)
+        out[1].copy_(minus)
+        return out
     _check_flat(w_flat, z_flat, m_flat)
     lib = build.load()
     eps_t = _scalar_on(eps, w_flat.device)
-    plus = torch.empty_like(w_flat)
-    minus = torch.empty_like(w_flat)
+    if out is None:
+        plus = torch.empty_like(w_flat)
+        minus = torch.empty_like(w_flat)
+    else:
+        plus, minus = out[0], out[1]
     rc = lib.zo_dual_perturb(
         w_flat.data_ptr(), z_flat.data_ptr(), _ptr(m_flat), eps_t.data_ptr(),
         plus.data_ptr(), minus.data_ptr(), w_flat.numel(),
         int(w_flat.dtype == torch.bfloat16), _stream(w_flat))
     build.check(lib, rc, "zo_dual_perturb")
     zo_dual_perturb_flat.launches += 1
-    return plus, minus
+    return (plus, minus) if out is None else out
 
 
 @_recorded(_zo_plan(update=True))
@@ -507,17 +562,25 @@ class FlashAttentionFn(torch.autograd.Function):
     backward runs the dQ and dK/dV recompute kernels, so no [S, S] tensor
     outlives a tile.  ``tiling`` is the forward's (R, BK), ``bwd_tiling``
     the backward's (both kernels take it).  Returns (O, lse); lse is not
-    differentiable."""
+    differentiable.
+
+    Its vmap rule folds the mapped axis into B (``[n, B, S, ...]`` to
+    ``[n * B, S, ...]``, the lengths repeated per member) and makes one
+    :func:`flash_attention` call there: one launch for the n members, each
+    row computed as alone, so bit-equal to a launch per member."""
 
     @staticmethod
-    def forward(ctx, q, k, v, L, window, softcap, causal, tiling,
-                bwd_tiling):
-        out, lse = _flash_fwd(q, k, v, L, window, softcap, causal, tiling)
+    def forward(q, k, v, L, window, softcap, causal, tiling, bwd_tiling):
+        return _flash_fwd(q, k, v, L, window, softcap, causal, tiling)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, L, window, softcap, causal, _, bwd_tiling = inputs
+        out, lse = output
         ctx.save_for_backward(q, k, v, L, out, lse)
         ctx.attn = dict(window=window, softcap=softcap, causal=causal,
                         tiling=bwd_tiling)
         ctx.mark_non_differentiable(lse)
-        return out, lse
 
     @staticmethod
     def backward(ctx, do, _):
@@ -532,8 +595,22 @@ class FlashAttentionFn(torch.autograd.Function):
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
                 None, None, None, None)
 
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, L, window, softcap, causal, tiling,
+             bwd_tiling):
+        n = info.batch_size
+        qf, kf, vf, Lf = (_fold(t, d, n)
+                          for t, d in zip((q, k, v, L), in_dims))
+        G = qf.shape[2] // kf.shape[2]
+        bq, bk = (None, None) if tiling is None else \
+            plans.tiling_blocks(tiling, G)
+        out, lse = flash_attention(qf, kf, vf, Lf, window=window,
+                                   softcap=softcap, causal=causal,
+                                   return_lse=True, block_q=bq, block_k=bk)
+        return (out.unflatten(0, (n, -1)), lse.unflatten(0, (n, -1))), (0, 0)
 
-@_recorded(_flash_plan())
+
+@_recorded(_flash_plan(), vmap_rule=True)
 def flash_attention(q, k, v, lengths=None, *, window: int = 0,
                     softcap: float = 0.0, causal: bool = True,
                     return_lse: bool = False, block_q=None, block_k=None):
@@ -554,7 +631,8 @@ def flash_attention(q, k, v, lengths=None, *, window: int = 0,
     ``ValueError``, on the CPU too (where the plain version runs whatever
     the tiling).
 
-    While autograd records through q, k or v the call goes through
+    While autograd records through q, k or v, or under ``torch.func.vmap``
+    (:class:`FlashAttentionFn`'s vmap rule), the call goes through
     :class:`FlashAttentionFn`, whose backward runs the recompute kernels at
     the table's ``grad`` pick (else the default backward tiling);
     otherwise it is one forward launch."""
@@ -562,7 +640,9 @@ def flash_attention(q, k, v, lengths=None, *, window: int = 0,
     L = _lengths(lengths, B, S, q)
     tiling = fwd_tiling(S, hd, G, block_q, block_k)
     args = (q, k, v, L, int(window), float(softcap), bool(causal), tiling)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if (torch._C._are_functorch_transforms_active()
+            or (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (q, k, v)))):
         out, lse = FlashAttentionFn.apply(*args, grad_tiling(S, hd, G))
     else:
         out, lse = _flash_fwd(*args)
@@ -621,26 +701,59 @@ def flash_decode(q, k, v, length, softcap: float = 0.0):
     return out
 
 
+class MambaScanFn(torch.autograd.Function):
+    """:func:`mamba_scan` as a function with a vmap rule (no backward, as
+    the kernel has none): the mapped axis folds into B, dt, B, C and x to
+    ``[n * B, S, ...]``, and a mapped A (a member's -exp(A_log), which the
+    stacked forward always maps) becomes the kernel's per-member A
+    ``[n, E, N]``, each serving its member's B rows.  One
+    :func:`mamba_scan` call, one launch for the n members, each row
+    computed as alone, so bit-equal to a launch per member."""
+
+    @staticmethod
+    def forward(dt, B_in, C_in, x, A):
+        return _mamba_scan(dt, B_in, C_in, x, A)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass  # no backward: mamba_scan raises under autograd first
+
+    @staticmethod
+    def vmap(info, in_dims, dt, B_in, C_in, x, A):
+        n = info.batch_size
+        dtf, Bf, Cf, xf = (_fold(t, d, n) for t, d in
+                           zip((dt, B_in, C_in, x), in_dims))
+        if in_dims[4] is not None:
+            A = A.movedim(in_dims[4], 0).contiguous()  # [n, E, N]
+        y, h = mamba_scan(dtf, Bf, Cf, xf, A)
+        return (y.unflatten(0, (n, -1)), h.unflatten(0, (n, -1))), (0, 0)
+
+
 @_recorded(lambda n_sms, dt, B_in, C_in, x, A: plans.mamba_scan(
-    *dt.shape, B_in.shape[-1]))
+    *dt.shape, B_in.shape[-1]), vmap_rule=True)
 def mamba_scan(dt, B_in, C_in, x, A):
     """Mamba-1 selective scan (``repro.kernels.ops.mamba_scan_op``): dt, x
-    [B, S, E] (dt after softplus); B_in, C_in [B, S, N]; A [E, N].  Returns
-    (y [B, S, E] f32, h_last [B, E, N] f32), ``h_t = exp(dt_t * A) h_{t-1}
-    + (dt_t * x_t) B_t`` and ``y_t = <h_t, C_t>`` from h = 0.
+    [B, S, E] (dt after softplus); B_in, C_in [B, S, N]; A [E, N], or [G,
+    E, N] with G dividing B (each run of B / G rows its own A: the stacked
+    forward's folded call).  Returns (y [B, S, E] f32, h_last [B, E, N]
+    f32), ``h_t = exp(dt_t * A) h_{t-1} + (dt_t * x_t) B_t`` and ``y_t =
+    <h_t, C_t>`` from h = 0.
 
     The JAX kernel has no VJP, and neither has this one: it raises while
     autograd records through any operand (the model's ``scan`` route is the
     differentiable one).  On CUDA it launches ``csrc/mamba_scan.cu`` on
     contiguous f32 operands with N in ``MAMBA_STATE_DIMS``; any B, S and E
-    (the TPU wrapper needed S and E divisible by its blocks)."""
+    (the TPU wrapper needed S and E divisible by its blocks).  Under
+    ``torch.func.vmap`` it goes through :class:`MambaScanFn`'s rule."""
     if dt.dim() != 3 or B_in.dim() != 3:
         raise ValueError(f"mamba_scan takes dt [B, S, E] and B_in [B, S, N], "
                          f"got {tuple(dt.shape)}, {tuple(B_in.shape)}")
     Bsz, S, E = dt.shape
     N = B_in.shape[-1]
     if (x.shape != dt.shape or B_in.shape != (Bsz, S, N)
-            or C_in.shape != B_in.shape or A.shape != (E, N)):
+            or C_in.shape != B_in.shape or A.shape[-2:] != (E, N)
+            or A.dim() not in (2, 3)
+            or (A.dim() == 3 and (A.shape[0] < 1 or Bsz % A.shape[0]))):
         raise ValueError(
             f"bad selective-scan shapes dt {tuple(dt.shape)}, B "
             f"{tuple(B_in.shape)}, C {tuple(C_in.shape)}, x "
@@ -649,22 +762,35 @@ def mamba_scan(dt, B_in, C_in, x, A):
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError("mamba_scan has no backward: run the model's "
                            "'scan' route under autograd")
-    if _on_cpu(*ts):
-        return ref.mamba_scan_ref(*ts)
+    if torch._C._are_functorch_transforms_active():
+        return MambaScanFn.apply(*ts)
+    return _mamba_scan(*ts)
+
+
+def _mamba_scan(dt, B_in, C_in, x, A):
+    """The checked :func:`mamba_scan` call: the kernel on CUDA, its plain
+    version on the CPU."""
+    if _on_cpu(dt, B_in, C_in, x, A):
+        return ref.mamba_scan_ref(dt, B_in, C_in, x, A)
+    ts = (dt, B_in, C_in, x, A)
     if any(t.dtype != torch.float32 for t in ts):
         raise ValueError(f"mamba_scan takes f32 operands, got "
                          f"{[str(t.dtype) for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("mamba_scan operands must be contiguous")
+    Bsz, S, E = dt.shape
+    N = B_in.shape[-1]
     if N not in MAMBA_STATE_DIMS or S < 1:
         raise ValueError(f"the selective-scan kernel takes N in "
                          f"{MAMBA_STATE_DIMS} and S >= 1, got N={N}, S={S}")
+    a_rows = Bsz // A.shape[0] if A.dim() == 3 else Bsz
     lib = build.load()
     y = torch.empty_like(dt)
     h_last = torch.empty((Bsz, E, N), dtype=torch.float32, device=dt.device)
     rc = lib.mamba_scan(dt.data_ptr(), B_in.data_ptr(), C_in.data_ptr(),
                         x.data_ptr(), A.data_ptr(), y.data_ptr(),
-                        h_last.data_ptr(), Bsz, S, E, N, _stream(dt))
+                        h_last.data_ptr(), Bsz, S, E, N, max(a_rows, 1),
+                        _stream(dt))
     build.check(lib, rc, "mamba_scan")
     mamba_scan.launches += 1
     return y, h_last

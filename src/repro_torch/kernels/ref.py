@@ -44,12 +44,15 @@ def fixture_double_ref(x):
 def mamba_scan_ref(dt, B_in, C_in, x, A):
     """Serial selective scan (``repro.kernels.ref.mamba_scan_ref``).
 
-    dt, x [B, S, E] (dt after softplus); B_in, C_in [B, S, N]; A [E, N].
+    dt, x [B, S, E] (dt after softplus); B_in, C_in [B, S, N]; A [E, N], or
+    [G, E, N] for G runs of B / G rows each (the kernel's per-member A).
     ``h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t``, ``y_t = <h_t, C_t>``
     from h = 0.  Returns (y [B, S, E] f32, h_last [B, E, N] f32)."""
     B, S, E = dt.shape
     N = B_in.shape[-1]
     dt, B_in, C_in, x, A = (t.float() for t in (dt, B_in, C_in, x, A))
+    if A.dim() == 3:
+        A = A.repeat_interleave(B // A.shape[0], 0)         # [B, E, N]
     h = torch.zeros((B, E, N), dtype=torch.float32, device=dt.device)
     ys = []
     for t in range(S):

@@ -51,6 +51,7 @@ from repro_torch.data import (TaskSpec, dirichlet_partition, iid_partition,
                               make_task_fns, pretrain_batches, sample_dataset,
                               single_label_partition, subset)
 from repro_torch.fault import FaultPlan
+from repro_torch.fault.plan import kill_now
 from repro_torch.launch import mesh as M
 from repro_torch.models import Model, ModelCtx
 
@@ -151,7 +152,14 @@ def main(argv=None):
     if torch.distributed.is_initialized() or M.torchrun_env() is not None:
         with M.process_group(device_type) as dev:
             return _rank(dev, a)
-    M.spawn(_rank, mc.n_devices, device_type, a)
+    try:
+        M.spawn(_rank, mc.n_devices, device_type, a)
+    except RuntimeError as e:
+        # a --kill-at-round run's ranks SIGKILL themselves mid-round; the
+        # launcher then dies by SIGKILL too, as a one-process run does
+        if a.kill_at_round is not None and "exited with code -9" in str(e):
+            kill_now()
+        raise
 
 
 def _rank(dev, a):

@@ -422,14 +422,26 @@ def test_not_applicable_rows_equal_the_jax_registry():
 
 
 def test_zo_train_loop_is_one_record_per_kernel_launch():
+    from repro_torch.core.dispatch import get_backing
+    from repro_torch.core.fl_step import stacks_forwards
+    from repro_torch.analysis.registry import _tiny_lm
+    _, _, params, space = _tiny_lm(CPU)
+    assert stacks_forwards(None, get_backing(space, params))
     built = programs_by_name(["zo_train_loop"])[0].build(CPU)
     trace = Artifacts(built, CPU).trace()
-    names = [r.name for r in trace.records if r.kind == "kernel"]
-    # 2 steps: one dual perturb, two forwards of 2 layers, one update each
+    records = [r for r in trace.records if r.kind == "kernel"]
+    names = [r.name for r in records]
+    # the program's TINY (d_model 256) is under STACK_FORWARDS_MAX_PARAMS:
+    # the auto rule stacks the (w+, w-) pair, so each of the 2 steps is one
+    # dual perturb, one stacked forward of 2 layers whose flash attention is
+    # one folded record a layer, and one update
     assert names.count("kernel:zo_dual_perturb_flat") == 2
     assert names.count("kernel:zo_fused_update_flat") == 2
-    assert names.count("kernel:flash_attention") == 8
+    assert names.count("kernel:flash_attention") == 4
     assert not trace.raised
+    # a folded record carries the launch made: the pair's 2 x 2 rows
+    flash = [r for r in records if r.name == "kernel:flash_attention"]
+    assert all(l.grid[1] == 4 for r in flash for l in r.launches)
 
 
 # ------------------------------------------------------- report schema ------

@@ -418,31 +418,54 @@ def test_config_mismatch_refused(prob, tmp_path):
 
 # -- across processes: the train CLI killed and resumed -----------------------
 
-def _train(ckpt_dir, *extra):
-    args = ["--device", "cpu", "--rounds", "4", "--T", "2", "--clients", "4",
-            "--batch", "4", "--eval-every", "2", "--drop-rate", "0.2",
-            "--late-rate", "0.3", "--fault-seed", "5", "--sample-frac",
-            "0.5", "--quantize", "int8", "--checkpoint-dir", ckpt_dir]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + \
-        env.get("PYTHONPATH", "")
-    return subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
-                           *args, *extra], env=env, capture_output=True,
-                          text=True, timeout=300)
+def _drill_tool():
+    """``tools/kill_recover_torch.py`` as a module (``tools`` is no
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "kill_recover_torch", os.path.join(REPO, "tools",
+                                           "kill_recover_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_train_cli_kill_and_resume_bitexact(tmp_path):
-    clean, killed = str(tmp_path / "clean"), str(tmp_path / "killed")
-    done = _train(clean)
-    assert done.returncode == 0, done.stderr[-2000:]
-    victim = _train(killed, "--kill-at-round", "2")
-    assert victim.returncode == -9, (victim.returncode, victim.stderr[-2000:])
-    assert not os.path.exists(os.path.join(killed, FINAL_NAME))
-    resumed = _train(killed, "--resume")
-    assert resumed.returncode == 0, resumed.stderr[-2000:]
-    assert "resumed from" in resumed.stdout and "at round 2" in resumed.stdout
-    a = open(os.path.join(clean, FINAL_NAME), "rb").read()
-    assert a == open(os.path.join(killed, FINAL_NAME), "rb").read()
+    """The train CLI killed by SIGKILL mid-round 2 and resumed, through
+    ``tools/kill_recover_torch.py``'s three runs: the victim dies by
+    SIGKILL before a final checkpoint, the recovery resumes at round 2,
+    and its final checkpoint equals the uninterrupted run's byte for
+    byte."""
+    KR = _drill_tool()
+    a = KR.parser().parse_args([
+        "--device", "cpu", "--method", "meerkat", "--rounds", "4", "--T",
+        "2", "--clients", "4", "--batch", "4", "--eval-every", "2",
+        "--sample-frac", "0.5", "--quantize", "int8", "--kill-at", "2"])
+    checks = KR.drill(a, str(tmp_path), extra=(
+        "--drop-rate", "0.2", "--late-rate", "0.3", "--fault-seed", "5"),
+        timeout=300)
+    assert checks["ref_completed"] and checks["recovery_completed"], checks
+    assert checks["victim_sigkilled"], checks
+    assert checks["victim_left_no_final"], checks
+    assert checks["resumed_from_kill_round"], checks
+    assert checks["files_bytes_equal"], checks
+    assert KR.passed(checks), checks
+
+
+def test_kill_recover_tool_flags_are_jax_plus_device():
+    """The drill's flags are ``tools/kill_recover.py``'s plus ``--device``
+    (read from both sources' argparse calls; nothing is run)."""
+    import re
+
+    def flags(name):
+        src = open(os.path.join(REPO, "tools", name)).read()
+        return set(re.findall(r'add_argument\(\s*"(--[A-Za-z0-9-]+)"', src))
+
+    assert flags("kill_recover_torch.py") == \
+        flags("kill_recover.py") | {"--device"}
+    assert {a.option_strings[0] for a in _drill_tool().parser()._actions
+            if a.option_strings[0] != "-h"} == \
+        flags("kill_recover.py") | {"--device"}
 
 
 def test_train_cli_mesh_and_tp_write_the_unsharded_checkpoint(tmp_path):

@@ -192,14 +192,25 @@ def test_round_step_matches_jax(setup, jbe, tbe):
 
 
 def test_unported_options_raise(setup):
+    """Nothing of the loop's options is left unported: the quantizer
+    builds, and ``stack_forwards=True`` runs the stacked (w+, w-) forward
+    (once raised here), equal to the sequential forwards' loop within the
+    loss ulps the vmapped forward may move."""
     s = setup
     kw = dict(eps=EPS, lr=LR, n_clients=K)
     # the uplink quantizer is ported (core/quantize.py): it builds
     TF.make_fl_train_step(_t_loss(s["tm"]), s["tspace"],
                           quantize=QuantSpec(8), **kw)
-    with pytest.raises(NotImplementedError, match="vmap"):
-        TF.make_fl_train_loop(_t_loss(s["tm"]), s["tspace"], n_steps=2,
-                              stack_forwards=True, **kw)
-    # None and False both run the two forwards in sequence
-    TF.make_fl_train_loop(_t_loss(s["tm"]), s["tspace"], n_steps=2,
-                          stack_forwards=False, **kw)
+    args = (s["tp"], prng.key(7), {"tokens": torch.as_tensor(
+        s["tokens"][:2])})
+    runs = [TF.make_fl_train_loop(_t_loss(s["tm"]), s["tspace"], n_steps=2,
+                                  backend="kernel", stack_forwards=st,
+                                  **kw)(*args)
+            for st in (True, False)]
+    (p1, g1, m1), (p0, g0, m0) = runs
+    np.testing.assert_allclose(g1.numpy(), g0.numpy(), atol=G_ATOL)
+    np.testing.assert_allclose(float(m1["loss"]), float(m0["loss"]),
+                               rtol=LOSS_RTOL)
+    for a, b in zip(tree_leaves(p1), tree_leaves(p0)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                   atol=2 * PARAM_ATOL)

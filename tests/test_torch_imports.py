@@ -11,7 +11,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("*_torch.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tools" / "kill_recover_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 

@@ -154,11 +154,12 @@ def run_reshape(prob, plan, bundle, tag):
                 twin=flat(twin.full_params()))
 
 
-def run_loop(prob, plan, bundle):
-    """make_fl_train_loop: LOOP_STEPS steps of 4 clients x LOOP_B rows."""
+def run_loop(prob, plan, bundle, stack_forwards=None):
+    """make_fl_train_loop: LOOP_STEPS steps of 4 clients x LOOP_B rows
+    (TINY: the auto rule stacks the (w+, w-) forwards)."""
     loop = make_fl_train_loop(
         prob["per_example"], prob["space"], eps=1e-3, lr=5e-2, n_clients=4,
-        n_steps=LOOP_STEPS,
+        n_steps=LOOP_STEPS, stack_forwards=stack_forwards,
         constrain_params=None if plan is None else plan.constrain_params_fn())
     params = prob["params"] if plan is None else \
         plan.place_params(prob["params"])
@@ -330,11 +331,13 @@ def tp_scenarios(dev, bundle, spec, unsharded=False):
                                                 TP_PLAIN),
                                 kernel=run_plain(prob, None, bundle,
                                                  TP_KERNEL),
-                                loop=run_loop(prob, None, bundle))
+                                loop=run_loop(prob, None, bundle, False))
+    # the tp loop runs its forwards in sequence: stacking them raises on
+    # DTensor parameters (ROADMAP C9)
     out.update(
         plain=run_plain(prob, plan, bundle, TP_PLAIN),
         kernel=run_plain(prob, plan, bundle, TP_KERNEL),
-        loop=run_loop(prob, plan, bundle),
+        loop=run_loop(prob, plan, bundle, False),
         serve=tp_serve(prob, plan, bundle),
         serve_seq=tp_serve(prob, plan, bundle, seq_shard=True),
         moe=tp_moe(plan, bundle, dev))
